@@ -1,0 +1,380 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (tetsim_torch) once on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root, one CUDA card
+
+Phases, one line each; any failure raises and the exit code is non-zero:
+  1. the card (nvidia-smi name and power limit) and the kernel build;
+  2. the fused frame kernel vs its plain-torch twin on the card, greedy
+     schedule, 8 jittered dragons, 3 frames, and a mesh wider than a block;
+  3. the same for one dragon Body on the ordered schedule, 1 frame, and
+     in contact: dragons resting on the ground after 120 frames (ordered
+     B=1 1 frame, greedy B=8 3 frames) and two dragons pushed past the
+     side walls of the world at friction k = 0.1, 2 frames, so the clamp,
+     friction and bound clip of the kernel are held to the plain twin too;
+  4. the main path through the user entry points (README quick start):
+     World(device="cuda") -> add_body(load_dragon()) -> step -> grab ->
+     surface_mesh -> diagnostics, then the same with add_body_batch; the
+     kernel's launch counter must rise by exactly the frames stepped, and
+     stepping must not synchronise with the host;
+  5. dragon substeps/s of the kernel and the plain twin, side by side.
+Then a JSON line with the kernel's numbers and, last, the device line.
+It exits non-zero, printing no result, where CUDA is unavailable.
+"""
+import contextlib
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def max_diff(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def plain(gs_fused, pos, vel, arrays, params, gid, gpos, frames):
+    """``frames`` frames of the plain twin; returns (pos, vel, vol_err)."""
+    for _ in range(frames):
+        pos, _, vel, err = gs_fused.gs_frame_reference(
+            pos, vel, arrays, params, gid, gpos)
+    sync()
+    return pos, vel, err
+
+
+def kernel_vs_plain(tt, gs_fused, dragon, params):
+    """Phases 2 and 3 before contact: returns the largest position
+    difference."""
+    from tetsim_torch.world import Body
+
+    body = gs_fused.FusedGSBody(dragon, num_bodies=8, jitter=0.2,
+                                device="cuda")
+    pos, vel = body.pos, body.vel
+    body.step(params, frames=3)
+    pos, vel, err = plain(gs_fused, pos, vel, body.arrays, params,
+                          body.grab_id, body.grab_pos, 3)
+    dp, dv = max_diff(body.pos, pos), max_diff(body.vel, vel)
+    de = max_diff(body.last_diag, err)
+    print(f"phase 2 greedy B=8 3 frames: kernel vs plain max|dpos| {dp:.3e} "
+          f"(tol 2e-4) max|dvel| {dv:.3e} (tol 2e-2) max|dvol_err| {de:.3e} "
+          "(tol 1e-5)", flush=True)
+    check(dp <= 2e-4 and dv <= 2e-2 and de <= 1e-5, "phase 2 disagrees")
+
+    # a mesh wider than the block (C > 256 slots) needing > 48 KB of shared
+    # memory: 12^3 cubes, 2,197 particles, 79 KB
+    box = tt.grid_mesh(12, 12, 12, cell=0.08, origin=(-0.48, 0.5, -0.48))
+    wide = gs_fused.FusedGSBody(box, num_bodies=2, jitter=0.1, device="cuda")
+    pos, vel = wide.pos, wide.vel
+    wide.step(params, frames=2)
+    pos, _, _ = plain(gs_fused, pos, vel, wide.arrays, params, wide.grab_id,
+                      wide.grab_pos, 2)
+    dw = max_diff(wide.pos, pos)
+    L, C = wide.arrays.slot_valid.shape
+    print(f"phase 2 wide mesh (N={box.num_particles}, L={L}, C={C}, "
+          f"{gs_fused.smem_bytes(box.num_particles)} B shared) B=2 2 frames: "
+          f"kernel vs plain max|dpos| {dw:.3e} (tol 2e-4)", flush=True)
+    check(dw <= 2e-4, "phase 2 wide mesh disagrees")
+    dp = max(dp, dw)
+
+    one = Body(dragon, device="cuda")
+    s0 = one.state
+    one.step(params)
+    rp, rv, rerr = plain(gs_fused, s0.pos[None], s0.vel[None], one.arrays,
+                         params, *no_grab(1), 1)
+    dp1 = max_diff(one.state.pos, rp[0])
+    de1 = max_diff(one.last_diag, rerr[0])
+    print(f"phase 3 ordered B=1 1 frame: kernel vs plain max|dpos| {dp1:.3e} "
+          f"(tol 2e-5) max|dvel| {max_diff(one.state.vel, rv[0]):.3e} "
+          f"max|dvol_err| {de1:.3e} (tol 1e-5); "
+          f"L={one.arrays.slot_valid.shape[0]}", flush=True)
+    check(dp1 <= 2e-5 and de1 <= 1e-5, "phase 3 disagrees")
+
+    # a pinned particle (the predict gate) and two grabs on one body
+    box = tt.grid_mesh(3, 3, 3, cell=0.25, origin=(-0.375, 0.5, -0.375))
+    pinned = Body(box, pinned=[0], device="cuda")
+    targets = [[0.2, 1.4, 0.1], [-0.3, 1.2, 0.0]]
+    pinned.controls = tt.Controls(
+        grab_id=torch.tensor([5, 40], dtype=torch.int32, device="cuda"),
+        grab_pos=torch.tensor(targets, device="cuda"))
+    s0 = pinned.state
+    pinned.step_many(params, 2)
+    pos, _, _ = plain(gs_fused, s0.pos[None], s0.vel[None], pinned.arrays,
+                      params, pinned.controls.grab_id[None],
+                      pinned.controls.grab_pos[None], 2)
+    got = pinned.state.pos
+    dp2 = max_diff(got, pos[0])
+    print(f"phase 3 pinned + 2 grabs, ordered B=1 2 frames: kernel vs plain "
+          f"max|dpos| {dp2:.3e} (tol 2e-5)", flush=True)
+    check(dp2 <= 2e-5, "phase 3 pinned/grabs disagree")
+    check(torch.equal(got[0], s0.pos[0]), "pinned particle moved")
+    check(torch.equal(got[[5, 40]], torch.tensor(targets, device="cuda")),
+          "grabbed particles off target")
+    return max(dp, dp1, dp2)
+
+
+def contact_vs_plain(tt, gs_fused, dragon, params):
+    """Phase 3 in contact: the ground clamp, friction and the world's side
+    bounds, kernel vs plain from the same state.  Returns the largest
+    position difference."""
+    from tetsim_torch.world import Body
+
+    # one dragon resting on the ground after 120 frames, ordered, 1 frame
+    # (a second frame from this state takes the kernel alone 6e-5 apart
+    # from inputs 1 ulp apart, past the bound; see PERF.md)
+    one = Body(dragon, device="cuda")
+    one.step_many(params, 120)
+    s0 = one.state
+    one.step(params)
+    rp, _, rerr = plain(gs_fused, s0.pos[None], s0.vel[None], one.arrays,
+                        params, *no_grab(1), 1)
+    ulp = torch.nextafter(s0.pos, torch.full_like(s0.pos, 10.0))
+    kp, _, _, _ = gs_fused.gs_frame(ulp[None], s0.vel[None], one.arrays,
+                                    params, *no_grab(1))
+    dp1 = max_diff(one.state.pos, rp[0])
+    de1 = max_diff(one.last_diag, rerr[0])
+    dn1 = max_diff(one.state.pos, kp[0])
+    ground = int((rp[0, :, 1] == 0).sum())
+    print(f"phase 3 contact, ordered B=1 resting, 1 frame: kernel vs plain "
+          f"max|dpos| {dp1:.3e} (tol 2e-5) max|dvol_err| {de1:.3e} "
+          f"(tol 1e-5); kernel vs kernel from 1 ulp apart {dn1:.3e}; "
+          f"{ground} particles on the ground", flush=True)
+    check(ground > 0, "the resting dragon does not touch the ground")
+    check(dp1 <= 2e-5 and de1 <= 1e-5, "phase 3 contact (ordered) disagrees")
+
+    # 8 jittered dragons resting after 120 frames, greedy, 3 frames
+    body = gs_fused.FusedGSBody(dragon, num_bodies=8, jitter=0.2,
+                                device="cuda")
+    body.step(params, 120)
+    pos, vel = body.pos, body.vel
+    body.step(params, 3)
+    pos, vel, err = plain(gs_fused, pos, vel, body.arrays, params,
+                          body.grab_id, body.grab_pos, 3)
+    dp8, dv8 = max_diff(body.pos, pos), max_diff(body.vel, vel)
+    de8 = max_diff(body.last_diag, err)
+    grounded = int((pos[..., 1] == 0).any(dim=1).sum())
+    print(f"phase 3 contact, greedy B=8 resting, 3 frames: kernel vs plain "
+          f"max|dpos| {dp8:.3e} (tol 2e-4) max|dvel| {dv8:.3e} (tol 2e-2) "
+          f"max|dvol_err| {de8:.3e} (tol 1e-5); {grounded} of 8 bodies on "
+          "the ground", flush=True)
+    check(grounded == 8, "a resting dragon does not touch the ground")
+    check(dp8 <= 2e-4 and dv8 <= 2e-2 and de8 <= 1e-5,
+          "phase 3 contact (greedy) disagrees")
+
+    # two dragons pushed past the side walls at friction k = dt * 30 = 0.1:
+    # body 0 starts 2 mm past +x moving at +1 m/s; body 1 starts 2 mm past
+    # -z and 2 mm below the ground, moving at -1 m/s in z
+    slip = dataclasses.replace(params, friction=30.0)
+    lo, hi = params.world_min, params.world_max
+    v = dragon.verts
+    shift = torch.tensor(
+        [[hi[0] + 0.002 - v[:, 0].max(), 0.0, 0.0],
+         [0.0, -0.002 - v[:, 1].min(), lo[2] - 0.002 - v[:, 2].min()]],
+        dtype=torch.float32, device="cuda")
+    wall = gs_fused.FusedGSBody(dragon, num_bodies=2, device="cuda")
+    wall.pos = wall.pos + shift[:, None]
+    wall.vel[0, :, 0] = 1.0
+    wall.vel[1, :, 2] = -1.0
+    pos, vel = wall.pos, wall.vel
+    wall.step(slip, 2)
+    pos, _, _ = plain(gs_fused, pos, vel, wall.arrays, slip, wall.grab_id,
+                      wall.grab_pos, 2)
+    dw = max_diff(wall.pos, pos)
+    at_x = int((pos[0, :, 0] == float(hi[0])).sum())
+    at_z = int((pos[1, :, 2] == float(lo[2])).sum())
+    ground = int((pos[1, :, 1] == 0).sum())
+    print(f"phase 3 contact, greedy B=2 past the walls, friction k=0.1, "
+          f"2 frames: kernel vs plain max|dpos| {dw:.3e} (tol 2e-4); "
+          f"{at_x} particles at +x, {at_z} at -z, {ground} on the ground",
+          flush=True)
+    check(at_x > 0 and at_z > 0 and ground > 0, "the walls were not reached")
+    check(dw <= 2e-4, "phase 3 contact (walls) disagrees")
+    return max(dp1, dp8, dw)
+
+
+def main_path(tt, gs_fused, dragon):
+    """Phase 4: returns (launches, seconds)."""
+    params = tt.default_cpu_params()
+    lo, hi = params.world_min - 1e-5, params.world_max + 1e-5
+    gs_fused.launch_count = 0
+    t0 = time.perf_counter()
+
+    world = tt.World(tt.default_cpu_params(), device="cuda")
+    body = world.add_body(dragon)
+    with no_host_sync():
+        world.step(120)
+    pid = body.start_grab([0.0, 1.0, 0.5])
+    target = np.float32([0.0, 1.5, 0.5])
+    body.move_grabbed(target)
+    world.step(30)
+    pos = body.positions
+    body.end_grab()
+    verts, normals, tris = body.surface_mesh()
+    diag = world.diagnostics()["body0"]
+    check(gs_fused.launch_count == 150,
+          f"Body: {gs_fused.launch_count} kernel launches for 150 frames")
+    check(np.isfinite(pos).all() and pos.shape == (1234, 3), "Body positions")
+    check(pos[:, 1].min() >= -1e-5, "Body below the ground")
+    check(((pos >= lo) & (pos <= hi)).all(), "Body outside the world bounds")
+    check(np.abs(pos[pid] - target).max() <= 1e-6, "grabbed particle off target")
+    check(verts.shape == (29800, 3) and tris.shape == (59657, 3), "surface shape")
+    check(np.isfinite(verts).all(), "surface not finite")
+    check(np.abs(np.linalg.norm(normals, axis=1) - 1.0).max() < 1e-4, "normals")
+    check(not diag["nan"] and diag["min_height"] >= -1e-5, f"diagnostics {diag}")
+    print(f"phase 4 World/Body: 150 frames, {gs_fused.launch_count} launches, "
+          f"grab pid {pid} at target, min y {diag['min_height']:.4f}, "
+          f"volume_error {diag['volume_error']:.3e}", flush=True)
+
+    world = tt.World(tt.default_cpu_params(), device="cuda")
+    batch = world.add_body_batch(dragon, 8, engine="neohookean", backend="fused")
+    with no_host_sync():
+        world.step(120)
+    bpid = batch.start_grab(3, [0.0, 1.0, 0.5])
+    batch.move_grabbed(3, target)
+    world.step(30)
+    bpos = batch.positions()
+    batch.end_grab(3)
+    bdiag = world.diagnostics()["body0"]
+    seconds = time.perf_counter() - t0
+    check(gs_fused.launch_count == 300,
+          f"batch: {gs_fused.launch_count - 150} kernel launches for 150 frames")
+    check(np.isfinite(bpos).all() and bpos.shape == (8, 1234, 3), "batch positions")
+    check(bpos[..., 1].min() >= -1e-5, "batch below the ground")
+    check(((bpos >= lo) & (bpos <= hi)).all(), "batch outside the world bounds")
+    check(np.abs(bpos[3, bpid] - target).max() <= 1e-6, "batch grab off target")
+    check(np.array_equal(bpos[0], bpos[7]), "ungrabbed bodies differ")
+    check(not bdiag["nan"] and bdiag["batch"] == 8, f"diagnostics {bdiag}")
+    print(f"phase 4 add_body_batch x8: 150 frames, {gs_fused.launch_count - 150} "
+          f"launches, grab pid {bpid} of body 3 at target, min y "
+          f"{bdiag['min_height']:.4f}; both worlds {seconds:.2f} s", flush=True)
+    return gs_fused.launch_count, seconds
+
+
+def per_frame(step, state_sum, k1, k2):
+    """Two-point fit over k1 and k2 frames, each run ending in a
+    data-dependent sync (a device sum brought to the host)."""
+    step(1)
+    float(state_sum())  # warm-up
+
+    def run(k):
+        t0 = time.perf_counter()
+        step(k)
+        float(state_sum())
+        return time.perf_counter() - t0
+
+    return (run(k2) - run(k1)) / (k2 - k1)
+
+
+def timings(tt, gs_fused, dragon, label):
+    """Phase 5: returns {case: (kernel ms/frame, plain ms/frame)}."""
+    from tetsim_torch.world import Body
+
+    params = tt.default_cpu_params()
+    out = {}
+    cases = (("B=1 greedy", 1, True), ("B=8 greedy", 8, True),
+             ("B=1 ordered", 1, False))
+    for name, b, greedy in cases:
+        if greedy:
+            body = gs_fused.FusedGSBody(dragon, num_bodies=b, device="cuda")
+            arrays, gid, gpos = body.arrays, body.grab_id, body.grab_pos
+            k_ms = per_frame(lambda k: body.step(params, k),
+                             lambda: body.pos.sum(), 50, 550)
+            pos, vel = body.pos, body.vel
+        else:
+            body = Body(dragon, device="cuda")
+            arrays = body.arrays
+            gid, gpos = no_grab(1)
+            k_ms = per_frame(lambda k: body.step_many(params, k),
+                             lambda: body.state.pos.sum(), 20, 120)
+            pos, vel = body.state.pos[None], body.state.vel[None]
+        plain = {"pos": pos, "vel": vel}
+
+        def plain_step(k):
+            for _ in range(k):
+                plain["pos"], _, plain["vel"], _ = gs_fused.gs_frame_reference(
+                    plain["pos"], plain["vel"], arrays, params, gid, gpos)
+
+        kp = (1, 3) if not greedy else (2, 8)
+        p_ms = per_frame(plain_step, lambda: plain["pos"].sum(), *kp)
+        k_ms, p_ms = k_ms * 1e3, p_ms * 1e3
+        out[name] = (k_ms, p_ms)
+        s = params.num_substeps
+        print(f"phase 5 [{label}] dragon {name}: kernel {s / k_ms * 1e3:.1f} "
+              f"substeps/s ({k_ms:.4f} ms/frame), plain torch "
+              f"{s / p_ms * 1e3:.1f} substeps/s ({p_ms:.4f} ms/frame)",
+              flush=True)
+    return out
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Stepping must not wait for the device: any synchronising CUDA call
+    inside the block raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def no_grab(b):
+    return (torch.full((b, 1), -1, dtype=torch.int32, device="cuda"),
+            torch.zeros((b, 1, 3), device="cuda"))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    import tetsim_torch as tt
+    from tetsim_torch.kernels import build, gs_fused
+
+    label = card()
+    print(label, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.perf_counter()
+    build.load("gs_frame")
+    print(f"phase 1 build: csrc/gs_frame.cu with nvcc (sm_90a) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    dragon = tt.load_dragon()
+    params = tt.default_cpu_params()
+    err = max(kernel_vs_plain(tt, gs_fused, dragon, params),
+              contact_vs_plain(tt, gs_fused, dragon, params))
+    launches, _ = main_path(tt, gs_fused, dragon)
+    times = timings(tt, gs_fused, dragon, label)
+    k_ms, p_ms = times["B=1 ordered"]
+    print(json.dumps({"kernels": [{
+        "name": "gs_frame", "route": "cuda",
+        "source": "tetsim_torch/kernels/csrc/gs_frame.cu",
+        "replaces": "tetsim_tpu/kernels/gs_fused.py:133",
+        "launches": launches, "max_abs_err": err,
+        "ms": k_ms, "plain_ms": p_ms,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,40 @@
+"""tetsim_torch — the PyTorch/CUDA port of tetsim_tpu.
+
+The same XPBD tetrahedral soft-body simulator on one NVIDIA GPU: stable
+Neo-Hookean XPBD with graph-coloured Gauss-Seidel, ground/bounds collision
+with friction, grab constraints, barycentric surface skinning and batched
+bodies.  Plain torch runs on the CPU; on CUDA tensors the whole frame is one
+launch of a hand-written kernel (``kernels/csrc/gs_frame.cu``).  The package
+imports neither jax nor tetsim_tpu; it reads the dragon asset and the C++
+colouring source of ``tetsim_tpu/`` by path.
+"""
+from .params import PhysicsParams, default_cpu_params, default_gpu_params
+from .state import SimState, Controls, init_state
+from .mesh import TetMesh, TetArrays, load_dragon, grid_mesh, build_arrays
+from .solvers import get_engine
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "PhysicsParams",
+    "default_cpu_params",
+    "default_gpu_params",
+    "SimState",
+    "Controls",
+    "init_state",
+    "TetMesh",
+    "TetArrays",
+    "load_dragon",
+    "grid_mesh",
+    "build_arrays",
+    "get_engine",
+    "World",
+]
+
+
+def __getattr__(name):
+    if name == "World":
+        from .world import World
+
+        return World
+    raise AttributeError(name)

@@ -1,0 +1,84 @@
+"""Diagnostics (counterpart of ``tetsim_tpu/diag.py``): volume error,
+kinetic energy, speed and height of a body, as device tensors;
+``summarize`` brings them to the host in one transfer."""
+from __future__ import annotations
+
+import math
+import time
+
+import torch
+
+from .mesh import TetArrays
+from .state import SimState
+from .utils import mat3
+
+
+def volume_error(state: SimState, arr: TetArrays):
+    """Mean (det F - 1) over tets — the reference's volError diagnostic."""
+    p = state.pos[arr.tets.long()]  # [M,4,3]
+    d = torch.stack(
+        [p[..., 1, :] - p[..., 0, :], p[..., 2, :] - p[..., 0, :],
+         p[..., 3, :] - p[..., 0, :]],
+        dim=-1,
+    )
+    f = mat3.matmul(d, arr.inv_rest_pose)
+    return (mat3.det(f) - 1.0).mean()
+
+
+def kinetic_energy(state: SimState, arr: TetArrays):
+    """0.5 * sum m |v|^2 (pinned particles with inv_mass 0 excluded)."""
+    im = arr.inv_mass
+    m = torch.where(im > 0, 1.0 / im.clamp(min=1e-30), 0.0)
+    return 0.5 * (m * (state.vel ** 2).sum(dim=-1)).sum()
+
+
+def max_speed(state: SimState):
+    return torch.linalg.vector_norm(state.vel, dim=-1).max()
+
+
+def min_height(state: SimState):
+    return state.pos[..., 1].min()
+
+
+class Timer:
+    """Rolling substeps/sec meter."""
+
+    def __init__(self):
+        self._time = time.perf_counter
+        self.reset()
+
+    def reset(self):
+        self._t0 = self._time()
+        self._substeps = 0
+
+    def tick(self, num_substeps: int):
+        self._substeps += num_substeps
+
+    @property
+    def substeps_per_sec(self) -> float:
+        dt = self._time() - self._t0
+        return self._substeps / dt if dt > 0 else 0.0
+
+
+def summarize(state: SimState, arr: TetArrays, frame_diag=None) -> dict:
+    """Diagnostics of one body as Python numbers.  ``frame_diag`` is the
+    last frame's vol_errs [num_substeps]; its last entry becomes
+    ``solver_vol_error`` when finite."""
+    vals = [
+        volume_error(state, arr), kinetic_energy(state, arr),
+        max_speed(state), min_height(state),
+        torch.isnan(state.pos).any().to(torch.float32),
+    ]
+    if frame_diag is not None and frame_diag.numel():
+        vals.append(frame_diag.reshape(-1)[-1])
+    host = torch.stack(vals).tolist()  # one device -> host transfer
+    out = {
+        "volume_error": host[0],
+        "kinetic_energy": host[1],
+        "max_speed": host[2],
+        "min_height": host[3],
+        "nan": bool(host[4]),
+    }
+    if len(host) > 5 and math.isfinite(host[5]):
+        out["solver_vol_error"] = host[5]
+    return out

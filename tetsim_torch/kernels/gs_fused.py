@@ -1,0 +1,264 @@
+"""Fused coloured Gauss-Seidel frame for B bodies of one mesh (counterpart
+of ``tetsim_tpu/kernels/gs_fused.py``).
+
+``gs_frame`` runs one whole frame (every substep: predict, every colour
+level, collide, grab, velocity update) for a batch of bodies.  On CUDA
+tensors it launches the hand-written kernel ``csrc/gs_frame.cu`` once; on
+CPU tensors it runs ``gs_frame_reference``, the same frame in plain torch
+built from ``solvers/neohookean.py``.  ``launch_count`` counts the kernel's
+launches.
+
+The kernel keeps a body's particle state in one block's shared memory, so
+a mesh fits when its 9 f32 planes do (``check_fits``).  It reads the
+slot-major tables of ``TetArrays`` as they are, for any number of levels:
+the greedy schedule (fewest levels) for ``FusedGSBody`` and the ordered
+one for ``Body``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..mesh import TetArrays, TetMesh, build_arrays
+from ..params import PhysicsParams
+from ..solvers import neohookean
+from . import build
+
+THREADS = 256  # threads per block, as kThreads in csrc/gs_frame.cu
+SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (227 KB)
+
+launch_count = 0  # launches of the CUDA kernel since import (or reset)
+
+
+def smem_bytes(num_particles: int) -> int:
+    """Shared memory of one block: 9 particle planes + one float per warp."""
+    return 4 * (9 * num_particles + THREADS // 32)
+
+
+def check_fits(num_particles: int) -> None:
+    need = smem_bytes(num_particles)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"the fused frame kernel keeps a body in shared memory: "
+            f"{num_particles} particles need {need} bytes, a Hopper block "
+            f"has {SMEM_LIMIT} (at most {(SMEM_LIMIT // 4 - THREADS // 32) // 9} "
+            "particles); use the neohookean engine on a smaller mesh"
+        )
+
+
+class _FrameParams(ctypes.Structure):
+    _fields_ = [
+        ("dt", ctypes.c_float), ("gdt", ctypes.c_float),
+        ("k_fric", ctypes.c_float), ("dev_scale", ctypes.c_float),
+        ("vol_scale", ctypes.c_float), ("gamma", ctypes.c_float),
+        ("wmin", ctypes.c_float * 3), ("wmax", ctypes.c_float * 3),
+    ]
+
+
+def _frame_params(params: PhysicsParams) -> _FrameParams:
+    """The frame's scalars in f32, with the plain path's operation order."""
+    dt = params.dt
+    dt2 = dt * dt
+    return _FrameParams(
+        dt, params.gravity * dt,
+        np.minimum(np.float32(1.0), dt * params.friction),
+        params.dev_compliance / dt2, params.vol_compliance / dt2,
+        params.gamma,
+        (ctypes.c_float * 3)(*params.world_min),
+        (ctypes.c_float * 3)(*params.world_max),
+    )
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("gs_frame")
+    if lib.gs_frame_launch.argtypes is None:
+        lib.gs_frame_launch.argtypes = (
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+            + [_FrameParams, ctypes.c_void_p]
+        )
+        lib.gs_frame_launch.restype = ctypes.c_int
+        lib.gs_frame_error_string.argtypes = [ctypes.c_int]
+        lib.gs_frame_error_string.restype = ctypes.c_char_p
+        lib.gs_frame_threads.restype = ctypes.c_int
+        if lib.gs_frame_threads() != THREADS:
+            raise RuntimeError("csrc/gs_frame.cu kThreads != gs_fused.THREADS")
+    return lib
+
+
+def _expect(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(
+            f"{name}: expected {dtype} {list(shape)} on {device}, got "
+            f"{t.dtype} {list(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _gs_frame_cuda(pos, vel, arr: TetArrays, params: PhysicsParams,
+                   grab_id, grab_pos):
+    global launch_count
+    dev = pos.device
+    if dev.type != "cuda":
+        raise ValueError(f"the fused frame kernel runs on CUDA, not {dev}")
+    if arr.slot_tets is None:
+        raise ValueError("the fused frame kernel needs a GS schedule "
+                         "(build_arrays(..., coloring='ordered'|'greedy'))")
+    B, N = pos.shape[0], arr.num_particles
+    L, C = arr.slot_valid.shape
+    G = grab_id.shape[-1]
+    S = params.num_substeps
+    check_fits(N)
+    f32 = torch.float32
+    _expect(pos, "pos", f32, (B, N, 3), dev)
+    _expect(vel, "vel", f32, (B, N, 3), dev)
+    _expect(grab_id, "grab_id", torch.int32, (B, G), dev)
+    _expect(grab_pos, "grab_pos", f32, (B, G, 3), dev)
+    _expect(arr.slot_tets, "slot_tets", torch.int32, (L, C, 4), dev)
+    _expect(arr.slot_inv_rest_pose, "slot_inv_rest_pose", f32, (L, C, 3, 3), dev)
+    _expect(arr.slot_inv_rest_volume, "slot_inv_rest_volume", f32, (L, C), dev)
+    _expect(arr.slot_inv_mass, "slot_inv_mass", f32, (L, C, 4), dev)
+    _expect(arr.slot_valid, "slot_valid", torch.bool, (L, C), dev)
+    _expect(arr.inv_mass, "inv_mass", f32, (N,), dev)
+    for t in (arr.slot_tets, arr.slot_inv_mass):  # read as int4 / float4
+        if t.data_ptr() % 16:
+            raise ValueError("slot tables must be 16-byte aligned")
+
+    lib = _library()
+    pos_out, prev_out, vel_out = (torch.empty_like(pos) for _ in range(3))
+    vol_err = torch.empty((B, S), dtype=f32, device=dev)
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = lib.gs_frame_launch(
+            pos.data_ptr(), vel.data_ptr(), pos_out.data_ptr(),
+            prev_out.data_ptr(), vel_out.data_ptr(), vol_err.data_ptr(),
+            arr.slot_tets.data_ptr(), arr.slot_inv_rest_pose.data_ptr(),
+            arr.slot_inv_rest_volume.data_ptr(), arr.slot_inv_mass.data_ptr(),
+            arr.slot_valid.data_ptr(), arr.inv_mass.data_ptr(),
+            grab_id.data_ptr(), grab_pos.data_ptr(),
+            B, N, L, C, G, S, arr.num_tets, _frame_params(params),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"gs_frame launch failed: {lib.gs_frame_error_string(err).decode()}"
+        )
+    launch_count += 1
+    return pos_out, prev_out, vel_out, vol_err
+
+
+def gs_frame_reference(pos, vel, arr: TetArrays, params: PhysicsParams,
+                       grab_id, grab_pos):
+    """The frame in plain torch on any device: pos/vel [B,N,3], grabs
+    grab_id int32 [B,G] and grab_pos [B,G,3].
+    Returns (pos, prev_pos, vel, vol_err [B, num_substeps])."""
+    dt = params.dt
+    prev_pos = pos
+    errs = []
+    for _ in range(params.num_substeps):
+        pos, prev_pos, vel, err = neohookean.substep_positions(
+            pos, vel, arr, params, dt, grab_id, grab_pos
+        )
+        errs.append(err)
+    vol_err = (torch.stack(errs, dim=-1) if errs
+               else pos.new_zeros((pos.shape[0], 0)))
+    return pos, prev_pos, vel, vol_err
+
+
+def gs_frame(pos, vel, arr: TetArrays, params: PhysicsParams, grab_id,
+             grab_pos):
+    """One frame for B bodies (see ``gs_frame_reference`` for shapes).
+    CPU tensors take the plain path; any other device launches the CUDA
+    kernel or raises."""
+    if pos.device.type == "cpu":
+        return gs_frame_reference(pos, vel, arr, params, grab_id, grab_pos)
+    return _gs_frame_cuda(pos, vel, arr, params, grab_id, grab_pos)
+
+
+class FusedGSBody:
+    """A batch of bodies of one mesh stepped by the fused frame kernel, one
+    launch per frame for the whole batch, each body with its own grab.
+
+    State is [B,N,3] tensors on ``device``; ``jitter`` offsets each body by
+    a seeded random translation (y kept non-negative)."""
+
+    def __init__(
+        self,
+        mesh: TetMesh,
+        num_bodies: int = 8,
+        density: float = 1000.0,
+        coloring: str = "greedy",
+        jitter: float = 0.0,
+        seed: int = 0,
+        device="cpu",
+    ):
+        check_fits(mesh.num_particles)
+        self.mesh = mesh
+        self.num_bodies = num_bodies
+        self.device = torch.device(device)
+        self.arrays = build_arrays(mesh, density, coloring, device=self.device)
+        verts = np.repeat(mesh.verts.astype(np.float32)[None], num_bodies, axis=0)
+        if jitter:
+            rng = np.random.RandomState(seed)
+            off = rng.uniform(-jitter, jitter, (num_bodies, 3)).astype(np.float32)
+            off[:, 1] = np.abs(off[:, 1])  # keep above ground
+            verts = verts + off[:, None, :]
+        self.pos = torch.as_tensor(verts).to(self.device)
+        self.prev_pos = self.pos.clone()
+        self.vel = torch.zeros_like(self.pos)
+        self.grab_id = torch.full((num_bodies, 1), -1, dtype=torch.int32,
+                                  device=self.device)
+        self.grab_pos = torch.zeros((num_bodies, 1, 3), dtype=torch.float32,
+                                    device=self.device)
+        self.last_diag: Optional[torch.Tensor] = None
+
+    def step(self, params: PhysicsParams, frames: int = 1):
+        """Advance every body by ``frames`` frames; returns the last frame's
+        vol_err [num_bodies, num_substeps] (a device tensor, no sync)."""
+        for _ in range(frames):
+            self.pos, self.prev_pos, self.vel, self.last_diag = gs_frame(
+                self.pos, self.vel, self.arrays, params, self.grab_id,
+                self.grab_pos,
+            )
+        return self.last_diag
+
+    # -- views ---------------------------------------------------------------
+    def positions(self) -> np.ndarray:
+        """[num_bodies, N, 3] current particle positions."""
+        return self.pos.cpu().numpy()
+
+    def velocities(self) -> np.ndarray:
+        return self.vel.cpu().numpy()
+
+    # -- interaction ---------------------------------------------------------
+    def _check_body(self, body: int):
+        if not 0 <= body < self.num_bodies:
+            raise IndexError(
+                f"body index {body} out of range (batch has {self.num_bodies})"
+            )
+
+    def _point(self, point) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(point, np.float32)).to(self.device)
+
+    def set_grab(self, body: int, particle: int, point):
+        self._check_body(body)
+        self.grab_id[body, 0] = particle
+        self.grab_pos[body, 0] = self._point(point)
+
+    def start_grab(self, body: int, point) -> int:
+        """Grab the body's particle nearest to ``point``; returns its id."""
+        self._check_body(body)
+        p = self._point(point)
+        pid = int(torch.argmin(((self.pos[body] - p) ** 2).sum(dim=-1)))
+        self.set_grab(body, pid, point)
+        return pid
+
+    def move_grabbed(self, body: int, point):
+        self._check_body(body)
+        self.grab_pos[body, 0] = self._point(point)
+
+    def end_grab(self, body: int):
+        self._check_body(body)
+        self.grab_id[body, 0] = -1
