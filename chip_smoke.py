@@ -3,24 +3,42 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Phases, one line each; any failure raises and the exit code is non-zero:
-  1. the card (nvidia-smi name and power limit) and the kernel build;
-  2. the fused frame kernel vs its plain-torch twin on the card, greedy
-     schedule, 8 jittered dragons, 3 frames, and a mesh wider than a block;
+Phases, one line each with its seconds; any failure raises and the exit
+code is non-zero:
+  1. the card (nvidia-smi name and power limit) and the kernel builds, one
+     nvcc per source, all started together;
+  2. the Neo-Hookean frame kernel (gs_frame) vs its plain-torch twin on the
+     card, greedy schedule, 8 jittered dragons, 3 frames, and a mesh wider
+     than a block;
   3. the same for one dragon Body on the ordered schedule, 1 frame, and
      in contact: dragons resting on the ground after 120 frames (ordered
      B=1 1 frame, greedy B=8 3 frames) and two dragons pushed past the
      side walls of the world at friction k = 0.1, 2 frames, so the clamp,
      friction and bound clip of the kernel are held to the plain twin too;
-  4. the main path through the user entry points (README quick start):
-     World(device="cuda") -> add_body(load_dragon()) -> step -> grab ->
-     surface_mesh -> diagnostics, then the same with add_body_batch; the
-     kernel's launch counter must rise by exactly the frames stepped, and
-     stepping must not synchronise with the host;
-  5. dragon substeps/s of the kernel and the plain twin, side by side.
-Then a JSON line with the kernel's numbers and, last, the device line.
-It exits non-zero, printing no result, where CUDA is unavailable.
+  4. the Neo-Hookean main path through the user entry points (README quick
+     start): World() -> add_body(load_dragon()) -> step -> grab ->
+     surface_mesh -> diagnostics, then the same with add_body_batch(...,
+     engine="neohookean", backend="fused"); the kernel's launch counter
+     must rise by exactly the frames stepped, and stepping must not
+     synchronise with the host;
+  5. dragon substeps/s of the Neo-Hookean kernel and its plain twin;
+  6. the polar frame kernel (polar_frame) vs its plain twin at 20 substeps,
+     after every frame: 8 jittered dragons with 3 pinned particles and a
+     grab, 3 frames; 8 dragons resting on the ground, 1 frame; two dragons
+     past the walls at friction k = 0.1, 2 frames; each beside the kernel's
+     own spread from positions 1 ulp apart; a bitwise repeat; the
+     shared-memory refusal;
+  7. the polar main path: World(default_gpu_params()) with no device ->
+     add_body(dragon, engine="polar"), then add_body_batch(dragon, 8) (the
+     JAX default: polar, flat) and add_body_batch(..., backend="fused"),
+     each 120 frames with no host sync, a grab, 30 frames, both surface
+     shadings and diagnostics; the launch counter equals the frames;
+  8. polar substeps/s of the kernel and its plain twin at B = 1, 8, 132.
+Then a JSON line with every kernel's numbers, the card's name and power
+limit, and, last, the device line.  It exits non-zero, printing no result,
+where CUDA is unavailable.
 """
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -62,8 +80,7 @@ def kernel_vs_plain(tt, gs_fused, dragon, params):
     difference."""
     from tetsim_torch.world import Body
 
-    body = gs_fused.FusedGSBody(dragon, num_bodies=8, jitter=0.2,
-                                device="cuda")
+    body = gs_fused.FusedGSBody(dragon, num_bodies=8, jitter=0.2)
     pos, vel = body.pos, body.vel
     body.step(params, frames=3)
     pos, vel, err = plain(gs_fused, pos, vel, body.arrays, params,
@@ -78,7 +95,7 @@ def kernel_vs_plain(tt, gs_fused, dragon, params):
     # a mesh wider than the block (C > 256 slots) needing > 48 KB of shared
     # memory: 12^3 cubes, 2,197 particles, 79 KB
     box = tt.grid_mesh(12, 12, 12, cell=0.08, origin=(-0.48, 0.5, -0.48))
-    wide = gs_fused.FusedGSBody(box, num_bodies=2, jitter=0.1, device="cuda")
+    wide = gs_fused.FusedGSBody(box, num_bodies=2, jitter=0.1)
     pos, vel = wide.pos, wide.vel
     wide.step(params, frames=2)
     pos, _, _ = plain(gs_fused, pos, vel, wide.arrays, params, wide.grab_id,
@@ -91,7 +108,7 @@ def kernel_vs_plain(tt, gs_fused, dragon, params):
     check(dw <= 2e-4, "phase 2 wide mesh disagrees")
     dp = max(dp, dw)
 
-    one = Body(dragon, device="cuda")
+    one = Body(dragon)
     s0 = one.state
     one.step(params)
     rp, rv, rerr = plain(gs_fused, s0.pos[None], s0.vel[None], one.arrays,
@@ -106,7 +123,7 @@ def kernel_vs_plain(tt, gs_fused, dragon, params):
 
     # a pinned particle (the predict gate) and two grabs on one body
     box = tt.grid_mesh(3, 3, 3, cell=0.25, origin=(-0.375, 0.5, -0.375))
-    pinned = Body(box, pinned=[0], device="cuda")
+    pinned = Body(box, pinned=[0])
     targets = [[0.2, 1.4, 0.1], [-0.3, 1.2, 0.0]]
     pinned.controls = tt.Controls(
         grab_id=torch.tensor([5, 40], dtype=torch.int32, device="cuda"),
@@ -136,7 +153,7 @@ def contact_vs_plain(tt, gs_fused, dragon, params):
     # one dragon resting on the ground after 120 frames, ordered, 1 frame
     # (a second frame from this state takes the kernel alone 6e-5 apart
     # from inputs 1 ulp apart, past the bound; see PERF.md)
-    one = Body(dragon, device="cuda")
+    one = Body(dragon)
     one.step_many(params, 120)
     s0 = one.state
     one.step(params)
@@ -157,8 +174,7 @@ def contact_vs_plain(tt, gs_fused, dragon, params):
     check(dp1 <= 2e-5 and de1 <= 1e-5, "phase 3 contact (ordered) disagrees")
 
     # 8 jittered dragons resting after 120 frames, greedy, 3 frames
-    body = gs_fused.FusedGSBody(dragon, num_bodies=8, jitter=0.2,
-                                device="cuda")
+    body = gs_fused.FusedGSBody(dragon, num_bodies=8, jitter=0.2)
     body.step(params, 120)
     pos, vel = body.pos, body.vel
     body.step(params, 3)
@@ -185,7 +201,7 @@ def contact_vs_plain(tt, gs_fused, dragon, params):
         [[hi[0] + 0.002 - v[:, 0].max(), 0.0, 0.0],
          [0.0, -0.002 - v[:, 1].min(), lo[2] - 0.002 - v[:, 2].min()]],
         dtype=torch.float32, device="cuda")
-    wall = gs_fused.FusedGSBody(dragon, num_bodies=2, device="cuda")
+    wall = gs_fused.FusedGSBody(dragon, num_bodies=2)
     wall.pos = wall.pos + shift[:, None]
     wall.vel[0, :, 0] = 1.0
     wall.vel[1, :, 2] = -1.0
@@ -208,12 +224,14 @@ def contact_vs_plain(tt, gs_fused, dragon, params):
 
 def main_path(tt, gs_fused, dragon):
     """Phase 4: returns (launches, seconds)."""
+    from tetsim_torch.kernels import polar_fused
+
     params = tt.default_cpu_params()
     lo, hi = params.world_min - 1e-5, params.world_max + 1e-5
-    gs_fused.launch_count = 0
+    gs_fused.launch_count = polar_fused.launch_count = 0
     t0 = time.perf_counter()
 
-    world = tt.World(tt.default_cpu_params(), device="cuda")
+    world = tt.World(tt.default_cpu_params())
     body = world.add_body(dragon)
     with no_host_sync():
         world.step(120)
@@ -239,7 +257,7 @@ def main_path(tt, gs_fused, dragon):
           f"grab pid {pid} at target, min y {diag['min_height']:.4f}, "
           f"volume_error {diag['volume_error']:.3e}", flush=True)
 
-    world = tt.World(tt.default_cpu_params(), device="cuda")
+    world = tt.World(tt.default_cpu_params())
     batch = world.add_body_batch(dragon, 8, engine="neohookean", backend="fused")
     with no_host_sync():
         world.step(120)
@@ -252,6 +270,7 @@ def main_path(tt, gs_fused, dragon):
     seconds = time.perf_counter() - t0
     check(gs_fused.launch_count == 300,
           f"batch: {gs_fused.launch_count - 150} kernel launches for 150 frames")
+    check(polar_fused.launch_count == 0, "the Neo-Hookean path ran polar_frame")
     check(np.isfinite(bpos).all() and bpos.shape == (8, 1234, 3), "batch positions")
     check(bpos[..., 1].min() >= -1e-5, "batch below the ground")
     check(((bpos >= lo) & (bpos <= hi)).all(), "batch outside the world bounds")
@@ -289,13 +308,13 @@ def timings(tt, gs_fused, dragon, label):
              ("B=1 ordered", 1, False))
     for name, b, greedy in cases:
         if greedy:
-            body = gs_fused.FusedGSBody(dragon, num_bodies=b, device="cuda")
+            body = gs_fused.FusedGSBody(dragon, num_bodies=b)
             arrays, gid, gpos = body.arrays, body.grab_id, body.grab_pos
             k_ms = per_frame(lambda k: body.step(params, k),
                              lambda: body.pos.sum(), 50, 550)
             pos, vel = body.pos, body.vel
         else:
-            body = Body(dragon, device="cuda")
+            body = Body(dragon)
             arrays = body.arrays
             gid, gpos = no_grab(1)
             k_ms = per_frame(lambda k: body.step_many(params, k),
@@ -320,6 +339,226 @@ def timings(tt, gs_fused, dragon, label):
     return out
 
 
+# -- the polar frame kernel (K2) ----------------------------------------------
+
+def polar_plain(polar_fused, pos, vel, quats, arrays, params, gid, gpos,
+                frames):
+    """``frames`` frames of the plain polar twin; returns (pos, vel, quats)."""
+    for _ in range(frames):
+        pos, _, vel, quats = polar_fused.polar_frame_reference(
+            pos, vel, quats, arrays, params, gid, gpos)
+    sync()
+    return pos, vel, quats
+
+
+def polar_case(polar_fused, body, params, frames, tol, label):
+    """The kernel vs its plain twin from ``body``'s state, after each of
+    ``frames`` frames, beside the kernel's own spread from positions 1 ulp
+    apart, and a bitwise repeat.  Positions are held to ``tol`` and
+    velocities to 2e-2 after every frame; quaternions to ``tol`` or twice
+    the kernel's own quaternion spread, whichever is larger: the kernel
+    contracts multiply-adds into FMAs where the twin rounds every product,
+    and the dragon amplifies those last-bit differences as it amplifies a
+    1-ulp change.  Returns the largest position difference."""
+    pos, vel, quats = body.pos, body.vel, body.quats
+    args = (body.arrays, params, body.grab_id, body.grab_pos)
+
+    def run(frame, p):
+        out, v, q = [], vel, quats
+        for _ in range(frames):
+            p, _, v, q = frame(p, v, q, *args)
+            out.append((p, v, q))
+        sync()
+        return out
+
+    got = run(polar_fused.polar_frame, pos)
+    want = run(polar_fused.polar_frame_reference, pos)
+    moved = run(polar_fused.polar_frame,
+                torch.nextafter(pos, torch.full_like(pos, 10.0)))
+    again = run(polar_fused.polar_frame, pos)[-1]
+    worst = 0.0
+    for f, (k, r, m) in enumerate(zip(got, want, moved), 1):
+        dp, dv, dq = (max_diff(a, b) for a, b in zip(k, r))
+        sp, sq = max_diff(k[0], m[0]), max_diff(k[2], m[2])
+        qtol = max(tol, 2 * sq)
+        print(f"phase 6 polar {label}, frame {f} of {frames} at "
+              f"{params.num_substeps} substeps: kernel vs plain max|dpos| "
+              f"{dp:.3e} (tol {tol:g}) max|dquat| {dq:.3e} (tol {qtol:.3e}) "
+              f"max|dvel| {dv:.3e} (tol 2e-2); kernel vs kernel from 1 ulp "
+              f"apart: pos {sp:.3e}, quat {sq:.3e}", flush=True)
+        check(dp <= tol and dq <= qtol and dv <= 2e-2,
+              f"polar {label} disagrees after frame {f}")
+        worst = max(worst, dp)
+    same = all(torch.equal(a, b) for a, b in zip(again, got[-1]))
+    print(f"phase 6 polar {label}: repeat bitwise {same}", flush=True)
+    check(same, f"polar {label}: two runs from one input differ")
+    body.pos, body.vel, body.quats = got[-1]
+    return worst
+
+
+def polar_vs_plain(tt, polar_fused, dragon):
+    """Phase 6: returns the largest position difference."""
+    params = tt.default_gpu_params()
+    top = np.argsort(-dragon.verts[:, 1])[:3].tolist()  # 3 pinned particles
+    body = polar_fused.FusedPolarBody(dragon, 8, jitter=0.2, pinned=top)
+    start = body.pos
+    body.set_grab(3, 100, start[3, 100].cpu().numpy() + np.float32([0, 0.05, 0]))
+    errs = [polar_case(polar_fused, body, params, 3, 2e-5,
+                       "B=8 jittered, 3 pinned, grab on body 3")]
+    check(torch.equal(body.pos[:, top], start[:, top]), "pinned particles moved")
+    check(torch.equal(body.pos[3, 100], body.grab_pos[3, 0]), "grab off target")
+
+    rest = polar_fused.FusedPolarBody(dragon, 8, jitter=0.2)
+    rest.step(params, 120)
+    errs.append(polar_case(polar_fused, rest, params, 1, 2e-5,
+                           "B=8 resting on the ground"))
+    grounded = int((rest.pos[..., 1] == 0).any(dim=1).sum())
+    print(f"phase 6 polar resting: {grounded} of 8 bodies on the ground",
+          flush=True)
+    check(grounded == 8, "a resting dragon does not touch the ground")
+
+    # two dragons past the walls at friction k = dt * 120 = 0.1
+    slip = dataclasses.replace(params, friction=0.1 / float(params.dt))
+    lo, hi = params.world_min, params.world_max
+    v = dragon.verts
+    wall = polar_fused.FusedPolarBody(dragon, 2)
+    wall.pos = wall.pos + torch.tensor(
+        [[hi[0] + 0.002 - v[:, 0].max(), 0.0, 0.0],
+         [0.0, -0.002 - v[:, 1].min(), lo[2] - 0.002 - v[:, 2].min()]],
+        dtype=torch.float32, device="cuda")[:, None]
+    wall.vel[0, :, 0] = 1.0
+    wall.vel[1, :, 2] = -1.0
+    errs.append(polar_case(polar_fused, wall, slip, 2, 2e-4,
+                           f"B=2 past the walls, friction k={float(slip.dt * slip.friction):.3f}"))
+    at_x = int((wall.pos[0, :, 0] == float(hi[0])).sum())
+    at_z = int((wall.pos[1, :, 2] == float(lo[2])).sum())
+    ground = int((wall.pos[1, :, 1] == 0).sum())
+    print(f"phase 6 polar walls: {at_x} particles at +x, {at_z} at -z, "
+          f"{ground} on the ground", flush=True)
+    check(at_x > 0 and at_z > 0 and ground > 0, "the walls were not reached")
+
+    big = tt.grid_mesh(40, 40, 40, cell=0.02)
+    try:
+        polar_fused.FusedPolarBody(big, 1)
+    except ValueError as e:
+        print(f"phase 6 polar shared-memory refusal ({big.num_particles} "
+              f"particles): {e}", flush=True)
+    else:
+        raise AssertionError("a mesh over the shared memory was accepted")
+    return max(errs)
+
+
+def polar_main_path(tt, polar_fused, gs_fused, dragon):
+    """Phase 7: returns the launches of all three scenes."""
+    params = tt.default_gpu_params()
+    lo, hi = params.world_min - 1e-5, params.world_max + 1e-5
+    target = np.float32([0.0, 1.5, 0.5])
+    launches = 0
+
+    def scene(label, add, batched):
+        nonlocal launches
+        gs_fused.launch_count = polar_fused.launch_count = 0
+        t0 = time.perf_counter()
+        world = tt.World(tt.default_gpu_params())
+        check(world.device.type == "cuda", "World() is not on the card")
+        body = add(world)
+        with no_host_sync():
+            world.step(120)
+        if batched:
+            pid = body.start_grab(3, [0.0, 1.0, 0.5])
+            body.move_grabbed(3, target)
+        else:
+            pid = body.start_grab([0.0, 1.0, 0.5])
+            body.move_grabbed(target)
+        world.step(30)
+        fused = type(body) is polar_fused.FusedPolarBody  # no surface
+        pos = body.positions() if fused else body.positions
+        if batched:
+            body.end_grab(3)
+        else:
+            body.end_grab()
+        diag = world.diagnostics()["body0"]
+        meshes = {} if fused else {n: body.surface_mesh(normals=n)
+                                   for n in ("smooth", "rotated")}
+        count = polar_fused.launch_count
+        check(count == 150, f"{label}: {count} kernel launches for 150 frames")
+        check(gs_fused.launch_count == 0, f"{label} ran gs_frame")
+        b = 8 if batched else 1
+        pos = pos.reshape(b, 1234, 3)
+        check(np.isfinite(pos).all(), f"{label} positions not finite")
+        check(pos[..., 1].min() >= -1e-5, f"{label} below the ground")
+        check(((pos >= lo) & (pos <= hi)).all(), f"{label} outside the world")
+        grabbed = pos[3 if batched else 0, pid]
+        check(np.abs(grabbed - target).max() <= 1e-6, f"{label} grab off target")
+        if batched:
+            check(np.array_equal(pos[0], pos[7]), f"{label}: ungrabbed bodies differ")
+        for n, (verts, normals, tris) in meshes.items():
+            check(verts.shape == (29800 * b, 3) and tris.shape == (59657 * b, 3),
+                  f"{label} {n} surface shape")
+            check(np.isfinite(verts).all() and np.isfinite(normals).all(),
+                  f"{label} {n} surface not finite")
+            check(np.abs(np.linalg.norm(normals, axis=1) - 1.0).max() < 1e-4,
+                  f"{label} {n} normals")
+        check(not diag["nan"] and diag["min_height"] >= -1e-5,
+              f"{label} diagnostics {diag}")
+        launches += count
+        shadings = (f", surfaces {sorted(meshes)} finite with unit normals"
+                    if meshes else "")
+        print(f"phase 7 {label}: 150 frames, {count} launches, grab pid {pid} "
+              f"at target, min y {diag['min_height']:.4f}{shadings}; "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    scene("World/Body(engine='polar')",
+          lambda w: w.add_body(dragon, engine="polar"), False)
+    scene("add_body_batch(dragon, 8) (polar, flat)",
+          lambda w: w.add_body_batch(dragon, 8), True)
+    scene("add_body_batch(dragon, 8, backend='fused') (polar)",
+          lambda w: w.add_body_batch(dragon, 8, engine="polar",
+                                     backend="fused"), True)
+    return launches
+
+
+def polar_timings(tt, polar_fused, dragon, label):
+    """Phase 8: returns {case: (kernel ms/frame, plain ms/frame)}."""
+    from tetsim_torch.world import Body
+
+    params = tt.default_gpu_params()
+    out = {}
+    for name, b in (("B=1 Body", 1), ("B=8", 8), ("B=132", 132)):
+        if b == 1:
+            body = Body(dragon, engine="polar")
+            k_ms = per_frame(lambda k: body.step_many(params, k),
+                             lambda: body.state.pos.sum(), 20, 120)
+            st = body.state
+            args = (st.pos[None], st.vel[None], st.quats[None], body.arrays)
+            gid, gpos = no_grab(1)
+        else:
+            body = polar_fused.FusedPolarBody(dragon, b)
+            k_ms = per_frame(lambda k: body.step(params, k),
+                             lambda: body.pos.sum(), 20, 120)
+            args = (body.pos, body.vel, body.quats, body.arrays)
+            gid, gpos = body.grab_id, body.grab_pos
+        plain = {"pos": args[0], "vel": args[1], "quats": args[2]}
+
+        def plain_step(k):
+            for _ in range(k):
+                plain["pos"], _, plain["vel"], plain["quats"] = \
+                    polar_fused.polar_frame_reference(
+                        plain["pos"], plain["vel"], plain["quats"], args[3],
+                        params, gid, gpos)
+
+        p_ms = per_frame(plain_step, lambda: plain["pos"].sum(), 1, 3)
+        k_ms, p_ms = k_ms * 1e3, p_ms * 1e3
+        out[name] = (k_ms, p_ms)
+        s = params.num_substeps
+        print(f"phase 8 [{label}] polar dragon {name}, {s} substeps/frame: "
+              f"kernel {s / k_ms * 1e3:.1f} substeps/s per body ({k_ms:.4f} "
+              f"ms/frame, {b * s / k_ms * 1e3:.1f} body-substeps/s), plain "
+              f"torch {s / p_ms * 1e3:.1f} substeps/s ({p_ms:.4f} ms/frame)",
+              flush=True)
+    return out
+
+
 def sync():
     torch.cuda.synchronize()
 
@@ -340,36 +579,96 @@ def no_grab(b):
             torch.zeros((b, 1, 3), device="cuda"))
 
 
+PEAK_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
+
+
+def bound(flops, nbytes):
+    """(least ms the card could take, what bounds it) at the data sheet's
+    peaks."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase(label, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"{label}: {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
+def build_all(kernels):
+    """Every kernel, one nvcc per source, all started together;
+    ``kernels`` maps each source's name to its module."""
+    def one(module):
+        t0 = time.perf_counter()
+        module.library()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        secs = dict(zip(kernels, pool.map(one, kernels.values())))
+    for name in kernels:
+        print(f"phase 1 build: csrc/{name}.cu with nvcc (sm_90a) in "
+              f"{secs[name]:.2f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     import tetsim_torch as tt
-    from tetsim_torch.kernels import build, gs_fused
+    from tetsim_torch.kernels import gs_fused, polar_fused
 
+    t_start = time.perf_counter()
     label = card()
     print(label, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    t0 = time.perf_counter()
-    build.load("gs_frame")
-    print(f"phase 1 build: csrc/gs_frame.cu with nvcc (sm_90a) in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    phase("phase 1 done", build_all,
+          {"gs_frame": gs_fused, "polar_frame": polar_fused})
 
     dragon = tt.load_dragon()
     params = tt.default_cpu_params()
-    err = max(kernel_vs_plain(tt, gs_fused, dragon, params),
-              contact_vs_plain(tt, gs_fused, dragon, params))
-    launches, _ = main_path(tt, gs_fused, dragon)
-    times = timings(tt, gs_fused, dragon, label)
+    err = max(phase("phase 2-3 kernel vs plain done", kernel_vs_plain, tt,
+                    gs_fused, dragon, params),
+              phase("phase 3 contact done", contact_vs_plain, tt, gs_fused,
+                    dragon, params))
+    launches, _ = phase("phase 4 done", main_path, tt, gs_fused, dragon)
+    times = phase("phase 5 done", timings, tt, gs_fused, dragon, label)
     k_ms, p_ms = times["B=1 ordered"]
-    print(json.dumps({"kernels": [{
-        "name": "gs_frame", "route": "cuda",
-        "source": "tetsim_torch/kernels/csrc/gs_frame.cu",
-        "replaces": "tetsim_tpu/kernels/gs_fused.py:133",
-        "launches": launches, "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms,
-    }]}), flush=True)
+    ordered = tt.build_arrays(dragon, coloring="ordered", device="cuda")
+    gs_bound, gs_by = bound(gs_fused.frame_flops(ordered, params, 1),
+                            gs_fused.frame_bytes(ordered, params, 1, 1))
+
+    polar_err = phase("phase 6 done", polar_vs_plain, tt, polar_fused, dragon)
+    polar_launches = phase("phase 7 done", polar_main_path, tt, polar_fused,
+                           gs_fused, dragon)
+    ptimes = phase("phase 8 done", polar_timings, tt, polar_fused, dragon, label)
+    pk_ms, pp_ms = ptimes["B=1 Body"]
+    gpu = tt.default_gpu_params()
+    polar_arr = tt.build_arrays(dragon, coloring=None, device="cuda")
+    polar_bound, polar_by = bound(polar_fused.frame_flops(polar_arr, gpu, 1),
+                                  polar_fused.frame_bytes(polar_arr, 1, 1))
+    print(f"bounds at the data sheet's peaks (67 TFLOP/s FP32, 3.35 TB/s): "
+          f"gs_frame ordered B=1 frame {gs_bound * 1e3:.3f} us ({gs_by}), "
+          f"polar_frame B=1 frame at 20 substeps {polar_bound * 1e3:.3f} us "
+          f"({polar_by}); total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "gs_frame", "route": "cuda",
+         "source": "tetsim_torch/kernels/csrc/gs_frame.cu",
+         "replaces": "tetsim_tpu/kernels/gs_fused.py:133",
+         "launches": launches, "max_abs_err": err,
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": gs_bound,
+         "bound_by": gs_by, "library_ms": None},
+        {"name": "polar_frame", "route": "cuda",
+         "source": "tetsim_torch/kernels/csrc/polar_frame.cu",
+         "replaces": "tetsim_tpu/kernels/polar_fused.py:171",
+         "launches": polar_launches, "max_abs_err": polar_err,
+         "ms": pk_ms, "plain_ms": pp_ms, "bound_ms": polar_bound,
+         "bound_by": polar_by, "library_ms": None},
+    ]}), flush=True)
+    print(label, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

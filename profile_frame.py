@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where a frame of the PyTorch/CUDA port's fused frame kernel spends its
+"""Where a frame of the PyTorch/CUDA port's fused frame kernels spends its
 time, on one CUDA card.
 
     python3 profile_frame.py     # from the repository root, one CUDA card
 
-For each dragon shape (greedy schedule at B = 1, 8, 64 and 132 bodies, the
-ordered schedule at B = 1), stepped through ``FusedGSBody``, it prints one
-JSON line:
+For each dragon shape it prints one JSON line: the Neo-Hookean kernel
+(gs_frame, 5 substeps) through ``FusedGSBody`` on the greedy schedule at
+B = 1, 8, 64 and 132 bodies and on the ordered schedule at B = 1, then the
+polar kernel (polar_frame, 20 substeps) through ``FusedPolarBody`` at
+B = 1, 8 and 132:
   host_ms     synced host time per frame: a two-point fit over k1 and k2
               frames, each run ending in a data-dependent sync;
   enqueue_ms  host time per frame to enqueue k2 frames, with no sync;
@@ -14,23 +16,45 @@ JSON line:
   kernel_us   the kernel's device time per launch, torch.profiler over 20
               frames (null where the profiler records no device time);
   busy_share  kernel_us / event_ms: the share of a frame's span in which
-              the kernel runs.
+              the kernel runs;
+  bound_us    the least time the card could take for the frame: its
+              operations at 67 TFLOP/s FP32 or its bytes (each input read
+              once, each output written once) at 3.35 TB/s, whichever is
+              longer (bound_by says which), from the kernel module's
+              frame_flops and frame_bytes.
+Each polar shape is measured with two builds of polar_frame.cu, in the
+order A B B A: the shipped build (``polar_fused.NVCC_FLAGS``: nvcc's
+default, which contracts a multiply and an add into one FMA) and a
+``-fmad=false`` build, which rounds every product before it is added, as
+the plain twin does.  For each
+build it then prints the kernel against its plain twin from 8 jittered
+dragons with 3 pinned particles and a grab (chip_smoke.py phase 6's first
+case) after 1 and 3 frames, beside the build's own spread from positions
+1 ulp apart, and the largest difference between the two builds.
 The card's name, power limit, SM clock and power draw are printed before
 and after.  It exits non-zero where CUDA is unavailable.
 """
+import contextlib
 import json
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+
+from chip_smoke import bound, max_diff
 
 SHAPES = (("B=1 greedy", 1, "greedy", 50, 450),
           ("B=8 greedy", 8, "greedy", 50, 450),
           ("B=64 greedy", 64, "greedy", 50, 450),
           ("B=132 greedy", 132, "greedy", 50, 450),
-          ("B=1 ordered", 1, "ordered", 20, 80))
+          ("B=1 ordered", 1, "ordered", 20, 80),
+          ("polar B=1", 1, None, 20, 120),
+          ("polar B=8", 8, None, 20, 120),
+          ("polar B=132", 132, None, 20, 120))
 PROFILED_FRAMES = 20
+UNCONTRACTED = ("-fmad=false",)  # every product rounded before it is added
 
 
 def card() -> str:
@@ -49,20 +73,20 @@ def synced_run(step, state_sum, k) -> float:
     return time.perf_counter() - t0
 
 
-def kernel_us_per_launch(step):
+def kernel_us_per_launch(step, kernel):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step(PROFILED_FRAMES)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if "gs_frame_kernel" in e.key]
+    events = [e for e in prof.key_averages() if kernel in e.key]
     launches = sum(e.count for e in events)
     device_us = sum(e.self_device_time_total for e in events)
     return device_us / launches if launches and device_us else None
 
 
-def measure(body, params, k1, k2) -> dict:
+def measure(body, params, k1, k2, kernel, flops, nbytes) -> dict:
     def step(k):
         body.step(params, k)
 
@@ -81,13 +105,70 @@ def measure(body, params, k1, k2) -> dict:
     end.record()
     end.synchronize()
     event_ms = start.elapsed_time(end) / k2
-    kernel_us = kernel_us_per_launch(step)
+    kernel_us = kernel_us_per_launch(step, kernel)
+    bound_ms, bound_by = bound(flops, nbytes)
     return {
         "host_ms": host_s * 1e3, "enqueue_ms": enqueue_s * 1e3 / k2,
         "event_ms": event_ms, "kernel_us": kernel_us,
         "busy_share": kernel_us / (event_ms * 1e3) if kernel_us else None,
         "substeps_per_s": params.num_substeps / host_s,
+        "bound_us": bound_ms * 1e3, "bound_by": bound_by,
     }
+
+
+@contextlib.contextmanager
+def polar_build(polar_fused, flags):
+    """polar_frame launches the build with these nvcc flags inside."""
+    shipped = polar_fused.NVCC_FLAGS
+    polar_fused.NVCC_FLAGS = flags
+    try:
+        yield
+    finally:
+        polar_fused.NVCC_FLAGS = shipped
+
+
+def build_name(flags) -> str:
+    return " ".join(flags) if flags else "contracted"
+
+
+def polar_agreement(tt, polar_fused, dragon, builds):
+    """Each build against the plain twin after 1 and 3 frames at 20
+    substeps, and its spread from positions 1 ulp apart."""
+    params = tt.default_gpu_params()
+    top = np.argsort(-dragon.verts[:, 1])[:3].tolist()
+    body = polar_fused.FusedPolarBody(dragon, 8, jitter=0.2, pinned=top)
+    body.set_grab(3, 100, body.pos[3, 100].cpu().numpy()
+                  + np.float32([0, 0.05, 0]))
+    args = (body.arrays, params, body.grab_id, body.grab_pos)
+
+    def run(frame, pos):
+        out, vel, quats = [], body.vel, body.quats
+        for _ in range(3):
+            pos, _, vel, quats = frame(pos, vel, quats, *args)
+            out.append((pos, vel, quats))
+        torch.cuda.synchronize()
+        return out[0], out[2]
+
+    plain = run(polar_fused.polar_frame_reference, body.pos)
+    ulp = torch.nextafter(body.pos, torch.full_like(body.pos, 10.0))
+    last = {}
+    for flags in builds:
+        with polar_build(polar_fused, flags):
+            got = run(polar_fused.polar_frame, body.pos)
+            moved = run(polar_fused.polar_frame, ulp)
+        last[flags] = got[1][0]
+        line = {}
+        for i, frames in enumerate((1, 3)):
+            line[f"{frames} frame(s)"] = {
+                "dpos": max_diff(got[i][0], plain[i][0]),
+                "dquat": max_diff(got[i][2], plain[i][2]),
+                "dvel": max_diff(got[i][1], plain[i][1]),
+                "ulp_spread": max_diff(got[i][0], moved[i][0])}
+        print(f"polar_frame [{build_name(flags)}] vs plain, B=8 jittered, 3 "
+              f"pinned, grab on body 3:", json.dumps(line), flush=True)
+    a, b = builds
+    print(f"polar_frame [{build_name(a)}] vs [{build_name(b)}] after 3 "
+          f"frames: max|dpos| {max_diff(last[a], last[b]):.3e}", flush=True)
 
 
 def main() -> int:
@@ -96,15 +177,35 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import tetsim_torch as tt
+    from tetsim_torch.kernels import gs_fused, polar_fused
     from tetsim_torch.kernels.gs_fused import FusedGSBody
+    from tetsim_torch.kernels.polar_fused import FusedPolarBody
 
     print(card(), flush=True)
     dragon = tt.load_dragon()
-    params = tt.default_cpu_params()
+    builds = (polar_fused.NVCC_FLAGS, UNCONTRACTED)
+    for flags in builds:
+        with polar_build(polar_fused, flags):
+            polar_fused.library()
     for name, b, coloring, k1, k2 in SHAPES:
-        body = FusedGSBody(dragon, num_bodies=b, coloring=coloring,
-                           device="cuda")
-        print(name, json.dumps(measure(body, params, k1, k2)), flush=True)
+        if coloring is None:
+            params, kernel = tt.default_gpu_params(), "polar_frame_kernel"
+            for flags in (*builds, *builds[::-1]):  # A B B A
+                body = FusedPolarBody(dragon, num_bodies=b)
+                work = (polar_fused.frame_flops(body.arrays, params, b),
+                        polar_fused.frame_bytes(body.arrays, b, 1))
+                with polar_build(polar_fused, flags):
+                    row = measure(body, params, k1, k2, kernel, *work)
+                print(f"{name} [{build_name(flags)}]", json.dumps(row),
+                      flush=True)
+        else:
+            body = FusedGSBody(dragon, num_bodies=b, coloring=coloring)
+            params, kernel = tt.default_cpu_params(), "gs_frame_kernel"
+            work = (gs_fused.frame_flops(body.arrays, params, b),
+                    gs_fused.frame_bytes(body.arrays, params, b, 1))
+            print(name, json.dumps(measure(body, params, k1, k2, kernel,
+                                           *work)), flush=True)
+    polar_agreement(tt, polar_fused, dragon, builds)
     print(card(), flush=True)
     return 0
 

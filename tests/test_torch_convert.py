@@ -43,8 +43,9 @@ def test_handoff_mid_trajectory():
     params = convert.params_from_numpy(_params_dict(jparams))
     assert params.dt == np.asarray(jparams.dt)
     tstate = convert.state_from_numpy(
-        *(np.asarray(x) for x in (state.pos, state.prev_pos, state.vel, state.quats)))
-    tarr = convert.arrays_from_numpy(**_arrays_dict(arr))
+        *(np.asarray(x) for x in (state.pos, state.prev_pos, state.vel, state.quats)),
+        "cpu")
+    tarr = convert.arrays_from_numpy("cpu", **_arrays_dict(arr))
     tctrl = tt.Controls(grab_id=torch.tensor(9, dtype=torch.int32),
                         grab_pos=torch.tensor([0.1, 1.2, 0.0]))
     for _ in range(4):
@@ -58,13 +59,17 @@ def test_handoff_mid_trajectory():
 def test_arrays_from_numpy_equals_build_arrays():
     mesh = ts.grid_mesh(2, 2, 2, cell=0.2)
     tarr = convert.arrays_from_numpy(
-        **_arrays_dict(ts.build_arrays(mesh, coloring="greedy")))
-    own = tt.build_arrays(tt.grid_mesh(2, 2, 2, cell=0.2), coloring="greedy")
+        "cpu", **_arrays_dict(ts.build_arrays(mesh, coloring="greedy")))
+    own = tt.build_arrays(tt.grid_mesh(2, 2, 2, cell=0.2), coloring="greedy",
+                          device="cpu")
     for f in dataclasses.fields(own):
-        assert torch.equal(getattr(tarr, f.name), getattr(own, f.name)), f.name
+        if f.name in ("inc_idx", "inc_den"):  # polar tables, not built here
+            assert getattr(tarr, f.name) is None and getattr(own, f.name) is None
+        else:
+            assert torch.equal(getattr(tarr, f.name), getattr(own, f.name)), f.name
     with pytest.raises(ValueError, match="unknown TetArrays"):
-        convert.arrays_from_numpy(tets=np.zeros((1, 4), np.int32),
-                                  inc_idx=np.zeros((1, 1), np.int32))
+        convert.arrays_from_numpy("cpu", tets=np.zeros((1, 4), np.int32),
+                                  colors=np.zeros((1, 1), np.int32))
     with pytest.raises(ValueError, match="unknown PhysicsParams"):
         convert.params_from_numpy({"gravity": -9.81, "wind": 1.0})
 

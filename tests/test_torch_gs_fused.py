@@ -32,7 +32,7 @@ def jax_run():
 
 def _port_run(frames=3, grab=True, num_bodies=4):
     body = FusedGSBody(tt.grid_mesh(1, 1, 1, **BOX), num_bodies=num_bodies,
-                       jitter=0.2)
+                       jitter=0.2, device="cpu")
     if grab:
         body.set_grab(*GRAB)
     count = gs_fused.launch_count
@@ -65,7 +65,7 @@ def test_reference_equals_step_frame_per_body():
     """The batched frame is the single-body substep applied num_substeps
     times to each body, with each body's own grab."""
     mesh = tt.grid_mesh(2, 1, 1, cell=0.3, origin=(0.0, 0.4, 0.0))
-    arr = tt.build_arrays(mesh, coloring="greedy")
+    arr = tt.build_arrays(mesh, coloring="greedy", device="cpu")
     params = tt.PhysicsParams(num_substeps=3)
     rng = np.random.RandomState(3)
     pos = torch.as_tensor(
@@ -91,17 +91,17 @@ def test_reference_equals_step_frame_per_body():
 def test_shared_memory_capacity_check():
     """A body must fit one block's shared memory: 12^3 cubes fit, 40^3 not."""
     mid = FusedGSBody(tt.grid_mesh(12, 12, 12, cell=0.08, origin=(-0.48, 0.5, -0.48)),
-                      num_bodies=8)
+                      num_bodies=8, device="cpu")
     assert gs_fused.smem_bytes(mid.mesh.num_particles) <= gs_fused.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         FusedGSBody(tt.grid_mesh(40, 40, 40, cell=0.02, origin=(0.0, 0.5, 0.0)),
-                    num_bodies=8)
+                    num_bodies=8, device="cpu")
     # the dragon's nine planes take 44 KB
     assert gs_fused.smem_bytes(1234) == 4 * (9 * 1234 + 8)
 
 
 def test_grab_api_and_bounds():
-    body = FusedGSBody(tt.grid_mesh(1, 1, 1, **BOX), num_bodies=2)
+    body = FusedGSBody(tt.grid_mesh(1, 1, 1, **BOX), num_bodies=2, device="cpu")
     verts = tt.grid_mesh(1, 1, 1, **BOX).verts
     assert body.start_grab(1, verts[6] + 1e-3) == 6
     body.move_grabbed(1, [0.0, 2.0, 0.0])
@@ -124,3 +124,18 @@ def test_frame_params_are_f32_of_the_plain_path():
     assert np.float32(fp.k_fric) == np.float32(1.0)  # dt * friction = 3.33
     assert np.float32(fp.dev_scale) == params.dev_compliance / (dt * dt)
     assert list(fp.wmin) == [-2.5, -1.0, -2.5] and list(fp.wmax) == [2.5, 10.0, 2.5]
+
+
+def test_frame_work_counts():
+    """The bound's counts for one dragon frame, ordered and greedy: the
+    same work on either schedule, each tet's constants read once (the
+    padded slots, 703 x 22 ordered and 32 x 228 greedy, add nothing)."""
+    dragon = tt.load_dragon()
+    params = tt.default_cpu_params()
+    for coloring, slots in (("ordered", 703 * 22), ("greedy", 32 * 228)):
+        arr = tt.build_arrays(dragon, coloring=coloring, device="cpu")
+        assert arr.slot_valid.numel() == slots
+        assert gs_fused.frame_flops(arr, params, 2) == 2 * 5 * (
+            421 * 3840 + 13 * 1234)
+        assert gs_fused.frame_bytes(arr, params, 1, 1) == (
+            5 * 12 * 1234 + 4 * 5 + 16 + 73 * 3840 + 4 * 1234)

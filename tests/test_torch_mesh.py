@@ -1,5 +1,7 @@
 """tetsim_torch mesh layer vs tetsim_tpu: the meshes, the f32 rest constants
 and the integer schedule tables must be exactly equal."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -59,7 +61,7 @@ def test_rest_state_equal(name):
 def test_schedule_tables_equal(name, coloring):
     ref_mesh, port_mesh = _meshes(name)
     ref = ts.build_arrays(ref_mesh, coloring=coloring)
-    port = tt.build_arrays(port_mesh, coloring=coloring)
+    port = tt.build_arrays(port_mesh, coloring=coloring, device="cpu")
     for f in ("tets", "inv_rest_pose", "inv_rest_volume", "rest_volume",
               "inv_mass", "rest_centered", "slot_tets", "slot_inv_rest_pose",
               "slot_inv_rest_volume", "slot_valid", "slot_inv", "slot_inv_mass"):
@@ -88,13 +90,29 @@ def test_python_fallback_matches_native(monkeypatch):
 
 def test_build_arrays_options_and_to():
     m = tt.grid_mesh(1, 1, 2)
-    none = tt.build_arrays(m, coloring=None)
+    none = tt.build_arrays(m, coloring=None, device="cpu")
     assert none.slot_tets is None and none.slot_inv is None
     with pytest.raises(ValueError, match="unknown coloring"):
-        tt.build_arrays(m, coloring="rainbow")
-    arr = tt.build_arrays(m, coloring="greedy")
+        tt.build_arrays(m, coloring="rainbow", device="cpu")
+    arr = tt.build_arrays(m, coloring="greedy", device="cpu")
     moved = arr.to("cpu")
     assert moved.num_particles == m.num_particles and moved.num_tets == m.num_tets
     assert moved.inv_mass.device == torch.device("cpu")
     assert torch.equal(moved.slot_inv, arr.slot_inv)
     assert none.to("cpu").slot_valid is None
+
+
+def test_port_coloring_source_gives_the_reference_colours():
+    """The port builds its own copy of coloring.cpp; its tables equal the
+    ones the JAX package's library gives on the dragon."""
+    from tetsim_tpu import native as jnative
+
+    assert tnative._SRC.startswith(os.path.dirname(tt.__file__) + os.sep)
+    m = tt.load_dragon()
+    assert tnative.available() and jnative.available()
+    for fn in ("level_schedule", "greedy_color"):
+        port = getattr(tnative, fn)(m.tets, m.num_particles)
+        ref = getattr(jnative, fn)(m.tets, m.num_particles)
+        _assert_same(ref, port, fn)
+        _assert_same(jnative.color_slots(ref), tnative.color_slots(port),
+                     f"color_slots of {fn}")

@@ -90,9 +90,9 @@ def test_common_phases_match():
 def _run_both(coloring, frames, substeps, grab=None, pinned=None):
     jm, tm = ts.grid_mesh(3, 3, 3, **SMALL), tt.grid_mesh(3, 3, 3, **SMALL)
     jarr = ts.build_arrays(jm, coloring=coloring, pinned=pinned)
-    tarr = tt.build_arrays(tm, coloring=coloring, pinned=pinned)
-    js, tsx = ts.init_state(jm), tt.init_state(tm)
-    jc, tc = ts.Controls.none(), tt.Controls.none()
+    tarr = tt.build_arrays(tm, coloring=coloring, pinned=pinned, device="cpu")
+    js, tsx = ts.init_state(jm), tt.init_state(tm, "cpu")
+    jc, tc = ts.Controls.none(), tt.Controls.none("cpu")
     if grab is not None:
         jc = ts.Controls(grab_id=np.int32(grab[0]), grab_pos=np.float32(grab[1]))
         tc = tt.Controls(grab_id=torch.tensor(grab[0], dtype=torch.int32),
@@ -131,11 +131,11 @@ def test_step_frame_matches_xla_ordered_grab_pinned():
 def test_get_engine_and_non_cpu_route():
     assert tt.get_engine("neohookean") is tnh
     with pytest.raises(ValueError, match="ROADMAP"):
-        tt.get_engine("polar")
+        tt.get_engine("polar_grid")
     # a state on any device other than the CPU goes to the kernel, which
     # refuses a device it cannot launch on instead of running the plain path
     m = tt.grid_mesh(1, 1, 1)
-    arr = tt.build_arrays(m, coloring="greedy").to("meta")
+    arr = tt.build_arrays(m, coloring="greedy", device="meta")
     state = tt.init_state(m, "meta")
     with pytest.raises(ValueError, match="runs on CUDA"):
         tnh.step_frame(state, arr, tt.PhysicsParams(), tt.Controls.none("meta"))

@@ -8,6 +8,8 @@ import tetsim_tpu as ts
 import tetsim_torch as tt
 from tetsim_torch import convert
 from tetsim_torch.kernels.gs_fused import FusedGSBody
+from tetsim_torch.kernels.polar_fused import FusedPolarBody
+from tetsim_torch.world import BatchedBody, Body
 
 
 @pytest.fixture(scope="module")
@@ -20,13 +22,13 @@ def dragon_pair():
     differs from itself by 1.8e-5 between its scan-frame and substep-jit
     compilations of the same math, so a frame is the horizon a 2e-5 bound
     can hold."""
-    jw, tw = ts.World(ts.default_cpu_params()), tt.World(tt.default_cpu_params())
+    jw, tw = ts.World(ts.default_cpu_params()), tt.World(tt.default_cpu_params(), device="cpu")
     jb, tb = jw.add_body(ts.load_dragon()), tw.add_body(tt.load_dragon())
     jw.step(1)
     tw.step(1)
     first = np.abs(tb.positions - jb.positions).max()
     tb.state = convert.state_from_numpy(*(np.asarray(x) for x in (
-        jb.state.pos, jb.state.prev_pos, jb.state.vel, jb.state.quats)))
+        jb.state.pos, jb.state.prev_pos, jb.state.vel, jb.state.quats)), "cpu")
     point = jb.positions[100] + np.float32([0.0, 1e-3, 0.0])
     gids = jb.start_grab(point), tb.start_grab(point)
     target = point + np.float32([0.0, 0.2, 0.1])
@@ -72,9 +74,10 @@ def test_surface_mesh_matches_jax(dragon_pair):
 
 def test_batch_world_and_release():
     """add_body_batch runs FusedGSBody; a released particle moves again."""
-    world = tt.World(tt.PhysicsParams(num_substeps=2))
+    world = tt.World(tt.PhysicsParams(num_substeps=2), device="cpu")
     mesh = tt.grid_mesh(1, 1, 1, cell=0.5, origin=(-0.25, 0.1, -0.25))
-    batch = world.add_body_batch(mesh, 3, jitter=0.1)
+    batch = world.add_body_batch(mesh, 3, engine="neohookean", backend="fused",
+                                 jitter=0.1)
     body = world.add_body(mesh)
     assert isinstance(batch, FusedGSBody) and batch.num_bodies == 3
     batch.set_grab(2, 7, [0.0, 1.5, 0.0])
@@ -94,18 +97,19 @@ def test_batch_world_and_release():
 
 
 def test_unported_paths_raise():
-    world = tt.World(tt.default_cpu_params())
+    world = tt.World(tt.default_cpu_params(), device="cpu")
     mesh = tt.grid_mesh(1, 1, 1)
     with pytest.raises(ValueError, match="ROADMAP"):
-        world.add_body(mesh, engine="polar")
-    for kw in ({"backend": "flat"}, {"engine": "polar"}):
+        world.add_body(mesh, engine="polar_grid")
+    for kw in ({"engine": "neohookean", "backend": "flat"},
+               {"backend": "dense"}):
         with pytest.raises(ValueError, match="ROADMAP"):
             world.add_body_batch(mesh, 2, **kw)
     body = world.add_body(mesh)
     with pytest.raises(ValueError, match="render surface"):
         body.surface_mesh()
     dragon = world.add_body(tt.load_dragon())
-    with pytest.raises(ValueError, match="smooth"):
+    with pytest.raises(ValueError, match="polar engine"):
         dragon.surface_mesh(normals="rotated")
 
 
@@ -116,3 +120,18 @@ def test_cuda_world_never_falls_back_to_cpu():
         tt.World(tt.default_cpu_params(), device="cuda")
     with pytest.raises(ValueError, match="cpu or cuda"):
         tt.World(device="meta")
+
+
+def test_entry_points_default_to_cuda():
+    """With no device= the entry points ask for the card: on a host without
+    CUDA they raise rather than run on the CPU."""
+    mesh = tt.grid_mesh(1, 1, 1)
+    makers = (lambda: tt.World(), lambda: Body(mesh),
+              lambda: FusedGSBody(mesh, 2), lambda: FusedPolarBody(mesh, 2),
+              lambda: BatchedBody(mesh, 2))
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make()

@@ -1,12 +1,14 @@
 """tetsim_torch — the PyTorch/CUDA port of tetsim_tpu.
 
 The same XPBD tetrahedral soft-body simulator on one NVIDIA GPU: stable
-Neo-Hookean XPBD with graph-coloured Gauss-Seidel, ground/bounds collision
-with friction, grab constraints, barycentric surface skinning and batched
-bodies.  Plain torch runs on the CPU; on CUDA tensors the whole frame is one
-launch of a hand-written kernel (``kernels/csrc/gs_frame.cu``).  The package
-imports neither jax nor tetsim_tpu; it reads the dragon asset and the C++
-colouring source of ``tetsim_tpu/`` by path.
+Neo-Hookean XPBD with graph-coloured Gauss-Seidel and Müller polar shape
+matching with Jacobi iteration, ground/bounds collision with friction, grab
+constraints, barycentric surface skinning and batched bodies.  Plain torch
+runs on the CPU; on CUDA tensors a whole frame is one launch of a
+hand-written kernel (``kernels/csrc/gs_frame.cu``,
+``kernels/csrc/polar_frame.cu``).  The entry points run on the card unless
+the caller passes ``device="cpu"``.  The package imports neither jax nor
+tetsim_tpu; it reads the dragon asset of ``tetsim_tpu/`` by path.
 """
 from .params import PhysicsParams, default_cpu_params, default_gpu_params
 from .state import SimState, Controls, init_state

@@ -5,7 +5,9 @@ the JAX package can be handed to this one mid-trajectory:
                                 for f in dataclasses.fields(p)})
     state = state_from_numpy(*(np.asarray(x) for x in
                                (s.pos, s.prev_pos, s.vel, s.quats)), device)
-    arrays = arrays_from_numpy(**{k: np.asarray(v) for k, v in ...}, device=...)
+    arrays = arrays_from_numpy(device, **{k: np.asarray(v) for k, v in ...})
+
+Every helper takes the device from its caller.
 """
 from __future__ import annotations
 
@@ -37,12 +39,12 @@ def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x, np.float32)).to(device)  # a writable copy
 
 
-def state_from_numpy(pos, prev_pos, vel, quats, device="cpu") -> SimState:
+def state_from_numpy(pos, prev_pos, vel, quats, device) -> SimState:
     return SimState(pos=_f32(pos, device), prev_pos=_f32(prev_pos, device),
                     vel=_f32(vel, device), quats=_f32(quats, device))
 
 
-def arrays_from_numpy(device="cpu", **fields) -> TetArrays:
+def arrays_from_numpy(device, **fields) -> TetArrays:
     """TetArrays from numpy arrays named as its fields; absent or None
     fields stay None, and fields TetArrays does not have raise."""
     known = {f.name for f in dataclasses.fields(TetArrays)}

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 nvcc for Hopper (``sm_90a``) into a shared library in
-``tetsim_torch/_build/``, at first use and again whenever the source
-changes.  A failed build raises with the compiler's output.
+``tetsim_torch/_build/``, at first use and again whenever the source or a
+header it includes (``csrc/*.cuh``) changes.  A failed build raises with
+the compiler's output.
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()  # guards _locks
+_locks: dict[tuple, threading.Lock] = {}  # one per library: builds run in parallel
+_libs: dict[tuple, ctypes.CDLL] = {}  # by (name, flags)
 
 
 def nvcc() -> str:
@@ -35,14 +37,21 @@ def nvcc() -> str:
     return found
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu``, compiled if needed."""
+def load(name: str, flags: tuple = ()) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu`` with ``NVCC_FLAGS`` and the
+    kernel's own ``flags``, compiled if needed.  Each set of flags is a
+    library of its own; calls for different libraries from different
+    threads compile concurrently."""
+    key = (name, tuple(flags))
     with _lock:
-        if name not in _libs:
+        lock = _locks.setdefault(key, threading.Lock())
+    with lock:
+        if key not in _libs:
+            args = (*NVCC_FLAGS, *flags)
             path = compiled_library(
                 os.path.join(CSRC, f"{name}.cu"), f"lib{name}",
-                lambda src, out: [nvcc(), *NVCC_FLAGS, src, "-o", out],
-                tag=" ".join(NVCC_FLAGS),
+                lambda src, out: [nvcc(), *args, src, "-o", out],
+                tag=" ".join(args),
             )
-            _libs[name] = ctypes.CDLL(path)
-        return _libs[name]
+            _libs[key] = ctypes.CDLL(path)
+        return _libs[key]

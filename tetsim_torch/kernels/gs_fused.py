@@ -26,9 +26,9 @@ from ..mesh import TetArrays, TetMesh, build_arrays
 from ..params import PhysicsParams
 from ..solvers import neohookean
 from . import build
+from .batch import SMEM_LIMIT, FusedBatch, expect
 
 THREADS = 256  # threads per block, as kThreads in csrc/gs_frame.cu
-SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (227 KB)
 
 launch_count = 0  # launches of the CUDA kernel since import (or reset)
 
@@ -47,6 +47,28 @@ def check_fits(num_particles: int) -> None:
             f"has {SMEM_LIMIT} (at most {(SMEM_LIMIT // 4 - THREADS // 32) // 9} "
             "particles); use the neohookean engine on a smaller mesh"
         )
+
+
+def frame_flops(arr: TetArrays, params: PhysicsParams, num_bodies: int) -> int:
+    """Floating-point operations of one frame, counted from
+    ``csrc/gs_frame.cu`` (adds, multiplies, divides, square roots; compares,
+    clamps, selects and the data-dependent ground friction are not
+    counted): 421 per valid tet and substep (both constraint projections
+    and the vol_err sum), 13 per particle and substep (predict, velocity)."""
+    m, n = int(arr.slot_valid.sum()), arr.num_particles
+    return num_bodies * params.num_substeps * (421 * m + 13 * n)
+
+
+def frame_bytes(arr: TetArrays, params: PhysicsParams, num_bodies: int,
+                num_grabs: int) -> int:
+    """Bytes a frame must move: each input read once (pos, vel, a tet's
+    slot-table constants at 73 bytes, once per tet: padded slots carry no
+    work, inv_mass, grabs), each output written once (pos, prev, vel,
+    vol_err)."""
+    n = arr.num_particles
+    tets = int(arr.slot_valid.sum())
+    return (num_bodies * (5 * 12 * n + 4 * params.num_substeps
+                          + 16 * num_grabs) + 73 * tets + 4 * n)
 
 
 class _FrameParams(ctypes.Structure):
@@ -72,7 +94,8 @@ def _frame_params(params: PhysicsParams) -> _FrameParams:
     )
 
 
-def _library() -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
+    """The kernel's library, built at first use, with its arguments declared."""
     lib = build.load("gs_frame")
     if lib.gs_frame_launch.argtypes is None:
         lib.gs_frame_launch.argtypes = (
@@ -86,16 +109,6 @@ def _library() -> ctypes.CDLL:
         if lib.gs_frame_threads() != THREADS:
             raise RuntimeError("csrc/gs_frame.cu kThreads != gs_fused.THREADS")
     return lib
-
-
-def _expect(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-        raise ValueError(
-            f"{name}: expected {dtype} {list(shape)} on {device}, got "
-            f"{t.dtype} {list(t.shape)} on {t.device}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _gs_frame_cuda(pos, vel, arr: TetArrays, params: PhysicsParams,
@@ -113,21 +126,21 @@ def _gs_frame_cuda(pos, vel, arr: TetArrays, params: PhysicsParams,
     S = params.num_substeps
     check_fits(N)
     f32 = torch.float32
-    _expect(pos, "pos", f32, (B, N, 3), dev)
-    _expect(vel, "vel", f32, (B, N, 3), dev)
-    _expect(grab_id, "grab_id", torch.int32, (B, G), dev)
-    _expect(grab_pos, "grab_pos", f32, (B, G, 3), dev)
-    _expect(arr.slot_tets, "slot_tets", torch.int32, (L, C, 4), dev)
-    _expect(arr.slot_inv_rest_pose, "slot_inv_rest_pose", f32, (L, C, 3, 3), dev)
-    _expect(arr.slot_inv_rest_volume, "slot_inv_rest_volume", f32, (L, C), dev)
-    _expect(arr.slot_inv_mass, "slot_inv_mass", f32, (L, C, 4), dev)
-    _expect(arr.slot_valid, "slot_valid", torch.bool, (L, C), dev)
-    _expect(arr.inv_mass, "inv_mass", f32, (N,), dev)
+    expect(pos, "pos", f32, (B, N, 3), dev)
+    expect(vel, "vel", f32, (B, N, 3), dev)
+    expect(grab_id, "grab_id", torch.int32, (B, G), dev)
+    expect(grab_pos, "grab_pos", f32, (B, G, 3), dev)
+    expect(arr.slot_tets, "slot_tets", torch.int32, (L, C, 4), dev)
+    expect(arr.slot_inv_rest_pose, "slot_inv_rest_pose", f32, (L, C, 3, 3), dev)
+    expect(arr.slot_inv_rest_volume, "slot_inv_rest_volume", f32, (L, C), dev)
+    expect(arr.slot_inv_mass, "slot_inv_mass", f32, (L, C, 4), dev)
+    expect(arr.slot_valid, "slot_valid", torch.bool, (L, C), dev)
+    expect(arr.inv_mass, "inv_mass", f32, (N,), dev)
     for t in (arr.slot_tets, arr.slot_inv_mass):  # read as int4 / float4
         if t.data_ptr() % 16:
             raise ValueError("slot tables must be 16-byte aligned")
 
-    lib = _library()
+    lib = library()
     pos_out, prev_out, vel_out = (torch.empty_like(pos) for _ in range(3))
     vol_err = torch.empty((B, S), dtype=f32, device=dev)
     with torch.cuda.device(dev):  # the launch goes to the current device
@@ -177,12 +190,10 @@ def gs_frame(pos, vel, arr: TetArrays, params: PhysicsParams, grab_id,
     return _gs_frame_cuda(pos, vel, arr, params, grab_id, grab_pos)
 
 
-class FusedGSBody:
+class FusedGSBody(FusedBatch):
     """A batch of bodies of one mesh stepped by the fused frame kernel, one
-    launch per frame for the whole batch, each body with its own grab.
-
-    State is [B,N,3] tensors on ``device``; ``jitter`` offsets each body by
-    a seeded random translation (y kept non-negative)."""
+    launch per frame for the whole batch, each body with its own grab
+    (state and grab API: ``FusedBatch``)."""
 
     def __init__(
         self,
@@ -192,26 +203,11 @@ class FusedGSBody:
         coloring: str = "greedy",
         jitter: float = 0.0,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
     ):
         check_fits(mesh.num_particles)
-        self.mesh = mesh
-        self.num_bodies = num_bodies
-        self.device = torch.device(device)
+        super().__init__(mesh, num_bodies, jitter, seed, device)
         self.arrays = build_arrays(mesh, density, coloring, device=self.device)
-        verts = np.repeat(mesh.verts.astype(np.float32)[None], num_bodies, axis=0)
-        if jitter:
-            rng = np.random.RandomState(seed)
-            off = rng.uniform(-jitter, jitter, (num_bodies, 3)).astype(np.float32)
-            off[:, 1] = np.abs(off[:, 1])  # keep above ground
-            verts = verts + off[:, None, :]
-        self.pos = torch.as_tensor(verts).to(self.device)
-        self.prev_pos = self.pos.clone()
-        self.vel = torch.zeros_like(self.pos)
-        self.grab_id = torch.full((num_bodies, 1), -1, dtype=torch.int32,
-                                  device=self.device)
-        self.grab_pos = torch.zeros((num_bodies, 1, 3), dtype=torch.float32,
-                                    device=self.device)
         self.last_diag: Optional[torch.Tensor] = None
 
     def step(self, params: PhysicsParams, frames: int = 1):
@@ -223,42 +219,3 @@ class FusedGSBody:
                 self.grab_pos,
             )
         return self.last_diag
-
-    # -- views ---------------------------------------------------------------
-    def positions(self) -> np.ndarray:
-        """[num_bodies, N, 3] current particle positions."""
-        return self.pos.cpu().numpy()
-
-    def velocities(self) -> np.ndarray:
-        return self.vel.cpu().numpy()
-
-    # -- interaction ---------------------------------------------------------
-    def _check_body(self, body: int):
-        if not 0 <= body < self.num_bodies:
-            raise IndexError(
-                f"body index {body} out of range (batch has {self.num_bodies})"
-            )
-
-    def _point(self, point) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(point, np.float32)).to(self.device)
-
-    def set_grab(self, body: int, particle: int, point):
-        self._check_body(body)
-        self.grab_id[body, 0] = particle
-        self.grab_pos[body, 0] = self._point(point)
-
-    def start_grab(self, body: int, point) -> int:
-        """Grab the body's particle nearest to ``point``; returns its id."""
-        self._check_body(body)
-        p = self._point(point)
-        pid = int(torch.argmin(((self.pos[body] - p) ** 2).sum(dim=-1)))
-        self.set_grab(body, pid, point)
-        return pid
-
-    def move_grabbed(self, body: int, point):
-        self._check_body(body)
-        self.grab_pos[body, 0] = self._point(point)
-
-    def end_grab(self, body: int):
-        self._check_body(body)
-        self.grab_id[body, 0] = -1

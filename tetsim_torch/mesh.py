@@ -164,7 +164,12 @@ class TetArrays:
     copies of every per-tet constant (``slot_*``, [L,C,...]) gathered on the
     host, so the level loop reads tables in order and gathers only
     particles.  Padded slots have ``slot_valid`` False and ``slot_tets`` 0.
-    The slot fields are None when no schedule was built."""
+    The slot fields are None when no schedule was built.
+
+    The polar engine's incidence tables list, per particle, its corner ids
+    ``tet*4 + k`` in ascending order (``inc_idx``, -1 padded to the largest
+    valence K) and the sum of its tets' rest volumes (``inc_den``); they
+    are None when not built."""
 
     tets: torch.Tensor  # int32 [M,4]
     inv_rest_pose: torch.Tensor  # f32 [M,3,3]
@@ -178,6 +183,9 @@ class TetArrays:
     slot_valid: Optional[torch.Tensor] = None  # bool [L,C]
     slot_inv: Optional[torch.Tensor] = None  # int32 [L,N] particle->4*slot+corner
     slot_inv_mass: Optional[torch.Tensor] = None  # f32 [L,C,4]
+    # -- polar scatter-as-gather tables (None when not built) --
+    inc_idx: Optional[torch.Tensor] = None  # int32 [N,K] corner ids, -1 pad
+    inc_den: Optional[torch.Tensor] = None  # f32 [N] sum of incident rest volumes
 
     @property
     def num_particles(self) -> int:
@@ -228,13 +236,17 @@ def build_arrays(
     mesh: TetMesh,
     density: float = 1000.0,
     coloring: Optional[str] = "ordered",
+    incidence: Optional[bool] = None,
     pinned=None,
-    device="cpu",
+    *,
+    device,
 ) -> TetArrays:
     """Precompute everything the solvers need, as tensors on ``device``.
 
     coloring: "ordered" (level schedule, the reference's exact GS order),
-    "greedy" (fewest colours) or None (no GS schedule)."""
+    "greedy" (fewest colours) or None (no GS schedule; the polar engine).
+    incidence: build the polar engine's ``inc_idx``/``inc_den``; by default
+    only when no GS schedule is asked for."""
     ir, irv, vol, im, rc = rest_state(mesh, density, pinned=pinned)
     sched = (None,) * 6
     if coloring == "ordered":
@@ -246,6 +258,11 @@ def build_arrays(
     if coloring is not None:
         sched = build_schedule(colors, mesh.tets, ir, irv, mesh.num_particles, im)
     st, sp, sv, sd, si, sm = sched
+    if incidence is None:
+        incidence = coloring is None
+    inc_idx = inc_den = None
+    if incidence:
+        inc_idx, inc_den = build_incidence(mesh.tets, vol, mesh.num_particles)
 
     def t(x):
         return None if x is None else torch.as_tensor(x).to(device)
@@ -256,6 +273,59 @@ def build_arrays(
         inv_mass=t(im), rest_centered=t(rc),
         slot_tets=t(st), slot_inv_rest_pose=t(sp), slot_inv_rest_volume=t(sv),
         slot_valid=t(sd), slot_inv=t(si), slot_inv_mass=t(sm),
+        inc_idx=t(inc_idx), inc_den=t(inc_den),
+    )
+
+
+def build_incidence(tets: np.ndarray, rest_volume: np.ndarray,
+                    num_particles: int):
+    """Particle -> incident corner table, the scatter of the polar solve
+    turned into a gather.  Returns (inc_idx int32 [N,K], inc_den f32 [N]):
+    the corner ids ``tet*4 + k`` of each particle in ascending order, -1
+    padded to the largest valence K, and the sum of its tets' rest volumes
+    (added in f64, rounded once)."""
+    seg = tets.reshape(-1).astype(np.int64)  # corner id -> particle
+    order = np.argsort(seg, kind="stable").astype(np.int32)
+    counts = np.bincount(seg, minlength=num_particles)
+    k = int(counts.max()) if len(seg) else 0
+    inc = np.full((num_particles, k), -1, np.int32)
+    starts = np.cumsum(counts) - counts
+    pos_sorted = np.arange(len(seg), dtype=np.int64) - np.repeat(starts, counts)
+    inc[seg[order], pos_sorted] = order
+    den = np.zeros(num_particles, np.float64)
+    np.add.at(den, seg, np.repeat(rest_volume.astype(np.float64), 4))
+    return inc, den.astype(np.float32)
+
+
+def replicate_mesh(mesh: TetMesh, n: int, jitter: float = 0.0,
+                   seed: int = 0) -> TetMesh:
+    """n copies of a mesh as one disjoint mesh, body-major: copy b's
+    particle, tet and surface ids are offset by b times the mesh's counts.
+    ``jitter`` offsets each copy by a seeded random translation (y kept
+    non-negative), drawn as ``FusedPolarBody`` and ``FusedGSBody`` draw
+    theirs."""
+    nv, nt = mesh.num_particles, mesh.num_tets
+    off = np.zeros((n, 1, 3), np.float32)
+    if jitter:
+        rng = np.random.RandomState(seed)
+        off = rng.uniform(-jitter, jitter, (n, 1, 3)).astype(np.float32)
+        off[:, :, 1] = np.abs(off[:, :, 1])  # keep above ground
+    verts = (mesh.verts[None] + off).reshape(-1, 3)
+
+    def rep_idx(x, stride):
+        if x is None:
+            return None
+        shift = np.arange(n, dtype=np.int64).reshape((n,) + (1,) * x.ndim)
+        return (x[None] + shift * stride).reshape(
+            (-1,) + x.shape[1:]).astype(np.int32)
+
+    return TetMesh(
+        verts=verts,
+        tets=rep_idx(mesh.tets, nv),
+        edges=rep_idx(mesh.edges, nv),
+        vis_tet_ids=rep_idx(mesh.vis_tet_ids, nt),
+        vis_bary=None if mesh.vis_bary is None else np.tile(mesh.vis_bary, (n, 1)),
+        tris=rep_idx(mesh.tris, mesh.num_surface_verts),
     )
 
 

@@ -1,8 +1,8 @@
 """Native (C++) mesh-preprocessing kernels, loaded over ctypes.
 
-Counterpart of ``tetsim_tpu/native/__init__.py``.  The source is the JAX
-package's ``native/coloring.cpp``, read by path and compiled with g++ into
-the port's own build directory on first use.  This is host preprocessing:
+Counterpart of ``tetsim_tpu/native/__init__.py``.  The source is the port's
+own ``csrc/coloring.cpp`` (a copy of the JAX package's), compiled with g++
+into the port's build directory on first use.  This is host preprocessing:
 when no C++ toolchain is available the callers in ``mesh.py`` fall back to
 the pure-Python implementations, which compute the same tables.
 """
@@ -17,9 +17,9 @@ from typing import Optional
 
 import numpy as np
 
-from ._compile import TPU_PKG_DIR, BuildError, compiled_library
+from ._compile import PKG_DIR, BuildError, compiled_library
 
-_SRC = os.path.join(TPU_PKG_DIR, "native", "coloring.cpp")
+_SRC = os.path.join(PKG_DIR, "csrc", "coloring.cpp")
 
 
 def _cpu_tag() -> str:

@@ -19,8 +19,8 @@ f32 = np.float32
 @dataclasses.dataclass
 class PhysicsParams:
     """Tunable physics parameters.  ``num_substeps`` sets the length of the
-    substep loop of one frame; ``extract_iters`` belongs to the polar
-    engine, which this package does not carry yet."""
+    substep loop of one frame; the polar engine reads ``extract_iters``,
+    the number of extract_rotation iterations per substep."""
 
     gravity: np.float32 = f32(-9.81)
     time_scale: np.float32 = f32(1.0)

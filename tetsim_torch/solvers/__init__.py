@@ -1,8 +1,8 @@
-"""Solver backends.  This package carries the Neo-Hookean engine only;
+"""Solver backends.  This package carries the Neo-Hookean and polar engines;
 the others of the JAX package are listed as still to port in ROADMAP.md."""
-from . import common, neohookean  # noqa: F401
+from . import common, neohookean, polar  # noqa: F401
 
-ENGINES = {"neohookean": neohookean}
+ENGINES = {"neohookean": neohookean, "polar": polar}
 
 
 def get_engine(name: str):

@@ -75,5 +75,6 @@ def norm_grabs(controls: Controls):
 
 
 def velocity_update(pos, prev_pos, dt):
-    """vel = (pos - prev_pos) / dt."""
-    return (pos - prev_pos) / dt
+    """vel = (pos - prev_pos) / dt, a true division on every device (torch
+    on CUDA would multiply by the reciprocal of a host scalar)."""
+    return (pos - prev_pos) / pos.new_full((), dt)

@@ -14,6 +14,17 @@ import torch
 from .mesh import TetMesh
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device; raises where it names CUDA and CUDA is
+    not available (no silent CPU fallback) or names neither CPU nor CUDA."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"tetsim_torch runs on cpu or cuda, not {dev}")
+    return dev
+
+
 @dataclasses.dataclass
 class SimState:
     pos: torch.Tensor  # f32 [N,3]
@@ -35,7 +46,7 @@ class Controls:
     grab_pos: torch.Tensor
 
     @staticmethod
-    def none(device="cpu") -> "Controls":
+    def none(device) -> "Controls":
         return Controls(
             grab_id=torch.tensor(-1, dtype=torch.int32, device=device),
             grab_pos=torch.zeros(3, dtype=torch.float32, device=device),
@@ -45,7 +56,7 @@ class Controls:
         return dataclasses.replace(self, **changes)
 
 
-def init_state(mesh: TetMesh, device="cpu") -> SimState:
+def init_state(mesh: TetMesh, device) -> SimState:
     pos = torch.tensor(np.asarray(mesh.verts, np.float32), device=device)
     quats = torch.zeros((mesh.num_tets, 4), dtype=torch.float32, device=device)
     quats[:, 3] = 1.0

@@ -34,6 +34,16 @@ def det(m):
     return (m[..., 0] * cross(m[..., 1], m[..., 2])).sum(dim=-1)
 
 
+def outer_sum(a, b):
+    """c[...,r,c] = sum_k a[...,k,r] * b[...,k,c] over the point axis k
+    (the covariance of two point sets), added one point at a time in k
+    order, as the polar frame kernel adds them."""
+    out = a[..., 0, :, None] * b[..., 0, None, :]
+    for k in range(1, a.shape[-2]):
+        out = out + a[..., k, :, None] * b[..., k, None, :]
+    return out
+
+
 def cofactor_columns(m):
     """[col1 x col2 | col2 x col0 | col0 x col1]."""
     c0, c1, c2 = m[..., 0], m[..., 1], m[..., 2]

@@ -3,11 +3,14 @@ a ``World`` on one device, ``world.step(frames)`` advances every body, and
 render data (skinned surface vertices, normals) is computed on the device
 and brought to the host on demand.
 
-Stepping never waits for the device: ``positions``, ``surface_mesh``,
+Every entry point runs on the card unless the caller passes
+``device="cpu"``; where CUDA is missing, asking for it raises.  Stepping
+never waits for the device: ``positions``, ``surface_mesh``,
 ``diagnostics`` and ``start_grab`` (which returns the grabbed id) are the
-calls that synchronise.  This package carries the Neo-Hookean engine only:
-``Body`` runs it through ``solvers/neohookean.py`` (one fused-kernel launch
-per frame on CUDA) and ``add_body_batch`` through ``FusedGSBody``.
+calls that synchronise.  This package carries the Neo-Hookean and polar
+engines: ``Body`` runs either through its solver (one fused-kernel launch
+per frame on CUDA), ``add_body_batch`` runs ``FusedGSBody``,
+``FusedPolarBody`` or the polar ``BatchedBody``.
 """
 from __future__ import annotations
 
@@ -17,22 +20,16 @@ import numpy as np
 import torch
 
 from . import diag
-from .kernels import gs_fused
+from .kernels import gs_fused, polar_fused
+from .kernels.batch import FusedBatch
 from .kernels.gs_fused import FusedGSBody
-from .mesh import TetArrays, TetMesh, build_arrays
+from .kernels.polar_fused import FusedPolarBody
+from .mesh import TetArrays, TetMesh, build_arrays, replicate_mesh
 from .params import PhysicsParams
 from .solvers import get_engine
-from .state import Controls, init_state
+from .solvers.polar import quat_rotate
+from .state import Controls, check_device, init_state
 from .utils import mat3
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"tetsim_torch runs on cpu or cuda, not {dev}")
-    return dev
 
 
 def _point(point, device) -> torch.Tensor:
@@ -68,8 +65,15 @@ def _vertex_normals(verts, tris):
     return n / norm.clamp(min=1e-12)
 
 
+def _rotated_normals(rest_normals, quats, vis_tet_ids):
+    """The reference GPU path's normals: each surface vertex's rest normal
+    rotated by its tet's shape-matching quaternion."""
+    return quat_rotate(rest_normals, quats[vis_tet_ids])
+
+
 class _Surface:
-    """Embedded-surface render tables + skinning for one mesh."""
+    """Embedded-surface render tables + skinning for one (possibly
+    flattened multi-body) mesh."""
 
     def __init__(self, mesh: TetMesh, device):
         self.skin_ids = torch.as_tensor(
@@ -79,19 +83,31 @@ class _Surface:
         self.skin_w = torch.as_tensor(w.astype(np.float32)).to(device)  # [S,4]
         self.tris_np = np.asarray(mesh.tris, np.int32)
         self.tris = torch.as_tensor(self.tris_np.astype(np.int64)).to(device)
+        self.vis_tet_ids = torch.as_tensor(
+            mesh.vis_tet_ids.astype(np.int64)).to(device)
+        rest = torch.as_tensor(mesh.verts.astype(np.float32)).to(device)
+        self.rest_normals = _vertex_normals(
+            _skin_surface(rest, self.skin_ids, self.skin_w), self.tris)
 
     def positions(self, pos) -> np.ndarray:
         return _skin_surface(pos, self.skin_ids, self.skin_w).cpu().numpy()
 
-    def mesh_data(self, pos, normals: str = "smooth"):
-        """(verts [S,3], normals [S,3], tris [T,3]) as numpy, one transfer."""
-        if normals != "smooth":
-            raise ValueError(
-                f"normals={normals!r}: only 'smooth' is ported (rotated "
-                "normals need the polar engine, see ROADMAP.md)"
-            )
+    def mesh_data(self, pos, quats=None, normals: str = "smooth"):
+        """(verts [S,3], normals [S,3], tris [T,3]) as numpy, one transfer.
+        normals="smooth" recomputes area-weighted normals from the deformed
+        surface; "rotated" rotates the rest normals by the per-tet
+        quaternions ``quats`` (polar engine only)."""
         verts = _skin_surface(pos, self.skin_ids, self.skin_w)
-        vn = torch.stack([verts, _vertex_normals(verts, self.tris)]).cpu().numpy()
+        if normals == "smooth":
+            nrm = _vertex_normals(verts, self.tris)
+        elif normals == "rotated":
+            if quats is None:
+                raise ValueError(
+                    "rotated normals need per-tet quaternions (polar engine)")
+            nrm = _rotated_normals(self.rest_normals, quats, self.vis_tet_ids)
+        else:
+            raise ValueError(f"unknown normals mode {normals!r}")
+        vn = torch.stack([verts, nrm]).cpu().numpy()
         return vn[0], vn[1], self.tris_np
 
 
@@ -106,21 +122,23 @@ class Body:
         density: float = 1000.0,
         arrays: Optional[TetArrays] = None,
         pinned=None,
-        device="cpu",
+        device="cuda",
     ):
         self.engine_mod = get_engine(engine)
         self.mesh = mesh
         self.engine = engine
-        self.device = _device(device)
+        self.device = check_device(device)
         if coloring == "auto":
-            coloring = "ordered"
+            # polar is Jacobi: no GS schedule
+            coloring = "ordered" if engine == "neohookean" else None
         if arrays is not None and pinned is not None:
             raise ValueError(
                 "pinned= has no effect when arrays= is prebuilt — bake the "
                 "pins in (build_arrays takes pinned=)"
             )
         if self.device.type == "cuda":
-            gs_fused.check_fits(mesh.num_particles)
+            kernel = polar_fused if engine == "polar" else gs_fused
+            kernel.check_fits(mesh.num_particles)
         self.arrays = (
             arrays.to(self.device) if arrays is not None
             else build_arrays(mesh, density=density, coloring=coloring,
@@ -178,16 +196,82 @@ class Body:
 
     def surface_mesh(self, normals: str = "smooth"):
         """(positions [S,3], normals [S,3], triangles [T,3]) for a viewer,
-        computed on the device and brought over in one transfer."""
-        return self._need_surface().mesh_data(self.state.pos, normals)
+        computed on the device and brought over in one transfer.
+        normals="smooth" recomputes them from the deformed surface (the
+        reference CPU path); "rotated" rotates the rest normals by each tet's
+        quaternion (the reference GPU path; polar engine only)."""
+        quats = self.state.quats if self.engine == "polar" else None
+        return self._need_surface().mesh_data(self.state.pos, quats, normals)
+
+
+class BatchedBody(FusedPolarBody):
+    """N bodies of one mesh as one flattened disjoint mesh, body-major
+    (``replicate_mesh``): flat particle ``b * N + i`` is particle i of body
+    b, and the surface of all bodies is one concatenated mesh.  Each body
+    has one grab slot; ``positions`` is a property, as in the JAX package.
+
+    Only the polar engine is ported.  Its bodies step through the fused
+    polar frame kernel as a [B, N] batch, one block per body, with the
+    single mesh's tables: the flat mesh is disjoint and body-major, so that
+    gives the numbers the flat mesh would (a particle's incident corners
+    keep their order), and a flat mesh of 8 dragons (9,872 particles, 355 KB
+    of particle planes) would not fit one block's shared memory.  So this is
+    a ``FusedPolarBody`` with the flat layout's surface and grab by flat
+    particle id."""
+
+    def __init__(
+        self,
+        mesh: TetMesh,
+        num_bodies: int,
+        engine: str = "polar",
+        density: float = 1000.0,
+        jitter: float = 0.0,
+        seed: int = 0,
+        device="cuda",
+    ):
+        if engine != "polar":
+            raise ValueError(
+                f"BatchedBody(engine={engine!r}): only the polar engine is "
+                "ported for flat batches (see ROADMAP.md); use "
+                "backend='fused' for neohookean"
+            )
+        super().__init__(mesh, num_bodies, density=density, jitter=jitter,
+                         seed=seed, device=device)
+        self.engine = engine
+        self.flat_mesh = replicate_mesh(mesh, num_bodies, jitter=jitter, seed=seed)
+        self._surface = (
+            _Surface(self.flat_mesh, self.device)
+            if self.flat_mesh.vis_tet_ids is not None else None
+        )
+
+    @property
+    def positions(self) -> np.ndarray:
+        """[num_bodies, N, 3]."""
+        return self.pos.cpu().numpy()
+
+    def surface_mesh(self, normals: str = "smooth"):
+        """Skinned surfaces of all bodies, concatenated: (verts [B*S,3],
+        normals [B*S,3], tris [B*T,3], indices offset per body)."""
+        if self._surface is None:
+            raise ValueError("mesh has no embedded render surface")
+        return self._surface.mesh_data(self.pos.reshape(-1, 3),
+                                       self.quats.reshape(-1, 4), normals)
+
+    def grab_particle(self, flat_pid: int, point) -> int:
+        """Grab a known flat particle id (a viewer's raycast hit) in its
+        body's slot; returns the body."""
+        n = self.mesh.num_particles
+        body = int(flat_pid) // n
+        self.set_grab(body, int(flat_pid) - body * n, point)
+        return body
 
 
 class World:
-    """Scene container + frame loop on one device ("cpu" or "cuda")."""
+    """Scene container + frame loop on one device ("cuda" or "cpu")."""
 
-    def __init__(self, params: Optional[PhysicsParams] = None, device="cpu"):
+    def __init__(self, params: Optional[PhysicsParams] = None, device="cuda"):
         self.params = params if params is not None else PhysicsParams()
-        self.device = _device(device)
+        self.device = check_device(device)
         self.bodies: list = []
 
     def add_body(
@@ -209,23 +293,38 @@ class World:
         self,
         mesh: TetMesh,
         num_bodies: int,
-        engine: str = "neohookean",
-        backend: str = "fused",
+        engine: str = "polar",
+        backend: str = "flat",
         jitter: float = 0.0,
         seed: int = 0,
         density: Optional[float] = None,
-    ) -> FusedGSBody:
-        """A batch of bodies of one mesh, one fused-kernel launch per frame
-        (``backend="fused"``, ``engine="neohookean"``: the only pair ported)."""
-        if engine != "neohookean" or backend != "fused":
-            raise ValueError(
-                f"add_body_batch(engine={engine!r}, backend={backend!r}): only "
-                "engine='neohookean' with backend='fused' is ported (see "
-                "ROADMAP.md)"
-            )
+    ):
+        """Add a batch of bodies of one mesh, each with its own grab.
+
+        backend="flat"  — ``BatchedBody``, one flattened disjoint mesh (the
+                          polar engine; neohookean is not ported here);
+        backend="fused" — ``FusedGSBody`` (neohookean) or ``FusedPolarBody``
+                          (polar): one fused-kernel launch per frame.
+        """
         d = float(self.params.density) if density is None else density
-        batch = FusedGSBody(mesh, num_bodies, density=d, jitter=jitter,
-                            seed=seed, device=self.device)
+        kw = dict(density=d, jitter=jitter, seed=seed, device=self.device)
+        if backend == "fused":
+            if engine == "neohookean":
+                batch = FusedGSBody(mesh, num_bodies, **kw)
+            elif engine == "polar":
+                batch = FusedPolarBody(mesh, num_bodies, **kw)
+            else:
+                raise ValueError(
+                    "the fused backend implements the neohookean and polar "
+                    f"engines, not {engine!r}"
+                )
+        elif backend == "flat":
+            batch = BatchedBody(mesh, num_bodies, engine=engine, **kw)
+        else:
+            raise ValueError(
+                f"backend {backend!r} is not ported (see ROADMAP.md); the "
+                "port has 'flat' and 'fused'"
+            )
         self.bodies.append(batch)
         return batch
 
@@ -233,7 +332,7 @@ class World:
         """Advance all bodies by ``frames`` frames (bodies are independent,
         so each runs its frames in turn)."""
         for body in self.bodies:
-            if isinstance(body, FusedGSBody):
+            if isinstance(body, FusedBatch):
                 body.step(self.params, frames)
             else:
                 body.step_many(self.params, frames)
@@ -241,16 +340,8 @@ class World:
     def diagnostics(self) -> dict:
         out = {}
         for i, b in enumerate(self.bodies):
-            if isinstance(b, FusedGSBody):
-                h = torch.stack([
-                    b.pos[..., 1].min(),
-                    torch.linalg.vector_norm(b.vel, dim=-1).max(),
-                    torch.isnan(b.pos).any().to(torch.float32),
-                ]).tolist()
-                out[f"body{i}"] = {
-                    "batch": b.num_bodies, "min_height": h[0],
-                    "max_speed": h[1], "nan": bool(h[2]),
-                }
+            if isinstance(b, FusedBatch):
+                out[f"body{i}"] = b.summary()
             else:
                 out[f"body{i}"] = diag.summarize(b.state, b.arrays, b.last_diag)
         return out
