@@ -33,7 +33,22 @@ code is non-zero:
      JAX default: polar, flat) and add_body_batch(..., backend="fused"),
      each 120 frames with no host sync, a grab, 30 frames, both surface
      shadings and diagnostics; the launch counter equals the frames;
-  8. polar substeps/s of the kernel and its plain twin at B = 1, 8, 132.
+  8. polar substeps/s of the kernel and its plain twin at B = 1, 8, 132;
+  9. the grid stencil kernels, polar_stencil (K4) and nh_stencil (K3), vs
+     their plain twins after every frame at 5 substeps (the scale
+     example's): a (4, 3, 2) and a (12, 9, 7) box with 2 pinned particles,
+     a grab and seeded velocities, 3 frames; a (12, 9, 7) box resting on
+     the ground after 60 frames, 1 frame; two boxes past the walls at
+     friction k = 0.1, 2 frames; the 56^3 box (1,053,696 tets) at cell
+     0.05 and at the scale box's cell 0.02, 1 frame; each beside the
+     kernel's own spread from positions 1 ulp apart;
+ 10. the grid main path at 56^3: World -> add_grid_body((56, 56, 56),
+     cell=0.02, origin=(-0.56, 0.5, -0.56)) for all four engine names,
+     packed and not where allowed, then add_grid_body_batch of two boxes,
+     each 60 frames with no host sync, a grab, 20 frames, positions and
+     diagnostics; each launch counter equals frames x substeps x launches
+     per substep;
+ 11. ms per substep at 56^3 of each grid kernel and its plain twin.
 Then a JSON line with every kernel's numbers, the card's name and power
 limit, and, last, the device line.  It exits non-zero, printing no result,
 where CUDA is unavailable.
@@ -559,6 +574,269 @@ def polar_timings(tt, polar_fused, dragon, label):
     return out
 
 
+# -- the grid stencil kernels (K4, K3) ----------------------------------------
+
+GRID = (56, 56, 56)  # bench.py's scale box: 1,053,696 tets
+GRID_BOX = dict(cell=0.02, origin=(-0.56, 0.5, -0.56))
+GRID_SUBSTEPS = 5  # examples/scale_grid.py's default
+
+
+def grid_box(tt, polar, dims, cell, origin, pins=None, num_bodies=1,
+             vel=0.0, seed=0):
+    """(arrays, pos, vel, quats or None) for ``num_bodies`` copies of a
+    grid box in the kernels' layout, velocities seeded in +-vel."""
+    from tetsim_torch.solvers import neohookean_grid, polar_grid
+
+    mesh = tt.grid_mesh(*dims, cell=cell, origin=origin)
+    build = (polar_grid.build_grid_arrays if polar
+             else neohookean_grid.build_nh_grid_arrays)
+    arr = build(mesh, dims, pinned=pins, device="cuda")
+    n = mesh.num_particles
+    pos = torch.tensor(mesh.verts, device="cuda").T.contiguous()
+    pos = pos[None].repeat(num_bodies, 1, 1)
+    rng = np.random.RandomState(seed)
+    v = torch.tensor(rng.uniform(-vel, vel, (num_bodies, 3, n)).astype(
+        np.float32), device="cuda")
+    quats = None
+    if polar:
+        quats = torch.zeros((num_bodies, 6, 4, arr.num_tets // 6),
+                            device="cuda")
+        quats[:, :, 3] = 1.0
+    return arr, pos, v, quats
+
+
+def grid_case(mod, arr, start, params, gid, gpos, frames, tol, label,
+              by_spread=False):
+    """The kernel vs its plain twin from ``start`` = (pos, vel[, quats])
+    after each of ``frames`` frames, beside the kernel's own spread from
+    positions 1 ulp apart.  Positions are held to ``tol``; polar
+    quaternions to 2e-5 or twice the kernel's quaternion spread, whichever
+    is larger, velocities to 2e-2; Neo-Hookean velocities to 2e-3 and the
+    volume error to 1e-5.  ``by_spread``: every bound is twice the kernel's
+    own spread where that is larger (contact with friction, and the
+    collapsing Neo-Hookean scale box, turn a last-bit difference into
+    more).  Returns (largest position difference, the last frame's kernel
+    output)."""
+    polar = len(start) == 3
+    kw = {} if polar else {"vol_err": True}
+
+    def run(frame, pos):
+        out, s = [], (pos,) + start[1:]
+        for _ in range(frames):
+            r = frame(*s, arr, params, gid, gpos, **kw)
+            out.append(r)
+            s = (r[0], r[2]) + ((r[3],) if polar else ())
+        sync()
+        return out
+
+    pos = start[0]
+    got = run(mod.grid_frame, pos)
+    want = run(mod.grid_frame_reference, pos)
+    moved = run(mod.grid_frame, torch.nextafter(pos, torch.full_like(pos, 10.0)))
+    worst = 0.0
+    for f, (k, r, m) in enumerate(zip(got, want, moved), 1):
+        dp, dv, d3 = (max_diff(k[i], r[i]) for i in (0, 2, 3))
+        sp, sv, s3 = (max_diff(k[i], m[i]) for i in (0, 2, 3))
+        if polar:
+            t3, vtol, what = max(2e-5, 2 * s3), 2e-2, "quat"
+        else:
+            t3, vtol, what = 1e-5, 2e-3, "vol_err"
+        ptol = tol
+        if by_spread:
+            ptol, vtol, t3 = max(ptol, 2 * sp), max(vtol, 2 * sv), max(t3, 2 * s3)
+        print(f"phase 9 {mod.__name__.split('.')[-1]} {label}, frame {f} of "
+              f"{frames}: kernel vs plain max|dpos| {dp:.3e} (tol {ptol:.3e}) "
+              f"max|d{what}| {d3:.3e} (tol {t3:.3e}) max|dvel| {dv:.3e} (tol "
+              f"{vtol:.3e}); kernel vs kernel from 1 ulp apart: pos {sp:.3e}, "
+              f"vel {sv:.3e}, {what} {s3:.3e}", flush=True)
+        check(dp <= ptol and d3 <= t3 and dv <= vtol,
+              f"{label} disagrees after frame {f}")
+        worst = max(worst, dp)
+    return worst, got[-1]
+
+
+def grid_vs_plain(tt, mod):
+    """Phase 9 for one kernel module; returns the largest position
+    difference."""
+    polar = mod.__name__.endswith("polar_stencil")
+    params = tt.PhysicsParams(num_substeps=GRID_SUBSTEPS)
+    errs = []
+    for dims, pins, grab in (((4, 3, 2), [0, 5], 7), ((12, 9, 7), [0, 50], 100)):
+        box = grid_box(tt, polar, dims, 0.05, (-0.2, 0.5, -0.15), pins=pins,
+                       vel=0.3, seed=1)
+        target = box[1][0, :, grab] + torch.tensor([0.0, 0.05, 0.02],
+                                                   device="cuda")
+        gid = torch.tensor([[grab]], dtype=torch.int32, device="cuda")
+        err, out = grid_case(mod, box[0], box[1:] if polar else box[1:3],
+                             params, gid, target[None, None], 3, 2e-5,
+                             f"{dims} 2 pinned, grab")
+        check(torch.equal(out[0][0][:, pins], box[1][0][:, pins]),
+              "pinned particles moved")
+        check(torch.equal(out[0][0, :, grab], target), "grab off target")
+        errs.append(err)
+
+    # a box resting on the ground after 60 frames, 1 frame
+    arr, pos, vel, quats = grid_box(tt, polar, (12, 9, 7), 0.05,
+                                    (-0.3, 0.05, -0.2))
+    gid, gpos = no_grab(1)
+    for _ in range(60):
+        out = mod.grid_frame(pos, vel, *((quats,) if polar else ()), arr,
+                             params, gid, gpos)
+        pos, vel = out[0], out[2]
+        quats = out[3] if polar else None
+    start = (pos, vel, quats) if polar else (pos, vel)
+    err, out = grid_case(mod, arr, start, params, gid, gpos, 1, 2e-5,
+                         "(12, 9, 7) resting on the ground")
+    ground = int((out[0][0, 1] == 0).sum())
+    print(f"phase 9 resting: {ground} particles on the ground", flush=True)
+    check(ground > 0, "the resting box does not touch the ground")
+    errs.append(err)
+
+    # two boxes past the walls at friction k = dt * friction = 0.1: box 0
+    # 2 mm past +x moving at +1 m/s, box 1 2 mm past -z and below the
+    # ground moving at -1 m/s in z
+    slip = dataclasses.replace(params, friction=0.1 / float(params.dt))
+    lo, hi = params.world_min, params.world_max
+    arr, pos, vel, quats = grid_box(tt, polar, (12, 9, 7), 0.05,
+                                    (0.0, 0.5, 0.0), num_bodies=2)
+    pos = pos.clone()
+    pos[0, 0] += float(hi[0]) + 0.002 - pos[0, 0].max()
+    pos[1, 1] += -0.002 - pos[1, 1].min()
+    pos[1, 2] += float(lo[2]) - 0.002 - pos[1, 2].min()
+    vel[0, 0], vel[1, 2] = 1.0, -1.0
+    gid, gpos = no_grab(2)
+    start = (pos, vel, quats) if polar else (pos, vel)
+    err, out = grid_case(mod, arr, start, slip, gid, gpos, 2, 2e-5,
+                         "2 boxes past the walls, friction k=0.100",
+                         by_spread=True)
+    at_x = int((out[0][0, 0] == float(hi[0])).sum())
+    at_z = int((out[0][1, 2] == float(lo[2])).sum())
+    ground = int((out[0][1, 1] == 0).sum())
+    print(f"phase 9 walls: {at_x} particles at +x, {at_z} at -z, {ground} "
+          "on the ground", flush=True)
+    check(at_x > 0 and at_z > 0 and ground > 0, "the walls were not reached")
+    errs.append(err)
+
+    # the 56^3 box, 1 frame, at cell 0.05 and at the scale box's cell 0.02.
+    # There the Neo-Hookean engine collapses its tets (vol_err near -1) and
+    # a 1-ulp change moves it by a tenth from rest, as the JAX engine does:
+    # that case starts at rest, as the scale box does, and is held by its
+    # spread
+    gid, gpos = no_grab(1)
+    for cell, origin in ((0.05, (-1.4, 0.1, -1.4)),
+                         (GRID_BOX["cell"], GRID_BOX["origin"])):
+        collapses = not polar and cell == GRID_BOX["cell"]
+        arr, pos, vel, quats = grid_box(tt, polar, GRID, cell, origin,
+                                        vel=0.0 if collapses else 0.1, seed=2)
+        start = (pos, vel, quats) if polar else (pos, vel)
+        err, _ = grid_case(mod, arr, start, params, gid, gpos, 1, 2e-5,
+                           f"{GRID} ({arr.num_tets} tets) cell {cell}",
+                           by_spread=collapses)
+        if not collapses:
+            errs.append(err)
+    return max(errs)
+
+
+def grid_main_path(tt, kernels):
+    """Phase 10: returns each grid kernel's launches in all scenes."""
+    from tetsim_torch.kernels import nh_stencil, polar_stencil
+
+    params = tt.PhysicsParams(num_substeps=GRID_SUBSTEPS)
+    lo, hi = params.world_min - 1e-5, params.world_max + 1e-5
+    target = np.float32([0.0, 1.3, 0.0])
+    n = (GRID[0] + 1) * (GRID[1] + 1) * (GRID[2] + 1)
+    frames = (60, 20)
+    launches = {polar_stencil: 0, nh_stencil: 0}
+    scenes = [(e, p) for e in ("polar_grid", "polar_grid_pallas",
+                               "neohookean_grid", "neohookean_grid_pallas")
+              for p in ((False, True) if e.endswith("_pallas") else (False,))]
+    scenes += [("polar_grid", "batch"), ("neohookean_grid", "batch")]
+    for engine, packed in scenes:
+        for m in kernels.values():
+            m.launch_count = 0
+        t0 = time.perf_counter()
+        world = tt.World(params)
+        batched = packed == "batch"
+        if batched:
+            body = world.add_grid_body_batch(GRID, 2, engine=engine,
+                                             cell=GRID_BOX["cell"])
+        else:
+            body = world.add_grid_body(GRID, engine=engine, packed=packed,
+                                       **GRID_BOX)
+        with no_host_sync():
+            world.step(frames[0])
+        if batched:
+            pid = body.start_grab(1, [0.0, 1.2, 0.0])
+            body.move_grabbed(1, target)
+        else:
+            pid = body.start_grab([0.0, 1.2, 0.0])
+            body.move_grabbed(target)
+        with no_host_sync():
+            world.step(frames[1])
+        pos = body.positions.reshape(-1, n, 3)
+        diag = world.diagnostics()["body0"]
+        seconds = time.perf_counter() - t0
+        mod = polar_stencil if engine.startswith("polar") else nh_stencil
+        want = sum(frames) * GRID_SUBSTEPS * mod.LAUNCHES_PER_SUBSTEP
+        label = f"{engine} {'batch of 2' if batched else f'packed={packed}'}"
+        check(mod.launch_count == want,
+              f"{label}: {mod.launch_count} launches, expected {want}")
+        others = {k: m.launch_count for k, m in kernels.items()
+                  if m is not mod and m.launch_count}
+        check(not others, f"{label} launched {others}")
+        check(np.isfinite(pos).all(), f"{label} positions not finite")
+        check(pos[..., 1].min() >= -1e-5, f"{label} below the ground")
+        check(((pos >= lo) & (pos <= hi)).all(), f"{label} outside the world")
+        check(np.array_equal(pos[1 if batched else 0, pid], target),
+              f"{label} grab off target")
+        check(not diag["nan"], f"{label} diagnostics {diag}")
+        sve = diag.get("solver_vol_error")
+        if not batched:  # 0 / mean det F - 1 per substep, NaN (left out)
+            check((sve is not None) == (engine in ("polar_grid",
+                                                   "neohookean_grid")),
+                  f"{label} solver_vol_error {sve}")
+        launches[mod] += mod.launch_count
+        print(f"phase 10 {label}: {sum(frames)} frames at {GRID_SUBSTEPS} "
+              f"substeps, {mod.launch_count} launches, grab pid {pid} at "
+              f"target, min y {diag['min_height']:.4f}"
+              + (f", volume_error {diag['volume_error']:.3e}" if not batched
+                 else "")
+              + (f", solver_vol_error {sve:.3e}" if sve is not None else "")
+              + f"; {seconds:.2f} s", flush=True)
+    return launches
+
+
+def grid_timings(tt, mod, label):
+    """Phase 11: (kernel ms per substep, plain ms per substep) at 56^3."""
+    polar = mod.__name__.endswith("polar_stencil")
+    params = tt.PhysicsParams(num_substeps=GRID_SUBSTEPS)
+    arr, pos, vel, quats = grid_box(tt, polar, GRID, **GRID_BOX)
+    gid, gpos = no_grab(1)
+    out = {}
+    for name, frame, k1, k2 in (("kernel", mod.grid_frame, 20, 120),
+                                ("plain", mod.grid_frame_reference, 1, 3)):
+        st = {"s": (pos, vel) + ((quats,) if polar else ())}
+
+        def step(k):
+            for _ in range(k):
+                r = frame(*st["s"], arr, params, gid, gpos)
+                st["s"] = (r[0], r[2]) + ((r[3],) if polar else ())
+
+        out[name] = per_frame(step, lambda: st["s"][0].sum(), k1, k2) \
+            * 1e3 / GRID_SUBSTEPS
+    kname = mod.__name__.split(".")[-1]
+    print(f"phase 11 [{label}] {kname} at {GRID} ({arr.num_tets} tets): "
+          f"kernel {out['kernel']:.4f} ms/substep "
+          f"({1e3 / out['kernel']:.1f} substeps/s), plain torch "
+          f"{out['plain']:.4f} ms/substep", flush=True)
+    one = dataclasses.replace(params, num_substeps=1)
+    if polar:
+        work = (mod.frame_flops(arr, one, 1), mod.frame_bytes(arr, 1, 1))
+    else:
+        work = (mod.frame_flops(arr, one, 1), mod.frame_bytes(arr, one, 1, 1))
+    return out["kernel"], out["plain"], bound(*work)
+
+
 def sync():
     torch.cuda.synchronize()
 
@@ -617,15 +895,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     import tetsim_torch as tt
-    from tetsim_torch.kernels import gs_fused, polar_fused
+    from tetsim_torch.kernels import gs_fused, nh_stencil, polar_fused, polar_stencil
 
     t_start = time.perf_counter()
     label = card()
     print(label, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    phase("phase 1 done", build_all,
-          {"gs_frame": gs_fused, "polar_frame": polar_fused})
+    kernels = {"gs_frame": gs_fused, "polar_frame": polar_fused,
+               "polar_stencil": polar_stencil, "nh_stencil": nh_stencil}
+    phase("phase 1 done", build_all, kernels)
 
     dragon = tt.load_dragon()
     params = tt.default_cpu_params()
@@ -649,11 +928,32 @@ def main() -> int:
     polar_arr = tt.build_arrays(dragon, coloring=None, device="cuda")
     polar_bound, polar_by = bound(polar_fused.frame_flops(polar_arr, gpu, 1),
                                   polar_fused.frame_bytes(polar_arr, 1, 1))
+
+    grid_err = {m: phase(f"phase 9 {m.__name__.split('.')[-1]} done",
+                         grid_vs_plain, tt, m)
+                for m in (polar_stencil, nh_stencil)}
+    grid_launches = phase("phase 10 done", grid_main_path, tt, kernels)
+    grid_times = {m: phase(f"phase 11 {m.__name__.split('.')[-1]} done",
+                           grid_timings, tt, m, label)
+                  for m in (polar_stencil, nh_stencil)}
     print(f"bounds at the data sheet's peaks (67 TFLOP/s FP32, 3.35 TB/s): "
           f"gs_frame ordered B=1 frame {gs_bound * 1e3:.3f} us ({gs_by}), "
           f"polar_frame B=1 frame at 20 substeps {polar_bound * 1e3:.3f} us "
-          f"({polar_by}); total {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+          f"({polar_by}), "
+          + ", ".join(f"{m.__name__.split('.')[-1]} 56^3 substep "
+                      f"{t[2][0] * 1e3:.3f} us ({t[2][1]})"
+                      for m, t in grid_times.items())
+          + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
+    grid_lines = [
+        {"name": m.__name__.split(".")[-1], "route": "cuda",
+         "source": f"tetsim_torch/kernels/csrc/{m.__name__.split('.')[-1]}.cu",
+         "replaces": f"tetsim_tpu/kernels/{src}",
+         "launches": grid_launches[m], "max_abs_err": grid_err[m],
+         "ms": grid_times[m][0], "plain_ms": grid_times[m][1],
+         "bound_ms": grid_times[m][2][0], "bound_by": grid_times[m][2][1],
+         "library_ms": None}
+        for m, src in ((nh_stencil, "nh_stencil.py:265"),
+                       (polar_stencil, "polar_stencil.py:137"))]
     print(json.dumps({"kernels": [
         {"name": "gs_frame", "route": "cuda",
          "source": "tetsim_torch/kernels/csrc/gs_frame.cu",
@@ -667,7 +967,7 @@ def main() -> int:
          "launches": polar_launches, "max_abs_err": polar_err,
          "ms": pk_ms, "plain_ms": pp_ms, "bound_ms": polar_bound,
          "bound_by": polar_by, "library_ms": None},
-    ]}), flush=True)
+    ] + grid_lines}), flush=True)
     print(label, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

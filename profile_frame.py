@@ -8,15 +8,19 @@ For each dragon shape it prints one JSON line: the Neo-Hookean kernel
 (gs_frame, 5 substeps) through ``FusedGSBody`` on the greedy schedule at
 B = 1, 8, 64 and 132 bodies and on the ordered schedule at B = 1, then the
 polar kernel (polar_frame, 20 substeps) through ``FusedPolarBody`` at
-B = 1, 8 and 132:
+B = 1, 8 and 132, then the grid stencil kernels on the 56^3 box of the scale
+workload (1,053,696 tets, 5 substeps, as examples/scale_grid.py) through
+``World.add_grid_body(..., packed=True)``: polar_stencil (2 launches per
+substep) and nh_stencil (50):
   host_ms     synced host time per frame: a two-point fit over k1 and k2
               frames, each run ending in a data-dependent sync;
   enqueue_ms  host time per frame to enqueue k2 frames, with no sync;
   event_ms    CUDA-event span per frame over those same k2 frames;
   kernel_us   the kernel's device time per launch, torch.profiler over 20
               frames (null where the profiler records no device time);
-  busy_share  kernel_us / event_ms: the share of a frame's span in which
-              the kernel runs;
+  device_ms   the kernels' device time per frame, over the same 20 frames;
+  busy_share  device_ms / event_ms: the share of a frame's span in which
+              the kernels run;
   bound_us    the least time the card could take for the frame: its
               operations at 67 TFLOP/s FP32 or its bytes (each input read
               once, each output written once) at 3.35 TB/s, whichever is
@@ -45,6 +49,8 @@ import torch
 
 from chip_smoke import bound, max_diff
 
+GRID_SHAPES = (("grid polar 56^3", "polar_grid_pallas", "polar_grid_", 20, 120),
+               ("grid nh 56^3", "neohookean_grid_pallas", "nh_grid_", 20, 120))
 SHAPES = (("B=1 greedy", 1, "greedy", 50, 450),
           ("B=8 greedy", 8, "greedy", 50, 450),
           ("B=64 greedy", 64, "greedy", 50, 450),
@@ -73,7 +79,10 @@ def synced_run(step, state_sum, k) -> float:
     return time.perf_counter() - t0
 
 
-def kernel_us_per_launch(step, kernel):
+def kernel_device_time(step, kernel):
+    """(device us per launch, device ms per frame) of the kernels whose
+    names contain ``kernel``, torch.profiler over PROFILED_FRAMES frames;
+    (None, None) where it records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -83,15 +92,19 @@ def kernel_us_per_launch(step, kernel):
     events = [e for e in prof.key_averages() if kernel in e.key]
     launches = sum(e.count for e in events)
     device_us = sum(e.self_device_time_total for e in events)
-    return device_us / launches if launches and device_us else None
+    if not (launches and device_us):
+        return None, None
+    return device_us / launches, device_us / PROFILED_FRAMES / 1e3
 
 
-def measure(body, params, k1, k2, kernel, flops, nbytes) -> dict:
+def measure(body, params, k1, k2, kernel, flops, nbytes,
+            state_sum=None) -> dict:
     def step(k):
         body.step(params, k)
 
-    def state_sum():
-        return body.pos.sum()
+    if state_sum is None:
+        def state_sum():
+            return body.pos.sum()
 
     synced_run(step, state_sum, 1)  # warm-up
     host_s = (synced_run(step, state_sum, k2)
@@ -105,12 +118,12 @@ def measure(body, params, k1, k2, kernel, flops, nbytes) -> dict:
     end.record()
     end.synchronize()
     event_ms = start.elapsed_time(end) / k2
-    kernel_us = kernel_us_per_launch(step, kernel)
+    kernel_us, device_ms = kernel_device_time(step, kernel)
     bound_ms, bound_by = bound(flops, nbytes)
     return {
         "host_ms": host_s * 1e3, "enqueue_ms": enqueue_s * 1e3 / k2,
-        "event_ms": event_ms, "kernel_us": kernel_us,
-        "busy_share": kernel_us / (event_ms * 1e3) if kernel_us else None,
+        "event_ms": event_ms, "kernel_us": kernel_us, "device_ms": device_ms,
+        "busy_share": device_ms / event_ms if device_ms else None,
         "substeps_per_s": params.num_substeps / host_s,
         "bound_us": bound_ms * 1e3, "bound_by": bound_by,
     }
@@ -171,6 +184,38 @@ def polar_agreement(tt, polar_fused, dragon, builds):
           f"frames: max|dpos| {max_diff(last[a], last[b]):.3e}", flush=True)
 
 
+class _Frames:
+    """A PackedGridBody as ``measure`` drives a batch: step(params, k)."""
+
+    def __init__(self, body):
+        self.body = body
+
+    def step(self, params, k):
+        for _ in range(k):
+            self.body.step(params)
+
+
+def grid_profile(tt):
+    """The 56^3 box of each grid kernel, packed, 5 substeps per frame."""
+    from tetsim_torch.kernels import nh_stencil, polar_stencil
+
+    params = tt.PhysicsParams(num_substeps=5)
+    for name, engine, kernel, k1, k2 in GRID_SHAPES:
+        world = tt.World(params)
+        body = world.add_grid_body((56, 56, 56), cell=0.02,
+                                   origin=(-0.56, 0.5, -0.56), engine=engine,
+                                   packed=True)
+        mod = polar_stencil if engine.startswith("polar") else nh_stencil
+        arr = body.arrays
+        nbytes = (mod.frame_bytes(arr, 1, 1) if mod is polar_stencil
+                  else mod.frame_bytes(arr, params, 1, 1))
+        row = measure(_Frames(body), params, k1, k2, kernel,
+                      mod.frame_flops(arr, params, 1), nbytes,
+                      state_sum=lambda: body.pos_device().sum())
+        row["ms_per_substep"] = row["event_ms"] / params.num_substeps
+        print(name, json.dumps(row), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_frame: torch.cuda.is_available() is False",
@@ -205,6 +250,7 @@ def main() -> int:
                     gs_fused.frame_bytes(body.arrays, params, b, 1))
             print(name, json.dumps(measure(body, params, k1, k2, kernel,
                                            *work)), flush=True)
+    grid_profile(tt)
     polar_agreement(tt, polar_fused, dragon, builds)
     print(card(), flush=True)
     return 0

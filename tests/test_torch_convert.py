@@ -83,6 +83,10 @@ def test_import_leaves_out_jax_and_tetsim_tpu():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tetsim_tpu'))\n"
         "assert not bad, bad\n"
+        "grid = ('solvers.polar_grid', 'solvers.neohookean_grid', "
+        "'kernels.polar_stencil', 'kernels.nh_stencil')\n"
+        "missed = [m for m in grid if 'tetsim_torch.' + m not in sys.modules]\n"
+        "assert not missed, missed\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

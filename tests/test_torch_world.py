@@ -100,7 +100,7 @@ def test_unported_paths_raise():
     world = tt.World(tt.default_cpu_params(), device="cpu")
     mesh = tt.grid_mesh(1, 1, 1)
     with pytest.raises(ValueError, match="ROADMAP"):
-        world.add_body(mesh, engine="polar_grid")
+        world.add_body(mesh, engine="polar_pieces")
     for kw in ({"engine": "neohookean", "backend": "flat"},
                {"backend": "dense"}):
         with pytest.raises(ValueError, match="ROADMAP"):

@@ -6,7 +6,9 @@ matching with Jacobi iteration, ground/bounds collision with friction, grab
 constraints, barycentric surface skinning and batched bodies.  Plain torch
 runs on the CPU; on CUDA tensors a whole frame is one launch of a
 hand-written kernel (``kernels/csrc/gs_frame.cu``,
-``kernels/csrc/polar_frame.cu``).  The entry points run on the card unless
+``kernels/csrc/polar_frame.cu``), and a substep of a structured grid box
+(``World.add_grid_body``) two launches of ``kernels/csrc/polar_stencil.cu``
+or 50 of ``kernels/csrc/nh_stencil.cu``.  The entry points run on the card unless
 the caller passes ``device="cpu"``.  The package imports neither jax nor
 tetsim_tpu; it reads the dragon asset of ``tetsim_tpu/`` by path.
 """

@@ -7,7 +7,10 @@ the JAX package can be handed to this one mid-trajectory:
                                (s.pos, s.prev_pos, s.vel, s.quats)), device)
     arrays = arrays_from_numpy(device, **{k: np.asarray(v) for k, v in ...})
 
-Every helper takes the device from its caller.
+and a grid body's stencil arrays (``GridArrays``, ``NHGridArrays``) with
+``grid_arrays_from_numpy`` / ``nh_grid_arrays_from_numpy``, their static
+fields as they are and their arrays as numpy.  Every helper takes the
+device from its caller.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import torch
 
 from .mesh import TetArrays
 from .params import PhysicsParams
+from .solvers.neohookean_grid import NHGridArrays
+from .solvers.polar_grid import GridArrays
 from .state import SimState
 
 
@@ -56,3 +61,34 @@ def arrays_from_numpy(device, **fields) -> TetArrays:
         else torch.as_tensor(np.array(fields[k])).to(device)
         for k in known
     })
+
+
+def _stencil_arrays(cls, device, fields: dict):
+    """A grid arrays dataclass from its fields: tuples and floats as given
+    (nested sequences become tuples), numpy arrays as tensors on
+    ``device``; missing or unknown fields raise."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    if set(fields) != names:
+        raise ValueError(f"{cls.__name__} fields: expected {sorted(names)}, "
+                         f"got {sorted(fields)}")
+
+    def static(v):
+        if isinstance(v, (list, tuple)):
+            return tuple(static(x) for x in v)
+        return int(v) if isinstance(v, (int, np.integer)) else float(v)
+
+    return cls(**{k: torch.as_tensor(np.array(v, np.float32)).to(device)
+                  if isinstance(v, np.ndarray) else static(v)
+                  for k, v in fields.items()})
+
+
+def grid_arrays_from_numpy(device, **fields) -> GridArrays:
+    """GridArrays from the JAX package's GridArrays fields (inv_mass and
+    den as numpy)."""
+    return _stencil_arrays(GridArrays, device, fields)
+
+
+def nh_grid_arrays_from_numpy(device, **fields) -> NHGridArrays:
+    """NHGridArrays from the JAX package's NHGridArrays fields
+    (inv_mass_blocks and inv_mass as numpy)."""
+    return _stencil_arrays(NHGridArrays, device, fields)

@@ -1,6 +1,8 @@
 """Diagnostics (counterpart of ``tetsim_tpu/diag.py``): volume error,
 kinetic energy, speed and height of a body, as device tensors;
-``summarize`` brings them to the host in one transfer."""
+``summarize`` brings them to the host in one transfer.  Grid bodies
+(``GridArrays``, ``NHGridArrays``) carry no tet table: their volume error
+is read from the stencil's corner offsets."""
 from __future__ import annotations
 
 import math
@@ -9,6 +11,7 @@ import time
 import torch
 
 from .mesh import TetArrays
+from .solvers.polar_grid import SLAB_OFFSETS
 from .state import SimState
 from .utils import mat3
 
@@ -25,9 +28,25 @@ def volume_error(state: SimState, arr: TetArrays):
     return (mat3.det(f) - 1.0).mean()
 
 
-def kinetic_energy(state: SimState, arr: TetArrays):
+def grid_volume_error(state: SimState, garr):
+    """Mean (det F - 1) over the tets of a grid body (``GridArrays`` or
+    ``NHGridArrays``): each Kuhn type's corners are shifted views of the
+    vertex grid, and a tet's det F is its volume over the rest volume."""
+    nx, ny, nz = garr.dims
+    pos = state.pos.reshape(nx + 1, ny + 1, nz + 1, 3)
+    total = pos.new_zeros(())
+    for t in range(6):
+        p = [pos[dx:dx + nx, dy:dy + ny, dz:dz + nz].reshape(-1, 3)
+             for (dx, dy, dz) in (SLAB_OFFSETS[s] for s in garr.corner_slab[t])]
+        d = torch.stack([p[1] - p[0], p[2] - p[0], p[3] - p[0]], dim=-1)
+        vol = mat3.det(d) / 6.0
+        total = total + (vol / garr.rest_volume - 1.0).sum()
+    return total / (6 * nx * ny * nz)
+
+
+def kinetic_energy(state: SimState, arr):
     """0.5 * sum m |v|^2 (pinned particles with inv_mass 0 excluded)."""
-    im = arr.inv_mass
+    im = arr.inv_mass.reshape(-1)
     m = torch.where(im > 0, 1.0 / im.clamp(min=1e-30), 0.0)
     return 0.5 * (m * (state.vel ** 2).sum(dim=-1)).sum()
 
@@ -60,12 +79,15 @@ class Timer:
         return self._substeps / dt if dt > 0 else 0.0
 
 
-def summarize(state: SimState, arr: TetArrays, frame_diag=None) -> dict:
+def summarize(state: SimState, arr, frame_diag=None) -> dict:
     """Diagnostics of one body as Python numbers.  ``frame_diag`` is the
     last frame's vol_errs [num_substeps]; its last entry becomes
-    ``solver_vol_error`` when finite."""
+    ``solver_vol_error`` when finite (engines that compute no volume error
+    report NaN)."""
+    vol_err = (volume_error(state, arr) if isinstance(arr, TetArrays)
+               else grid_volume_error(state, arr))
     vals = [
-        volume_error(state, arr), kinetic_energy(state, arr),
+        vol_err, kinetic_energy(state, arr),
         max_speed(state), min_height(state),
         torch.isnan(state.pos).any().to(torch.float32),
     ]

@@ -10,6 +10,9 @@
 // override, velocity update.  It also writes vol_err[B, S]: the sum of
 // det F - 1 over the valid tets of each substep, divided by the tet count.
 //
+// The tet projection is nh::solve_tet (nh_math.cuh), shared with
+// nh_stencil.cu.
+//
 // Design: one thread block per body.  The body's nine particle planes
 // (pos, prev, vel; x, y, z) live in shared memory (9 * 4 * N bytes, 44 KB
 // for the dragon).  Threads stride over the slots of a level; the tets of a
@@ -31,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nh_math.cuh"
+
 // Scalars of one frame, computed in float32 on the host.
 struct FrameParams {
   float dt;         // substep length
@@ -47,87 +52,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-// XPBD projection of one constraint.  g[j][r]: gradient of corner j+1,
-// coordinate r (corner 0 gets minus their sum).  Writes the delta of the
-// four corners into d.
-__device__ __forceinline__ void xpbd(const float g[3][3], float c, float scale,
-                                     float irv, const float w[4],
-                                     float d[4][3]) {
-  float gall[4][3];
-  for (int r = 0; r < 3; ++r) {
-    gall[0][r] = -((g[0][r] + g[1][r]) + g[2][r]);
-    gall[1][r] = g[0][r];
-    gall[2][r] = g[1][r];
-    gall[3][r] = g[2][r];
-  }
-  float wsum = 0.0f;
-  for (int i = 0; i < 4; ++i) {
-    float n2 = (gall[i][0] * gall[i][0] + gall[i][1] * gall[i][1]) +
-               gall[i][2] * gall[i][2];
-    wsum += n2 * w[i];
-  }
-  const float alpha = scale * irv;
-  const bool ok = (c != 0.0f) && (wsum != 0.0f);
-  const float dl = ok ? -c / (wsum + alpha) : 0.0f;
-  for (int i = 0; i < 4; ++i)
-    for (int r = 0; r < 3; ++r) d[i][r] = (dl * w[i]) * gall[i][r];
-}
-
-// F[r][c] = sum_k e[k][r] * ir[k][c], e[k] = p[k+1] - p[0].
-__device__ __forceinline__ void deformation(const float p[4][3],
-                                            const float ir[9], float f[3][3]) {
-  float e[3][3];
-  for (int k = 0; k < 3; ++k)
-    for (int r = 0; r < 3; ++r) e[k][r] = p[k + 1][r] - p[0][r];
-  for (int r = 0; r < 3; ++r)
-    for (int c = 0; c < 3; ++c)
-      f[r][c] = (e[0][r] * ir[c] + e[1][r] * ir[3 + c]) + e[2][r] * ir[6 + c];
-}
-
-// Both Neo-Hookean constraints on one tet; p is updated in place, the
-// return value is det F - 1 on the corners the hydrostatic step saw.
-__device__ __forceinline__ float solve_tet(float p[4][3], const float ir[9],
-                                           float irv, const float w[4],
-                                           const FrameParams& P) {
-  float f[3][3], g[3][3], d_dev[4][3], d_vol[4][3], q[4][3];
-
-  // deviatoric: C = ||F||_F
-  deformation(p, ir, f);
-  float rs2 = 0.0f;
-  for (int r = 0; r < 3; ++r)
-    for (int c = 0; c < 3; ++c) rs2 += f[r][c] * f[r][c];
-  const float rs = sqrtf(rs2);
-  const float rinv = rs > 0.0f ? 1.0f / rs : 0.0f;
-  for (int j = 0; j < 3; ++j)
-    for (int r = 0; r < 3; ++r)
-      g[j][r] = ((f[r][0] * ir[3 * j] + f[r][1] * ir[3 * j + 1]) +
-                 f[r][2] * ir[3 * j + 2]) * rinv;
-  xpbd(g, rs, P.dev_scale, irv, w, d_dev);
-  for (int i = 0; i < 4; ++i)
-    for (int r = 0; r < 3; ++r) q[i][r] = p[i][r] + d_dev[i][r];
-
-  // hydrostatic: C = det F - 1 - gamma on the updated corners
-  deformation(q, ir, f);
-  float df[3][3];  // df[r][c]: column c of the cofactor matrix
-  for (int c = 0; c < 3; ++c) {
-    const int a = (c + 1) % 3, b = (c + 2) % 3;
-    df[0][c] = f[1][a] * f[2][b] - f[2][a] * f[1][b];
-    df[1][c] = f[2][a] * f[0][b] - f[0][a] * f[2][b];
-    df[2][c] = f[0][a] * f[1][b] - f[1][a] * f[0][b];
-  }
-  for (int j = 0; j < 3; ++j)
-    for (int r = 0; r < 3; ++r)
-      g[j][r] = (df[r][0] * ir[3 * j] + df[r][1] * ir[3 * j + 1]) +
-                df[r][2] * ir[3 * j + 2];
-  const float det = (f[0][0] * df[0][0] + f[1][0] * df[1][0]) +
-                    f[2][0] * df[2][0];
-  const float c_vol = (det - 1.0f) - P.gamma;
-  xpbd(g, c_vol, P.vol_scale, irv, w, d_vol);
-  for (int i = 0; i < 4; ++i)
-    for (int r = 0; r < 3; ++r) p[i][r] = p[i][r] + (d_dev[i][r] + d_vol[i][r]);
-  return det - 1.0f;
-}
 
 __global__ void __launch_bounds__(kThreads)
 gs_frame_kernel(const float* __restrict__ pos_in,    // [B,N,3]
@@ -210,7 +134,8 @@ gs_frame_kernel(const float* __restrict__ pos_in,    // [B,N,3]
         for (int e = 0; e < 9; ++e) ir[e] = slot_irp[(size_t)k * 9 + e];
         const float4 wm = slot_imc[k];
         const float w[4] = {wm.x, wm.y, wm.z, wm.w};
-        verr += solve_tet(p, ir, slot_irv[k], w, P);
+        verr += nh::solve_tet(p, ir, slot_irv[k], w, P.dev_scale, P.vol_scale,
+                              P.gamma);
         for (int c = 0; c < 4; ++c) {
           X[ids[c]] = p[c][0];
           Y[ids[c]] = p[c][1];

@@ -1,6 +1,6 @@
 // Quaternion math of the polar shape-matching solve, shared by the CUDA
-// kernels that run it (polar_frame.cu now; the grid and pieces polar
-// kernels later).  Quaternions are float4 (x, y, z, w).
+// kernels that run it (polar_frame.cu, polar_stencil.cu; the pieces polar
+// kernel later).  Quaternions are float4 (x, y, z, w).
 //
 // Every expression follows tetsim_torch/solvers/polar.py term by term and
 // in its order.  nvcc contracts a multiply and an add into one FMA where it
@@ -38,8 +38,14 @@ __device__ __forceinline__ float4 qnormalize(float4 q) {
   return make_float4(q.x / n, q.y / n, q.z / n, q.w / n);
 }
 
+// How a step's axis-angle quaternion is formed: solvers/polar.py divides
+// omega by the angle first, (omega / angle) * sin(angle / 2);
+// solvers/polar_grid.py scales omega by sin(angle / 2) * (1 / angle).
+enum class AxisForm { kDivideFirst, kReciprocal };
+
 // Müller's iteration toward the covariance a[r][c] from q, a fixed trip
 // count with a masked update (polar.extract_rotation).
+template <AxisForm kForm = AxisForm::kDivideFirst>
 __device__ __forceinline__ float4 extract_rotation(const float a[3][3],
                                                    float4 q, int iters) {
   for (int it = 0; it < iters; ++it) {
@@ -76,9 +82,15 @@ __device__ __forceinline__ float4 extract_rotation(const float a[3][3],
     const float angle = sqrtf((ox * ox + oy * oy) + oz * oz);
     if (angle >= kEps) {
       const float half = angle * 0.5f;
-      const float s = sinf(half);
-      const float4 dq = make_float4((ox / angle) * s, (oy / angle) * s,
-                                    (oz / angle) * s, cosf(half));
+      float4 dq;
+      if (kForm == AxisForm::kDivideFirst) {
+        const float s = sinf(half);
+        dq = make_float4((ox / angle) * s, (oy / angle) * s, (oz / angle) * s,
+                         cosf(half));
+      } else {
+        const float s = sinf(half) * (1.0f / angle);
+        dq = make_float4(ox * s, oy * s, oz * s, cosf(half));
+      }
       q = qmul(dq, q);
     }
   }

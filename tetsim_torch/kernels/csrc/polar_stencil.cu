@@ -1,0 +1,265 @@
+// Polar shape-matching substeps on a grid_mesh box: the stencil engine of
+// tetsim_torch/solvers/polar_grid.py on B boxes of one size.
+//
+// Replaces the TPU kernel tetsim_tpu/kernels/polar_stencil.py:_make_kernel
+// (built by _build_call / _make_call) and follows the semantics of the XLA
+// stencil engine tetsim_tpu/solvers/polar_grid.py, as the plain path
+// tetsim_torch/solvers/polar_grid.py writes them.  Where K4 departs from
+// that engine (it carries (pos, prev) instead of the velocity and multiplies
+// by a precomputed 1 / max(den, eps)), this follows the engine: velocity in
+// the state, num / max(den, eps), (x - prev) / dt.
+//
+// Layout: particle state as planes [B, 3, N] over the flat C-order vertex
+// grid v = (i*gy + j)*gz + k, quaternions as [B, 24, C] (type t, component
+// c at row 4t + c; C = nx*ny*nz real cubes in C order).  The TPU kernel's
+// [rows, 128] planes, lane rolls and phantom lanes are only addressing: a
+// thread computes its corner ids from (cube, type) directly.
+//
+// Design: two launches per substep, no atomics, deterministic.
+//   A. One thread per (type, cube) tet: it predicts its 4 corners from the
+//      substep's start state (predict is elementwise and rounds every
+//      product, so every thread gets the same bits for a vertex), forms the
+//      centroid and the covariance with the rest corners rotated by its
+//      quaternion, runs extract_rotation from the identity (polar_math.cuh,
+//      the grid engine's axis form), writes the new quaternion and its 4
+//      rest-volume-weighted goal deltas to a scratch buffer [B, 72, C].
+//   B. One thread per vertex: it predicts itself again, gathers the deltas
+//      of its incident corners in the engine's order (slab s = 0..7, and
+//      within a slab types t = 0..5), divides by max(den, eps), collides,
+//      applies the grabs and sets the velocity.
+// Substep 0 reads the inputs; later substeps update the outputs in place
+// (a thread reads its own vertex, or its own quaternion, before it writes).
+//
+// Numerics: the accumulation, the predict and the collide round every
+// operation as the plain path does; the tet arithmetic is contracted by
+// nvcc into FMAs where it can, so a result may differ from the plain
+// path's in its last bits.
+//
+// What bounds it: FP32 arithmetic.  A tet costs 391 + 136 * iters flops
+// per substep (kernels/polar_stencil.py frame_flops), 1.70 GFLOP per
+// substep for the 56^3 box, against about 50 MB of state and quaternions
+// read and written once.  Each thread of pass A is a long dependent chain
+// (9 extract_rotation iterations with divides, a square root, a sine and a
+// cosine); 1,053,696 threads keep all 132 SMs busy.  The delta scratch (51
+// MB at 56^3) is written and read once per substep, mostly through L2.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "polar_math.cuh"
+
+// Scalars and per-type constants of one frame, computed on the host.
+struct GridPolarParams {
+  float dt;      // substep length
+  float gdt;     // gravity * dt
+  float k_fric;  // min(1, dt * friction)
+  float wmin[3];
+  float wmax[3];
+  float rest_volume;
+  float rest_centered[6][4][3];  // per type, per corner
+  int corner_slab[6][4];         // slab s = 4 dx + 2 dy + dz of each corner
+  int nx, ny, nz;                // cubes
+  int iters;                     // extract_rotation iterations
+};
+
+namespace {
+
+constexpr int kTetThreads = 128;
+constexpr int kVertexThreads = 256;
+
+// The predicted position of vertex v of one body's planes: gravity into
+// the velocity, pinned particles (inv_mass 0) held, pos + vel * dt.
+__device__ __forceinline__ void predict(const float* pos, const float* vel,
+                                        const float* inv_mass, int v, int N,
+                                        const GridPolarParams& P,
+                                        float out[3]) {
+  float vx = vel[v], vy = __fadd_rn(vel[N + v], P.gdt), vz = vel[2 * N + v];
+  if (!(inv_mass[v] > 0.0f)) vx = vy = vz = 0.0f;
+  out[0] = __fadd_rn(pos[v], __fmul_rn(vx, P.dt));
+  out[1] = __fadd_rn(pos[N + v], __fmul_rn(vy, P.dt));
+  out[2] = __fadd_rn(pos[2 * N + v], __fmul_rn(vz, P.dt));
+}
+
+__global__ void __launch_bounds__(kTetThreads)
+polar_grid_tet_kernel(const float* __restrict__ pos,  // [B,3,N]
+                      const float* __restrict__ vel,  // [B,3,N]
+                      const float* quat_in,           // [B,24,C]
+                      float* quat_out,                // [B,24,C]
+                      float* __restrict__ delta,      // [B,72,C] scratch
+                      const float* __restrict__ inv_mass,  // [N]
+                      int N, int C, GridPolarParams P) {
+  const int b = blockIdx.y;
+  const int idx = blockIdx.x * kTetThreads + threadIdx.x;
+  if (idx >= 6 * C) return;
+  const int t = idx / C, cube = idx - t * C;
+  const int i = cube / (P.ny * P.nz), j = (cube / P.nz) % P.ny,
+            k = cube % P.nz;
+  const int gy = P.ny + 1, gz = P.nz + 1;
+  const float* bpos = pos + (size_t)b * 3 * N;
+  const float* bvel = vel + (size_t)b * 3 * N;
+
+  float p[4][3], rc[4][3];
+  for (int c = 0; c < 4; ++c) {
+    const int s = P.corner_slab[t][c];
+    const int v = ((i + ((s >> 2) & 1)) * gy + (j + ((s >> 1) & 1))) * gz +
+                  (k + (s & 1));
+    predict(bpos, bvel, inv_mass, v, N, P, p[c]);
+    for (int r = 0; r < 3; ++r) rc[c][r] = P.rest_centered[t][c][r];
+  }
+  float pc[4][3];
+  for (int r = 0; r < 3; ++r) {
+    const float cc = (((p[0][r] + p[1][r]) + p[2][r]) + p[3][r]) * 0.25f;
+    for (int c = 0; c < 4; ++c) pc[c][r] = p[c][r] - cc;
+  }
+
+  const float* qi = quat_in + ((size_t)b * 24 + 4 * t) * C + cube;
+  float4 q = make_float4(qi[0], qi[C], qi[2 * C], qi[3 * C]);
+  float rr[4][3];
+  for (int c = 0; c < 4; ++c) polar::qrot(rc[c], q, rr[c]);
+  float a[3][3];  // a[r][c] = sum_k pc[k][r] * rr[k][c]
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c)
+      a[r][c] = ((pc[0][r] * rr[0][c] + pc[1][r] * rr[1][c]) +
+                 pc[2][r] * rr[2][c]) + pc[3][r] * rr[3][c];
+  const float4 inc = polar::extract_rotation<polar::AxisForm::kReciprocal>(
+      a, make_float4(0.0f, 0.0f, 0.0f, 1.0f), P.iters);
+  q = polar::qmul(inc, q);
+  const float norm =
+      fmaxf(sqrtf(((q.x * q.x + q.y * q.y) + q.z * q.z) + q.w * q.w), 1e-30f);
+  q = make_float4(q.x / norm, q.y / norm, q.z / norm, q.w / norm);
+  float* qo = quat_out + ((size_t)b * 24 + 4 * t) * C + cube;
+  qo[0] = q.x;
+  qo[C] = q.y;
+  qo[2 * C] = q.z;
+  qo[3 * C] = q.w;
+
+  // goal - corner, weighted by the rest volume: rows 12t + 3c + r
+  float* d = delta + ((size_t)b * 72 + 12 * t) * C + cube;
+  for (int c = 0; c < 4; ++c) {
+    float g[3];
+    polar::qrot(rc[c], q, g);
+    for (int r = 0; r < 3; ++r)
+      d[(size_t)(3 * c + r) * C] = __fmul_rn(g[r] - pc[c][r], P.rest_volume);
+  }
+}
+
+__global__ void __launch_bounds__(kVertexThreads)
+polar_grid_vertex_kernel(const float* pos,        // [B,3,N] substep start
+                         const float* vel,        // [B,3,N]
+                         float* pos_out,          // [B,3,N]
+                         float* __restrict__ prev_out,  // [B,3,N]
+                         float* vel_out,          // [B,3,N]
+                         const float* __restrict__ delta,     // [B,72,C]
+                         const float* __restrict__ inv_mass,  // [N]
+                         const float* __restrict__ den,       // [N]
+                         const int* __restrict__ grab_id,     // [B,G]
+                         const float* __restrict__ grab_pos,  // [B,G,3]
+                         int N, int C, int G, GridPolarParams P) {
+  const int b = blockIdx.y;
+  const int v = blockIdx.x * kVertexThreads + threadIdx.x;
+  if (v >= N) return;
+  const int gy = P.ny + 1, gz = P.nz + 1;
+  const int vi = v / (gy * gz), vj = (v / gz) % gy, vk = v % gz;
+  const size_t base = (size_t)b * 3 * N;
+  const float* bpos = pos + base;
+  float p[3];
+  predict(bpos, vel + base, inv_mass, v, N, P, p);
+
+  // the inverse stencil: slab s holds the corners of the cube v - (dx,dy,dz)
+  const float* bd = delta + (size_t)b * 72 * C;
+  float num[3] = {0.0f, 0.0f, 0.0f};
+  for (int s = 0; s < 8; ++s) {
+    const int ci = vi - ((s >> 2) & 1), cj = vj - ((s >> 1) & 1),
+              ck = vk - (s & 1);
+    if (ci < 0 || ci >= P.nx || cj < 0 || cj >= P.ny || ck < 0 || ck >= P.nz)
+      continue;
+    const int cube = (ci * P.ny + cj) * P.nz + ck;
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+    for (int t = 0; t < 6; ++t)
+      for (int c = 0; c < 4; ++c)
+        if (P.corner_slab[t][c] == s)
+          for (int r = 0; r < 3; ++r)
+            acc[r] = __fadd_rn(acc[r],
+                               bd[(size_t)(12 * t + 3 * c + r) * C + cube]);
+    for (int r = 0; r < 3; ++r) num[r] = __fadd_rn(num[r], acc[r]);
+  }
+
+  float x = p[0], y = p[1], z = p[2];
+  if (inv_mass[v] > 0.0f) {
+    const float d = fmaxf(den[v], polar::kEps);
+    x = __fadd_rn(x, num[0] / d);
+    y = __fadd_rn(y, num[1] / d);
+    z = __fadd_rn(z, num[2] / d);
+  }
+  // collide: world bounds, then the ground with friction toward the
+  // substep's start position
+  const float px = bpos[v], py = bpos[N + v], pz = bpos[2 * N + v];
+  x = fminf(fmaxf(x, P.wmin[0]), P.wmax[0]);
+  y = fminf(fmaxf(y, P.wmin[1]), P.wmax[1]);
+  z = fminf(fmaxf(z, P.wmin[2]), P.wmax[2]);
+  if (y < 0.0f) {
+    y = 0.0f;
+    x = __fadd_rn(x, __fmul_rn(px - x, P.k_fric));
+    z = __fadd_rn(z, __fmul_rn(pz - z, P.k_fric));
+  }
+  for (int g = 0; g < G; ++g) {  // the last grab on v wins
+    if (grab_id[b * G + g] == v) {
+      x = grab_pos[(b * G + g) * 3];
+      y = grab_pos[(b * G + g) * 3 + 1];
+      z = grab_pos[(b * G + g) * 3 + 2];
+    }
+  }
+  prev_out[base + v] = px;
+  prev_out[base + N + v] = py;
+  prev_out[base + 2 * N + v] = pz;
+  pos_out[base + v] = x;
+  pos_out[base + N + v] = y;
+  pos_out[base + 2 * N + v] = z;
+  vel_out[base + v] = (x - px) / P.dt;
+  vel_out[base + N + v] = (y - py) / P.dt;
+  vel_out[base + 2 * N + v] = (z - pz) / P.dt;
+}
+
+}  // namespace
+
+extern "C" {
+
+int polar_stencil_launches_per_substep() { return 2; }
+
+// Launches S substeps on `stream`, two kernels each; returns the first
+// launch error (0 = every kernel launched).
+int polar_stencil_launch(const void* pos_in, const void* vel_in,
+                         const void* quat_in, void* pos_out, void* prev_out,
+                         void* vel_out, void* quat_out, void* delta,
+                         const void* inv_mass, const void* den,
+                         const void* grab_id, const void* grab_pos, int B,
+                         int G, int S, GridPolarParams P, void* stream) {
+  const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
+  const int C = P.nx * P.ny * P.nz;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 tets((6 * C + kTetThreads - 1) / kTetThreads, B);
+  const dim3 verts((N + kVertexThreads - 1) / kVertexThreads, B);
+  for (int s = 0; s < S; ++s) {
+    const float* pos = (const float*)(s == 0 ? pos_in : pos_out);
+    const float* vel = (const float*)(s == 0 ? vel_in : vel_out);
+    const float* quat = (const float*)(s == 0 ? quat_in : quat_out);
+    polar_grid_tet_kernel<<<tets, kTetThreads, 0, st>>>(
+        pos, vel, quat, (float*)quat_out, (float*)delta,
+        (const float*)inv_mass, N, C, P);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    polar_grid_vertex_kernel<<<verts, kVertexThreads, 0, st>>>(
+        pos, vel, (float*)pos_out, (float*)prev_out, (float*)vel_out,
+        (const float*)delta, (const float*)inv_mass, (const float*)den,
+        (const int*)grab_id, (const float*)grab_pos, N, C, G, P);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+const char* polar_stencil_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

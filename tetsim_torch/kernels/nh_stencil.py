@@ -1,0 +1,222 @@
+"""Neo-Hookean 48-colour stencil substeps on grid_mesh boxes (counterpart
+of ``tetsim_tpu/kernels/nh_stencil.py``): the ``neohookean_grid_pallas``
+engine.
+
+``grid_frame`` runs one frame (every substep: predict, the 48 colours in
+order, collide, grab, velocity) for B boxes of one size.  On CUDA tensors
+it launches the hand-written kernels of ``csrc/nh_stencil.cu``, 50 per
+substep; on CPU tensors it runs ``grid_frame_reference``, the same frame in
+plain torch from ``solvers/neohookean_grid.py``.  ``launch_count`` counts
+the kernel launches.  ``vol_err=True`` also returns the per-substep volume
+error of the XLA engine (mean det F - 1, summed in a fixed order); the
+``neohookean_grid`` engine asks for it, this module's ``step_frame``
+reports NaN as K3 does.
+
+The state is kept in the kernel's layout, planes pos / prev / vel
+[B, 3, N]; ``make_frame_stepper`` keeps a body in it across frames.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..params import PhysicsParams
+from ..state import SimState, Controls
+from ..solvers import common, neohookean_grid
+from ..solvers.neohookean_grid import NHGridArrays
+from ..solvers.polar_grid import planes, unplanes
+from . import build
+from .batch import expect
+
+COLORS = 48
+LAUNCHES_PER_SUBSTEP = COLORS + 2  # as nh_stencil_launches_per_substep()
+
+launch_count = 0  # kernel launches since import (or reset)
+
+
+def frame_flops(arr: NHGridArrays, params: PhysicsParams,
+                num_bodies: int) -> int:
+    """Floating-point operations of one frame, counted as for
+    ``gs_fused.frame_flops`` (the tet projection is the same): 421 per tet
+    and substep, 13 per particle and substep."""
+    per_substep = 421 * arr.num_tets + 13 * arr.num_particles
+    return num_bodies * params.num_substeps * per_substep
+
+
+def frame_bytes(arr: NHGridArrays, params: PhysicsParams, num_bodies: int,
+                num_grabs: int) -> int:
+    """Bytes a frame must move: each input read once (pos, vel, inv_mass,
+    grabs), each output written once (pos, prev, vel, vol_err)."""
+    n = arr.num_particles
+    return (num_bodies * (5 * 12 * n + 4 * params.num_substeps
+                          + 16 * num_grabs) + 4 * n)
+
+
+class _GridNHParams(ctypes.Structure):
+    _fields_ = [
+        ("dt", ctypes.c_float), ("gdt", ctypes.c_float),
+        ("k_fric", ctypes.c_float), ("dev_scale", ctypes.c_float),
+        ("vol_scale", ctypes.c_float), ("gamma", ctypes.c_float),
+        ("wmin", ctypes.c_float * 3), ("wmax", ctypes.c_float * 3),
+        ("irv", ctypes.c_float), ("ir", ctypes.c_float * 54),
+        ("corner_slab", ctypes.c_int * 24),
+        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
+    ]
+
+
+def _grid_params(arr: NHGridArrays, params: PhysicsParams) -> _GridNHParams:
+    """The frame's scalars in f32, with the plain path's operation order,
+    and the box's per-type constants."""
+    dt = params.dt
+    dt2 = dt * dt
+    ir = np.asarray(arr.inv_rest_pose, np.float32).reshape(-1)
+    cs = np.asarray(arr.corner_slab, np.int32).reshape(-1)
+    return _GridNHParams(
+        dt, params.gravity * dt,
+        np.minimum(np.float32(1.0), dt * params.friction),
+        params.dev_compliance / dt2, params.vol_compliance / dt2,
+        params.gamma,
+        (ctypes.c_float * 3)(*params.world_min),
+        (ctypes.c_float * 3)(*params.world_max),
+        arr.inv_rest_volume, (ctypes.c_float * 54)(*ir.tolist()),
+        (ctypes.c_int * 24)(*cs.tolist()), *arr.dims,
+    )
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' library, built at first use, with its arguments
+    declared."""
+    lib = build.load("nh_stencil")
+    if lib.nh_stencil_launch.argtypes is None:
+        lib.nh_stencil_launch.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+            + [_GridNHParams, ctypes.c_void_p]
+        )
+        lib.nh_stencil_launch.restype = ctypes.c_int
+        lib.nh_stencil_error_string.argtypes = [ctypes.c_int]
+        lib.nh_stencil_error_string.restype = ctypes.c_char_p
+        lib.nh_stencil_partial_blocks.argtypes = [ctypes.c_int] * 3
+        lib.nh_stencil_partial_blocks.restype = ctypes.c_int
+        lib.nh_stencil_launches_per_substep.restype = ctypes.c_int
+        if lib.nh_stencil_launches_per_substep() != LAUNCHES_PER_SUBSTEP:
+            raise RuntimeError("csrc/nh_stencil.cu launches per substep != "
+                               "nh_stencil.LAUNCHES_PER_SUBSTEP")
+    return lib
+
+
+def _grid_frame_cuda(pos, vel, arr: NHGridArrays, params: PhysicsParams,
+                     grab_id, grab_pos, vol_err: bool):
+    global launch_count
+    dev = pos.device
+    if dev.type != "cuda":
+        raise ValueError(f"the NH stencil kernels run on CUDA, not {dev}")
+    S = params.num_substeps
+    if S < 1:
+        raise ValueError(f"num_substeps must be at least 1, got {S}")
+    B, N = pos.shape[0], arr.num_particles
+    G = grab_id.shape[-1]
+    f32 = torch.float32
+    expect(pos, "pos", f32, (B, 3, N), dev)
+    expect(vel, "vel", f32, (B, 3, N), dev)
+    expect(grab_id, "grab_id", torch.int32, (B, G), dev)
+    expect(grab_pos, "grab_pos", f32, (B, G, 3), dev)
+    expect(arr.inv_mass, "inv_mass", f32, (N,), dev)
+
+    lib = library()
+    pos_out, prev_out, vel_out = (torch.empty_like(pos) for _ in range(3))
+    err_out = partial = None
+    if vol_err:
+        err_out = torch.empty((B, S), dtype=f32, device=dev)
+        nblk = lib.nh_stencil_partial_blocks(*arr.dims)
+        partial = torch.empty((B, COLORS, nblk), dtype=f32, device=dev)
+    with torch.cuda.device(dev):  # the launches go to the current device
+        err = lib.nh_stencil_launch(
+            pos.data_ptr(), vel.data_ptr(), pos_out.data_ptr(),
+            prev_out.data_ptr(), vel_out.data_ptr(),
+            None if err_out is None else err_out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            arr.inv_mass.data_ptr(), grab_id.data_ptr(), grab_pos.data_ptr(),
+            B, G, S, _grid_params(arr, params),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError("nh_stencil launch failed: "
+                           f"{lib.nh_stencil_error_string(err).decode()}")
+    launch_count += LAUNCHES_PER_SUBSTEP * S
+    return pos_out, prev_out, vel_out, err_out
+
+
+def grid_frame_reference(pos, vel, arr: NHGridArrays, params: PhysicsParams,
+                         grab_id, grab_pos, vol_err: bool = True):
+    """The frame in plain torch (``neohookean_grid.frame_reference``);
+    returns (pos, prev_pos, vel, vol_err [B, num_substeps] or None)."""
+    pos, prev, vel, err = neohookean_grid.frame_reference(
+        pos, vel, arr, params, grab_id, grab_pos)
+    return pos, prev, vel, err if vol_err else None
+
+
+def grid_frame(pos, vel, arr: NHGridArrays, params: PhysicsParams, grab_id,
+               grab_pos, vol_err: bool = False):
+    """One frame for B boxes: pos/vel [B, 3, N], grab_id int32 [B, G],
+    grab_pos [B, G, 3]; returns (pos, prev_pos, vel, vol_err [B,
+    num_substeps] where asked for, else None).  CPU tensors take the plain
+    path; any other device launches the CUDA kernels or raises."""
+    if pos.device.type == "cpu":
+        return grid_frame_reference(pos, vel, arr, params, grab_id, grab_pos,
+                                    vol_err)
+    return _grid_frame_cuda(pos, vel, arr, params, grab_id, grab_pos, vol_err)
+
+
+def make_frame_stepper(arr: NHGridArrays):
+    """(pack, step, unpack, unpack_pos) over state in the kernel's layout.
+
+    pack(state, params)            -> packed (pos, prev, vel), B = 1
+    step(packed, params, controls) -> packed   (num_substeps substeps)
+    unpack(packed, params)         -> SimState (identity quaternions)
+    unpack_pos(packed)             -> positions [N, 3]"""
+
+    def pack(state: SimState, params: PhysicsParams):
+        del params
+        return tuple(planes(x)[None]
+                     for x in (state.pos, state.prev_pos, state.vel))
+
+    def step(packed, params: PhysicsParams, controls: Controls):
+        gid, gpos = common.norm_grabs(controls)
+        pos, prev, vel, _ = grid_frame(packed[0], packed[2], arr, params,
+                                       gid[None], gpos[None])
+        return pos, prev, vel
+
+    def unpack(packed, params: PhysicsParams) -> SimState:
+        del params
+        pos, prev, vel = (unplanes(x[0]) for x in packed)
+        quats = pos.new_zeros((arr.num_tets, 4))
+        quats[:, 3] = 1.0
+        return SimState(pos=pos, prev_pos=prev, vel=vel, quats=quats)
+
+    def unpack_pos(packed):
+        return unplanes(packed[0][0])
+
+    return pack, step, unpack, unpack_pos
+
+
+def step_frame(state: SimState, arr: NHGridArrays, params: PhysicsParams,
+               controls: Controls):
+    """One frame through ``grid_frame`` (engine API); the state's
+    quaternions are kept.  The kernels compute no volume error here, so the
+    per-substep diagnostic is NaN."""
+    pack, step, unpack, _ = make_frame_stepper(arr)
+    new = unpack(step(pack(state, params), params, controls), params)
+    return (state.replace(pos=new.pos, prev_pos=new.prev_pos, vel=new.vel),
+            state.pos.new_full((params.num_substeps,), float("nan")))
+
+
+def substep(state: SimState, arr: NHGridArrays, params: PhysicsParams, dt,
+            controls: Controls):
+    """One substep (engine API): a frame of params with num_substeps=1."""
+    del dt
+    one = dataclasses.replace(params, num_substeps=1)
+    new, diags = step_frame(state, arr, one, controls)
+    return new, diags[0]

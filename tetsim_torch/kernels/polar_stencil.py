@@ -1,0 +1,218 @@
+"""Polar stencil substeps on grid_mesh boxes (counterpart of
+``tetsim_tpu/kernels/polar_stencil.py``): the ``polar_grid_pallas``
+engine.
+
+``grid_frame`` runs one frame (every substep: predict, the 6 Kuhn tets of
+every cube with extract_rotation, the 8-slab inverse stencil, apply,
+collide, grab, velocity) for B boxes of one size.  On CUDA tensors it
+launches the hand-written kernels of ``csrc/polar_stencil.cu``, two per
+substep; on CPU tensors it runs ``grid_frame_reference``, the same frame in
+plain torch from ``solvers/polar_grid.py``.  ``launch_count`` counts the
+kernel launches.
+
+The state is kept in the kernel's layout: planes pos / prev / vel
+[B, 3, N] and quaternions [B, 6, 4, C] (C = nx*ny*nz cubes, type-major
+like ``SimState.quats``).  ``make_frame_stepper`` keeps a body in that
+layout across frames; ``step_frame`` converts a SimState each frame and
+reports NaN as its per-substep diagnostic, as K4 does.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..params import PhysicsParams
+from ..state import SimState, Controls
+from ..solvers import common, polar_grid
+from ..solvers.polar_grid import GridArrays
+from . import build
+from .batch import expect
+
+LAUNCHES_PER_SUBSTEP = 2  # as polar_stencil_launches_per_substep()
+
+launch_count = 0  # kernel launches since import (or reset)
+
+
+def frame_flops(arr: GridArrays, params: PhysicsParams, num_bodies: int) -> int:
+    """Floating-point operations of one frame, counted as for
+    ``polar_fused.frame_flops`` (the per-tet arithmetic is the same): per
+    tet and substep 391 plus 136 per extract_rotation iteration, per
+    particle 19 plus 3 per incident corner (4 per tet in all).  The
+    kernel's second predict of a corner per tet is not counted."""
+    m, n = arr.num_tets, arr.num_particles
+    per_substep = m * (391 + 136 * params.extract_iters) + 19 * n + 12 * m
+    return num_bodies * params.num_substeps * per_substep
+
+
+def frame_bytes(arr: GridArrays, num_bodies: int, num_grabs: int) -> int:
+    """Bytes a frame must move: each input read once (pos, vel,
+    quaternions, inv_mass, den, grabs), each output written once (pos,
+    prev, vel, quaternions); the kernel's delta scratch is not counted."""
+    n, m = arr.num_particles, arr.num_tets
+    state = num_bodies * (2 * 12 * n + 16 * m + 16 * num_grabs)
+    out = num_bodies * (3 * 12 * n + 16 * m)
+    return state + out + 8 * n
+
+
+class _GridPolarParams(ctypes.Structure):
+    _fields_ = [
+        ("dt", ctypes.c_float), ("gdt", ctypes.c_float),
+        ("k_fric", ctypes.c_float),
+        ("wmin", ctypes.c_float * 3), ("wmax", ctypes.c_float * 3),
+        ("rest_volume", ctypes.c_float),
+        ("rest_centered", ctypes.c_float * 72),
+        ("corner_slab", ctypes.c_int * 24),
+        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
+        ("iters", ctypes.c_int),
+    ]
+
+
+def _grid_params(arr: GridArrays, params: PhysicsParams) -> _GridPolarParams:
+    """The frame's scalars in f32, with the plain path's operation order,
+    and the box's per-type constants."""
+    dt = params.dt
+    rc = np.asarray(arr.rest_centered, np.float32).reshape(-1)
+    cs = np.asarray(arr.corner_slab, np.int32).reshape(-1)
+    return _GridPolarParams(
+        dt, params.gravity * dt,
+        np.minimum(np.float32(1.0), dt * params.friction),
+        (ctypes.c_float * 3)(*params.world_min),
+        (ctypes.c_float * 3)(*params.world_max),
+        arr.rest_volume, (ctypes.c_float * 72)(*rc.tolist()),
+        (ctypes.c_int * 24)(*cs.tolist()), *arr.dims, params.extract_iters,
+    )
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' library, built at first use, with its arguments
+    declared."""
+    lib = build.load("polar_stencil")
+    if lib.polar_stencil_launch.argtypes is None:
+        lib.polar_stencil_launch.argtypes = (
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+            + [_GridPolarParams, ctypes.c_void_p]
+        )
+        lib.polar_stencil_launch.restype = ctypes.c_int
+        lib.polar_stencil_error_string.argtypes = [ctypes.c_int]
+        lib.polar_stencil_error_string.restype = ctypes.c_char_p
+        lib.polar_stencil_launches_per_substep.restype = ctypes.c_int
+        if lib.polar_stencil_launches_per_substep() != LAUNCHES_PER_SUBSTEP:
+            raise RuntimeError("csrc/polar_stencil.cu launches per substep != "
+                               "polar_stencil.LAUNCHES_PER_SUBSTEP")
+    return lib
+
+
+def _grid_frame_cuda(pos, vel, quats, arr: GridArrays, params: PhysicsParams,
+                     grab_id, grab_pos):
+    global launch_count
+    dev = pos.device
+    if dev.type != "cuda":
+        raise ValueError(f"the polar stencil kernel runs on CUDA, not {dev}")
+    S = params.num_substeps
+    if S < 1:
+        raise ValueError(f"num_substeps must be at least 1, got {S}")
+    B, N = pos.shape[0], arr.num_particles
+    C = arr.num_tets // 6
+    G = grab_id.shape[-1]
+    f32 = torch.float32
+    expect(pos, "pos", f32, (B, 3, N), dev)
+    expect(vel, "vel", f32, (B, 3, N), dev)
+    expect(quats, "quats", f32, (B, 6, 4, C), dev)
+    expect(grab_id, "grab_id", torch.int32, (B, G), dev)
+    expect(grab_pos, "grab_pos", f32, (B, G, 3), dev)
+    nx, ny, nz = arr.dims
+    expect(arr.inv_mass, "inv_mass", f32, (nx + 1, ny + 1, nz + 1), dev)
+    expect(arr.den, "den", f32, (nx + 1, ny + 1, nz + 1), dev)
+
+    lib = library()
+    pos_out, prev_out, vel_out = (torch.empty_like(pos) for _ in range(3))
+    quat_out = torch.empty_like(quats)
+    delta = torch.empty((B, 72, C), dtype=f32, device=dev)
+    with torch.cuda.device(dev):  # the launches go to the current device
+        err = lib.polar_stencil_launch(
+            pos.data_ptr(), vel.data_ptr(), quats.data_ptr(),
+            pos_out.data_ptr(), prev_out.data_ptr(), vel_out.data_ptr(),
+            quat_out.data_ptr(), delta.data_ptr(), arr.inv_mass.data_ptr(),
+            arr.den.data_ptr(), grab_id.data_ptr(), grab_pos.data_ptr(),
+            B, G, S, _grid_params(arr, params),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError("polar_stencil launch failed: "
+                           f"{lib.polar_stencil_error_string(err).decode()}")
+    launch_count += LAUNCHES_PER_SUBSTEP * S
+    return pos_out, prev_out, vel_out, quat_out
+
+
+grid_frame_reference = polar_grid.frame_reference
+
+
+def grid_frame(pos, vel, quats, arr: GridArrays, params: PhysicsParams,
+               grab_id, grab_pos):
+    """One frame for B boxes: pos/vel [B, 3, N], quats [B, 6, 4, C],
+    grab_id int32 [B, G], grab_pos [B, G, 3]; returns (pos, prev_pos, vel,
+    quats).  CPU tensors take the plain path; any other device launches the
+    CUDA kernels or raises."""
+    if pos.device.type == "cpu":
+        return grid_frame_reference(pos, vel, quats, arr, params, grab_id,
+                                    grab_pos)
+    return _grid_frame_cuda(pos, vel, quats, arr, params, grab_id, grab_pos)
+
+
+def make_frame_stepper(arr: GridArrays):
+    """(pack, step, unpack, unpack_pos) over state in the kernel's layout.
+
+    pack(state, params)            -> packed (pos, prev, vel, quats), B = 1
+    step(packed, params, controls) -> packed   (num_substeps substeps)
+    unpack(packed, params)         -> SimState
+    unpack_pos(packed)             -> positions [N, 3]
+
+    The packed state carries the velocity (as the XLA engine does), so a
+    change of dt between steps needs no conversion."""
+
+    def pack(state: SimState, params: PhysicsParams):
+        del params
+        return (polar_grid.planes(state.pos)[None],
+                polar_grid.planes(state.prev_pos)[None],
+                polar_grid.planes(state.vel)[None],
+                polar_grid.quats_to_kernel(state.quats, arr)[None])
+
+    def step(packed, params: PhysicsParams, controls: Controls):
+        gid, gpos = common.norm_grabs(controls)
+        pos, prev, vel, quats = grid_frame(packed[0], packed[2], packed[3],
+                                           arr, params, gid[None], gpos[None])
+        return pos, prev, vel, quats
+
+    def unpack(packed, params: PhysicsParams) -> SimState:
+        del params
+        pos, prev, vel, quats = packed
+        return SimState(pos=polar_grid.unplanes(pos[0]),
+                        prev_pos=polar_grid.unplanes(prev[0]),
+                        vel=polar_grid.unplanes(vel[0]),
+                        quats=polar_grid.quats_from_kernel(quats[0]))
+
+    def unpack_pos(packed):
+        return polar_grid.unplanes(packed[0][0])
+
+    return pack, step, unpack, unpack_pos
+
+
+def step_frame(state: SimState, arr: GridArrays, params: PhysicsParams,
+               controls: Controls):
+    """One frame through ``grid_frame`` (engine API).  The kernel computes
+    no volume error, so the per-substep diagnostic is NaN."""
+    pack, step, unpack, _ = make_frame_stepper(arr)
+    new = unpack(step(pack(state, params), params, controls), params)
+    return new, state.pos.new_full((params.num_substeps,), float("nan"))
+
+
+def substep(state: SimState, arr: GridArrays, params: PhysicsParams, dt,
+            controls: Controls):
+    """One substep (engine API): a frame of params with num_substeps=1."""
+    del dt
+    one = dataclasses.replace(params, num_substeps=1)
+    new, diags = step_frame(state, arr, one, controls)
+    return new, diags[0]

@@ -10,7 +10,10 @@ never waits for the device: ``positions``, ``surface_mesh``,
 calls that synchronise.  This package carries the Neo-Hookean and polar
 engines: ``Body`` runs either through its solver (one fused-kernel launch
 per frame on CUDA), ``add_body_batch`` runs ``FusedGSBody``,
-``FusedPolarBody`` or the polar ``BatchedBody``.
+``FusedPolarBody`` or the polar ``BatchedBody``.  ``add_grid_body`` runs a
+``grid_mesh`` box through the stencil engines (``Body`` with grid arrays,
+or ``PackedGridBody``, whose state stays in the kernels' layout), and
+``add_grid_body_batch`` steps B boxes at once (``GridBodyBatch``).
 """
 from __future__ import annotations
 
@@ -24,11 +27,14 @@ from .kernels import gs_fused, polar_fused
 from .kernels.batch import FusedBatch
 from .kernels.gs_fused import FusedGSBody
 from .kernels.polar_fused import FusedPolarBody
-from .mesh import TetArrays, TetMesh, build_arrays, replicate_mesh
+from .mesh import TetArrays, TetMesh, build_arrays, grid_mesh, replicate_mesh
 from .params import PhysicsParams
-from .solvers import get_engine
+from .solvers import GRID_ENGINES, get_engine
+from .solvers.neohookean_grid import build_nh_grid_arrays
 from .solvers.polar import quat_rotate
-from .state import Controls, check_device, init_state
+from .solvers.polar_grid import (build_grid_arrays, planes, quats_from_kernel,
+                                 unplanes)
+from .state import Controls, SimState, check_device, init_state
 from .utils import mat3
 
 
@@ -131,12 +137,20 @@ class Body:
         if coloring == "auto":
             # polar is Jacobi: no GS schedule
             coloring = "ordered" if engine == "neohookean" else None
+        grid = engine in GRID_ENGINES
+        if grid and arrays is None:
+            raise ValueError(
+                f"the {engine} engine needs stencil arrays: pass "
+                "arrays=build_grid_arrays(mesh, (nx,ny,nz), device=...) (or "
+                "build_nh_grid_arrays): the cube dims are not derivable "
+                "from a flat TetMesh (or use World.add_grid_body)"
+            )
         if arrays is not None and pinned is not None:
             raise ValueError(
                 "pinned= has no effect when arrays= is prebuilt — bake the "
-                "pins in (build_arrays takes pinned=)"
+                "pins in (build_arrays/build_grid_arrays take pinned=)"
             )
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not grid:
             kernel = polar_fused if engine == "polar" else gs_fused
             kernel.check_fits(mesh.num_particles)
         self.arrays = (
@@ -266,6 +280,233 @@ class BatchedBody(FusedPolarBody):
         return body
 
 
+def _build_grid_arrays(mesh, dims, engine, density, pinned, device):
+    build = (build_nh_grid_arrays if engine.startswith("neohookean")
+             else build_grid_arrays)
+    return build(mesh, tuple(dims), density=density, pinned=pinned,
+                 device=device)
+
+
+class PackedGridBody:
+    """A grid body whose state stays in the stencil kernels' layout across
+    frames (``make_frame_stepper`` of ``kernels/polar_stencil.py`` or
+    ``kernels/nh_stencil.py``): SimState is built only at the I/O boundary,
+    positions cheaply.  The packed state carries the velocity, so a change
+    of dt between steps needs no conversion.  Steps report no diagnostic
+    (``last_diag`` None).  Grab API as ``Body``."""
+
+    def __init__(self, mesh: TetMesh, arrays, params: PhysicsParams,
+                 engine: str = "polar_grid_pallas"):
+        if engine not in ("polar_grid_pallas", "neohookean_grid_pallas"):
+            raise ValueError(
+                "PackedGridBody runs the fused grid kernels "
+                f"(polar_grid_pallas / neohookean_grid_pallas), not {engine!r}"
+            )
+        self.mesh = mesh
+        self.arrays = arrays
+        self.engine = engine
+        self.device = arrays.device
+        pack, self._stepfn, self._unpack, self._unpack_pos = \
+            get_engine(engine).make_frame_stepper(arrays)
+        self._pack = pack
+        self._params = params
+        self._packed = pack(init_state(mesh, self.device), params)
+        self._packed0 = self._packed
+        self.controls = Controls.none(self.device)
+        self.last_diag = None
+
+    def step(self, params: PhysicsParams):
+        self._packed = self._stepfn(self._packed, params, self.controls)
+        self._params = params
+        self.last_diag = None
+
+    def step_many(self, params: PhysicsParams, frames: int):
+        for _ in range(frames):
+            self.step(params)
+
+    # -- state I/O boundary -------------------------------------------------
+    @property
+    def state(self) -> SimState:
+        """The full SimState (a layout conversion)."""
+        return self._unpack(self._packed, self._params)
+
+    @state.setter
+    def state(self, new: SimState):
+        self._packed = self._pack(new, self._params)
+
+    def pos_device(self) -> torch.Tensor:
+        """Positions [N,3] on the device."""
+        return self._unpack_pos(self._packed)
+
+    @property
+    def positions(self) -> np.ndarray:
+        return self.pos_device().cpu().numpy()
+
+    # -- interaction (as Body) ------------------------------------------------
+    def start_grab(self, point) -> int:
+        p = _point(point, self.device)
+        gid = _nearest_particle(self.pos_device(), p)
+        self.controls = Controls(grab_id=gid, grab_pos=p)
+        return int(gid)
+
+    def move_grabbed(self, point):
+        self.controls = self.controls.replace(grab_pos=_point(point, self.device))
+
+    def end_grab(self):
+        self.controls = Controls.none(self.device)
+
+    def reset(self):
+        self._packed = self._packed0
+        self.end_grab()
+
+
+class GridBodyBatch:
+    """B grid boxes of one size stepped together, each with its own grab
+    slot: one ``grid_frame`` call per frame with a leading body axis (the
+    stencil kernels on CUDA, the plain engines on the CPU).  Engines
+    ``polar_grid`` and ``neohookean_grid``; ``last_diag`` is their
+    per-substep diagnostic [B, num_substeps].  The viewer contract of the
+    JAX package: ``flat_mesh``, ``states``, ``positions`` [B, N, 3], per-body
+    grabs and ``grab_particle``."""
+
+    def __init__(
+        self,
+        dims,
+        num_bodies: int,
+        cell: float = 0.1,
+        origins=None,
+        engine: str = "polar_grid",
+        density: float = 1000.0,
+        with_edges: bool = False,
+        with_surface: bool = False,
+        device="cuda",
+    ):
+        if engine not in ("polar_grid", "neohookean_grid"):
+            raise ValueError(
+                "GridBodyBatch runs the stencil engines "
+                f"(polar_grid / neohookean_grid), not {engine!r}"
+            )
+        if with_surface:
+            raise ValueError(_NO_SURFACE)
+        self.engine = engine
+        self.num_bodies = num_bodies
+        self.dims = tuple(int(d) for d in dims)
+        self.device = check_device(device)
+        self.mesh = grid_mesh(*dims, cell=cell, origin=(0.0, 0.0, 0.0),
+                              with_edges=with_edges)
+        self._n = self.mesh.num_particles
+        self.arrays = _build_grid_arrays(self.mesh, dims, engine, density,
+                                         None, self.device)
+        self._kernel = get_engine(engine + "_pallas")  # the pair's kernels
+        if origins is None:  # spread along x, one box width + one cell apart
+            w = dims[0] * cell
+            origins = np.stack([
+                np.arange(num_bodies, dtype=np.float32) * np.float32(w + cell),
+                np.full(num_bodies, 0.5, np.float32),
+                np.zeros(num_bodies, np.float32)], axis=-1)
+        origins = np.asarray(origins, np.float32).reshape(num_bodies, 3)
+        verts = self.mesh.verts.astype(np.float32)[None] + origins[:, None]
+        self.pos = planes(torch.as_tensor(verts).to(self.device))
+        self.prev_pos = self.pos.clone()
+        self.vel = torch.zeros_like(self.pos)
+        self.quats = None
+        if engine == "polar_grid":
+            self.quats = torch.zeros(
+                (num_bodies, 6, 4, self.arrays.num_tets // 6),
+                dtype=torch.float32, device=self.device)
+            self.quats[:, :, 3] = 1.0
+        self.grab_id = torch.full((num_bodies, 1), -1, dtype=torch.int32,
+                                  device=self.device)
+        self.grab_pos = torch.zeros((num_bodies, 1, 3), dtype=torch.float32,
+                                    device=self.device)
+        self.last_diag: Optional[torch.Tensor] = None
+        self.flat_mesh = replicate_mesh(self.mesh, num_bodies)
+
+    def step(self, params: PhysicsParams, frames: int = 1):
+        """Advance every box by ``frames`` frames (no sync)."""
+        for _ in range(frames):
+            if self.quats is None:
+                self.pos, self.prev_pos, self.vel, self.last_diag = \
+                    self._kernel.grid_frame(self.pos, self.vel, self.arrays,
+                                            params, self.grab_id,
+                                            self.grab_pos, vol_err=True)
+            else:
+                self.pos, self.prev_pos, self.vel, self.quats = \
+                    self._kernel.grid_frame(self.pos, self.vel, self.quats,
+                                            self.arrays, params, self.grab_id,
+                                            self.grab_pos)
+                self.last_diag = self.pos.new_zeros(
+                    (self.num_bodies, params.num_substeps))
+
+    @property
+    def states(self) -> SimState:
+        """The boxes' SimState with a leading body axis."""
+        if self.quats is None:
+            quats = self.pos.new_zeros((self.num_bodies, self.arrays.num_tets, 4))
+            quats[..., 3] = 1.0
+        else:
+            quats = quats_from_kernel(self.quats)
+        return SimState(pos=unplanes(self.pos), prev_pos=unplanes(self.prev_pos),
+                        vel=unplanes(self.vel), quats=quats)
+
+    @property
+    def positions(self) -> np.ndarray:
+        """[num_bodies, N, 3]."""
+        return unplanes(self.pos).cpu().numpy()
+
+    def summary(self) -> dict:
+        """Batch size, lowest particle, fastest particle and NaN flag, in
+        one device-to-host transfer."""
+        h = torch.stack([
+            self.pos[:, 1].min(),
+            torch.linalg.vector_norm(self.vel, dim=1).max(),
+            torch.isnan(self.pos).any().to(torch.float32),
+        ]).tolist()
+        return {"batch": self.num_bodies, "min_height": h[0],
+                "max_speed": h[1], "nan": bool(h[2])}
+
+    # -- per-body interaction -----------------------------------------------
+    def _check_body(self, body: int):
+        if not 0 <= body < self.num_bodies:
+            raise IndexError(
+                f"body index {body} out of range (batch has {self.num_bodies})"
+            )
+
+    def set_grab(self, body: int, particle: int, point):
+        self._check_body(body)
+        self.grab_id[body, 0] = particle
+        self.grab_pos[body, 0] = _point(point, self.device)
+
+    def start_grab(self, body: int, point) -> int:
+        """Grab the box's particle nearest to ``point``; returns its local
+        id (the grid engines address particles per body)."""
+        self._check_body(body)
+        local = int(_nearest_particle(unplanes(self.pos[body]),
+                                      _point(point, self.device)))
+        self.set_grab(body, local, point)
+        return local
+
+    def grab_particle(self, flat_pid: int, point) -> int:
+        """Grab a known flat particle id of ``flat_mesh``; returns the body."""
+        body = int(flat_pid) // self._n
+        self.set_grab(body, int(flat_pid) % self._n, point)
+        return body
+
+    def move_grabbed(self, body: int, point):
+        self._check_body(body)
+        self.grab_pos[body, 0] = _point(point, self.device)
+
+    def end_grab(self, body: int):
+        self._check_body(body)
+        self.grab_id[body, 0] = -1
+
+
+_NO_SURFACE = (
+    "with_surface=True needs mesh.with_boundary_surface, which is not "
+    "ported yet (ROADMAP.md Queue 1 item 7)"
+)
+
+
 class World:
     """Scene container + frame loop on one device ("cuda" or "cpu")."""
 
@@ -288,6 +529,61 @@ class World:
                     arrays=arrays, pinned=pinned, device=self.device)
         self.bodies.append(body)
         return body
+
+    def add_grid_body(
+        self,
+        dims,
+        cell: float = 0.1,
+        origin=(0.0, 0.0, 0.0),
+        density: Optional[float] = None,
+        pinned=None,
+        with_edges: bool = False,
+        engine: str = "polar_grid",
+        packed: bool = False,
+        with_surface: bool = False,
+    ):
+        """Add a ``grid_mesh`` box stepped by a stencil engine: ``Body`` with
+        grid arrays, or with ``packed=True`` (the ``*_pallas`` engines) a
+        ``PackedGridBody``, whose state stays in the kernels' layout across
+        frames."""
+        if engine not in GRID_ENGINES:
+            raise ValueError(
+                f"add_grid_body runs the stencil engines, not {engine!r}")
+        if with_surface:
+            raise ValueError(_NO_SURFACE)
+        if packed and not engine.endswith("_pallas"):
+            raise ValueError(
+                "packed grid state requires a fused kernel engine "
+                "(polar_grid_pallas / neohookean_grid_pallas)")
+        d = float(self.params.density) if density is None else density
+        mesh = grid_mesh(*dims, cell=cell, origin=origin, with_edges=with_edges)
+        arrays = _build_grid_arrays(mesh, dims, engine, d, pinned, self.device)
+        if packed:
+            body = PackedGridBody(mesh, arrays, self.params, engine=engine)
+        else:
+            body = Body(mesh, engine=engine, arrays=arrays, coloring=None,
+                        device=self.device)
+        self.bodies.append(body)
+        return body
+
+    def add_grid_body_batch(
+        self,
+        dims,
+        num_bodies: int,
+        cell: float = 0.1,
+        origins=None,
+        engine: str = "polar_grid",
+        density: Optional[float] = None,
+        with_edges: bool = False,
+        with_surface: bool = False,
+    ) -> GridBodyBatch:
+        """Add B grid boxes stepped together, each with its own grab."""
+        d = float(self.params.density) if density is None else density
+        batch = GridBodyBatch(dims, num_bodies, cell=cell, origins=origins,
+                              engine=engine, density=d, with_edges=with_edges,
+                              with_surface=with_surface, device=self.device)
+        self.bodies.append(batch)
+        return batch
 
     def add_body_batch(
         self,
@@ -332,7 +628,7 @@ class World:
         """Advance all bodies by ``frames`` frames (bodies are independent,
         so each runs its frames in turn)."""
         for body in self.bodies:
-            if isinstance(body, FusedBatch):
+            if isinstance(body, (FusedBatch, GridBodyBatch)):
                 body.step(self.params, frames)
             else:
                 body.step_many(self.params, frames)
@@ -340,7 +636,7 @@ class World:
     def diagnostics(self) -> dict:
         out = {}
         for i, b in enumerate(self.bodies):
-            if isinstance(b, FusedBatch):
+            if isinstance(b, (FusedBatch, GridBodyBatch)):
                 out[f"body{i}"] = b.summary()
             else:
                 out[f"body{i}"] = diag.summarize(b.state, b.arrays, b.last_diag)
