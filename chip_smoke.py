@@ -48,7 +48,28 @@ code is non-zero:
      each 60 frames with no host sync, a grab, 20 frames, positions and
      diagnostics; each launch counter equals frames x substeps x launches
      per substep;
- 11. ms per substep at 56^3 of each grid kernel and its plain twin.
+ 11. ms per substep at 56^3 of each grid kernel and its plain twin;
+ 12. the pieces kernels, polar_pieces (K6) and nh_pieces (K5), the substep
+     with the kernel vs the same substep with the plain twin of the solve,
+     after every frame at 5 substeps: tests_tpu's blob at 512 tets per
+     piece, both lane layouts, 2 pinned particles and a grab, 3 frames; the
+     blob resting on the ground after 60 frames, 1 frame; blobs past +x
+     and past -z and the ground at friction k = 0.1, 2 frames; the
+     62,370-tet blob at cell 0.05 and bench.py's 987,090-tet blob at cell
+     0.02 (2,048 tets per piece, banded), 2 frames; each beside the
+     kernel's own spread from positions 1 ulp apart.  The Neo-Hookean
+     engine collapses the 987k blob, so its whole frames there are held
+     by their spread alone, and one sweep at that width, on the first
+     substep's predicted planes from rest with a 10x softer deviatoric
+     compliance (the engine's own is chaotic within one sweep there), is
+     held strictly instead;
+ 13. the pieces main path at 987,090 tets: World -> add_body(blob with its
+     boundary surface, engine="polar_pieces" / "nh_pieces") for 20 frames
+     with a grab, surface_mesh and diagnostics, then the packed stepper
+     for 20 frames; no host sync while stepping, each launch counter
+     equal to frames x substeps x launches per substep;
+ 14. ms per substep at 987,090 tets of each pieces engine (two-point fit),
+     its kernel's CUDA-event time, bound and plain twin.
 Then a JSON line with every kernel's numbers, the card's name and power
 limit, and, last, the device line.  It exits non-zero, printing no result,
 where CUDA is unavailable.
@@ -60,6 +81,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -837,6 +859,366 @@ def grid_timings(tt, mod, label):
     return out["kernel"], out["plain"], bound(*work)
 
 
+# -- the pieces kernels (K6, K5) ----------------------------------------------
+
+BLOB = dict(n=68, radii=(0.68, 0.68, 0.68), center=(0.0, 0.75, 0.0))  # bench.py
+BLOB_MID = dict(n=27, radii=(0.68, 0.68, 0.68), center=(0.0, 0.75, 0.0))
+BLOB_SMALL = dict(n=10, radii=(0.4, 0.35, 0.45))  # tests_tpu's blob
+PIECES_TPP = 2048  # bench.py's tets_per_piece
+PIECES_SUBSTEPS = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class PiecesEngine:
+    """One pieces engine as phases 12-14 drive it, named once in ``main``."""
+
+    mod: object  # the kernel module (launch_count, frame_flops, frame_bytes)
+    build: Callable  # (mesh, tets_per_piece=, pinned=, boundary_prefix=,
+    #                   device=) -> arrays
+    make: Callable  # (arrays, solve=) -> (pack, step, unpack, unpack_pos)
+    solve: Callable  # the solve that launches the kernel
+    plain: Callable  # its plain twin
+    solve_args: Callable  # (planes, packed, arrays, params) -> the solve's
+    #                        arguments
+    describe: Callable  # arrays -> their engine's own table shapes
+    vel_tol: float
+    quats: bool  # the packed state ends in the quaternions, held at 2e-5
+    # the engine collapses the 987k blob at cell 0.02 (PERF.md), so its whole
+    # frames there are held only by their spread and one sweep is held
+    # strictly instead
+    collapses: bool
+    replaces: str  # the TPU kernel, under tetsim_tpu/kernels/
+
+    @property
+    def name(self) -> str:
+        return self.mod.__name__.split(".")[-1]
+
+
+def pieces_engines():
+    """K6's engine (polar_pieces), then K5's (nh_pieces)."""
+    from tetsim_torch.kernels import nh_pieces as nh, polar_pieces as pp
+    return (
+        PiecesEngine(pp, pp.build_pieces_arrays, pp.make_pieces_stepper,
+                     pp.pieces_solve, pp.pieces_solve_reference,
+                     lambda planes, packed, arr, params: (
+                         *planes, packed[6], arr, params.extract_iters),
+                     lambda a: f"rt {a.rt}, K {a.valence}", vel_tol=2e-2,
+                     quats=True, collapses=False,
+                     replaces="polar_pieces.py:422"),
+        PiecesEngine(nh, nh.build_nh_pieces_arrays, nh.make_nh_pieces_stepper,
+                     nh.nh_pieces_solve, nh.nh_pieces_solve_reference,
+                     lambda planes, packed, arr, params: (*planes, arr, params),
+                     lambda a: f"l_max {a.l_max}", vel_tol=2e-3, quats=False,
+                     collapses=True, replaces="nh_pieces.py:250"),
+    )
+
+
+def pieces_case(e, arr, state, params, controls, frames, label):
+    """The substep with the kernel vs the same substep with the plain twin
+    of the solve, from ``state`` in piece planes, after each of ``frames``
+    frames, beside the kernel's own spread from positions 1 ulp apart.
+    Positions and polar quaternions are held to 2e-5, velocities to 2e-2
+    (polar) or 2e-3 (Neo-Hookean); each bound is at least twice the spread.
+    Returns (largest position difference, the last packed kernel state)."""
+    pack, kstep, _, _ = e.make(arr)
+    _, pstep, _, _ = e.make(arr, solve=e.plain)
+
+    def run(step, s):
+        out, packed = [], pack(s, params)
+        for _ in range(frames):
+            packed = step(packed, params, controls)
+            out.append(packed)
+        sync()
+        return out
+
+    moved = state.replace(pos=torch.nextafter(state.pos,
+                                              torch.full_like(state.pos, 10.0)))
+    got, want, spread = run(kstep, state), run(pstep, state), run(kstep, moved)
+    groups = (("pos", 0, 3, 2e-5), ("vel", 3, 6, e.vel_tol))
+    groups += (("quat", 6, 7, 2e-5),) if e.quats else ()
+    worst = 0.0
+    for f, (k, r, m) in enumerate(zip(got, want, spread), 1):
+        parts = []
+        ok = True
+        for what, lo, hi, tol in groups:
+            d = max(max_diff(k[i], r[i]) for i in range(lo, hi))
+            s = max(max_diff(k[i], m[i]) for i in range(lo, hi))
+            t = max(tol, 2 * s)
+            ok = ok and d <= t
+            parts.append(f"max|d{what}| {d:.3e} (tol {t:.3e}, 1-ulp spread "
+                         f"{s:.3e})")
+            if what == "pos":
+                worst = max(worst, d)
+        print(f"phase 12 {e.name} {label}, frame {f} of {frames}: kernel "
+              f"vs plain " + ", ".join(parts), flush=True)
+        check(ok, f"{e.name} {label} disagrees after frame {f}")
+    return worst, got[-1]
+
+
+def sweep_case(tt, e, mesh, arr):
+    """One call of the solve at full width vs its plain twin, on the first
+    substep's predicted planes from rest, beside that call's own spread
+    from planes 1 ulp apart.  With the engine's parameters one sweep of the
+    collapsing blob is itself chaotic (PERF.md), so it is held only to
+    twice its spread.  With the deviatoric compliance 10x higher, a softer
+    material on the same tables and planes, it is held to 2e-5 or twice its
+    spread, whichever is larger, and must move the planes by ten times
+    that bound or more, so that a kernel that did nothing would fail.
+    Returns that difference."""
+    from tetsim_torch.kernels.polar_pieces import predict_planes
+
+    params = tt.PhysicsParams(num_substeps=PIECES_SUBSTEPS)
+    packed = e.make(arr)[0](tt.init_state(mesh, "cuda"), params)
+    planes = predict_planes(*packed[:6], arr.movw_l > 0.0, params.dt,
+                            params)[:3]
+    up = [torch.nextafter(p, torch.full_like(p, 10.0)) for p in planes]
+    soft = dataclasses.replace(params,
+                               dev_compliance=10 * params.dev_compliance)
+    for p, label, floor in ((params, "the engine's parameters", 0.0),
+                            (soft, "dev_compliance x10", 2e-5)):
+        got = e.solve(*e.solve_args(planes, packed, arr, p))
+        want = e.plain(*e.solve_args(planes, packed, arr, p))
+        spread = e.solve(*e.solve_args(up, packed, arr, p))
+        sync()
+        d = max(max_diff(k, r) for k, r in zip(got, want))
+        s = max(max_diff(k, m) for k, m in zip(got, spread))
+        shift = max(max_diff(k, q) for k, q in zip(got, planes))
+        t = max(floor, 2 * s)
+        print(f"phase 12 {e.name} one sweep at {mesh.num_tets} tets "
+              f"({arr.B} pieces, banded) on the first substep's predicted "
+              f"planes from rest, {label}: kernel vs plain max|dpos| "
+              f"{d:.3e} (tol {t:.3e}, 1-ulp spread {s:.3e}); the sweep "
+              f"moves the planes by up to {shift:.3e}", flush=True)
+        check(d <= t, f"{e.name} one sweep at full width disagrees, {label}")
+    check(shift >= 10 * t, f"{e.name} one sweep moves too little to hold")
+    return d
+
+
+def seeded_state(tt, mesh, vel, seed):
+    state = tt.init_state(mesh, "cuda")
+    rng = np.random.RandomState(seed)
+    v = rng.uniform(-vel, vel, (mesh.num_particles, 3)).astype(np.float32)
+    return state.replace(vel=torch.tensor(v, device="cuda"))
+
+
+def pieces_vs_plain(tt, e, big_mesh, big_arr):
+    """Phase 12 for one engine; returns the largest position difference of
+    the cases held strictly."""
+    params = tt.PhysicsParams(num_substeps=PIECES_SUBSTEPS)
+    none = tt.Controls.none("cuda")
+    errs = []
+    mesh = tt.ellipsoid_mesh(**BLOB_SMALL)
+    pins = np.argsort(-mesh.verts[:, 1])[:2].tolist()
+    grab = int(np.argmax(mesh.verts[:, 0]))
+    target = torch.tensor(mesh.verts[grab] + np.float32([0.0, 0.05, 0.02]),
+                          device="cuda")
+    controls = tt.Controls(grab_id=torch.tensor(grab, dtype=torch.int32,
+                                                device="cuda"),
+                           grab_pos=target)
+    for banded in (False, True):
+        arr = e.build(mesh, tets_per_piece=512, pinned=pins,
+                      boundary_prefix=banded, device="cuda")
+        err, out = pieces_case(
+            e, arr, seeded_state(tt, mesh, 0.3, 1), params, controls, 3,
+            f"blob ({mesh.num_tets} tets, {arr.B} pieces"
+            f"{', banded' if banded else ''}) 2 pinned, grab")
+        pos = e.make(arr)[3](out)
+        check(torch.equal(pos[pins], torch.tensor(mesh.verts[pins],
+                                                  device="cuda")),
+              "pinned particles moved")
+        check(torch.equal(pos[grab], target), "grab off target")
+        errs.append(err)
+
+    # a blob resting on the ground after 60 frames, 1 frame
+    arr = e.build(mesh, tets_per_piece=512, boundary_prefix=True,
+                  device="cuda")
+    pack, step, unpack, unpack_pos = e.make(arr)
+    packed = pack(tt.init_state(mesh, "cuda"), params)
+    for _ in range(60):
+        packed = step(packed, params, none)
+    err, out = pieces_case(e, arr, unpack(packed, params), params, none, 1,
+                           "blob resting on the ground")
+    ground = int((unpack_pos(out)[:, 1] == 0).sum())
+    print(f"phase 12 resting: {ground} particles on the ground", flush=True)
+    check(ground > 0, "the resting blob does not touch the ground")
+    errs.append(err)
+
+    # blobs past the walls at friction k = dt * friction = 0.1: one 2 mm
+    # past +x moving at +1 m/s, one 2 mm past -z and below the ground moving
+    # at -1 m/s in z
+    slip = dataclasses.replace(params, friction=0.1 / float(params.dt))
+    lo, hi = params.world_min, params.world_max
+    v = mesh.verts
+    for shift, axis, speed, label in (
+            ([hi[0] + 0.002 - v[:, 0].max(), 0.0, 0.0], 0, 1.0, "+x"),
+            ([0.0, -0.002 - v[:, 1].min(), lo[2] - 0.002 - v[:, 2].min()], 2,
+             -1.0, "-z and the ground")):
+        state = tt.init_state(mesh, "cuda")
+        state.pos += torch.tensor(shift, dtype=torch.float32, device="cuda")
+        state.vel[:, axis] = speed
+        err, out = pieces_case(e, arr, state, slip, none, 2,
+                               f"blob past {label}, friction k=0.100")
+        pos = unpack_pos(out)
+        wall = float(hi[0]) if axis == 0 else float(lo[2])
+        at = int((pos[:, axis] == wall).sum())
+        print(f"phase 12 walls: {at} particles at the {label.split()[0]} wall, "
+              f"{int((pos[:, 1] == 0).sum())} on the ground", flush=True)
+        check(at > 0, "the wall was not reached")
+        errs.append(err)
+
+    mid = tt.ellipsoid_mesh(**BLOB_MID)
+    arr = e.build(mid, tets_per_piece=PIECES_TPP, boundary_prefix=True,
+                  device="cuda")
+    errs.append(pieces_case(
+        e, arr, seeded_state(tt, mid, 0.1, 2), params, none, 2,
+        f"blob at cell 0.05 ({mid.num_tets} tets, {arr.B} pieces, banded)")[0])
+    # the full-width blob at cell 0.02, from rest.  Where the engine
+    # collapses its tets there, a 1-ulp change moves a frame by tenths, so
+    # whole frames are held only by their spread and one sweep at that width
+    # is held strictly in their place
+    err = pieces_case(
+        e, big_arr, tt.init_state(big_mesh, "cuda"), params, none, 2,
+        f"blob at cell 0.02 ({big_mesh.num_tets} tets, {big_arr.B} pieces, "
+        "banded), from rest")[0]
+    errs.append(sweep_case(tt, e, big_mesh, big_arr) if e.collapses else err)
+    return max(errs)
+
+
+def full_width_pieces(tt, engines):
+    """bench.py's 987,090-tet blob with its boundary surface, and each
+    engine's banded schedule at 2,048 tets per piece, built once and shared
+    by phases 12-14."""
+    t0 = time.perf_counter()
+    blob = tt.with_boundary_surface(tt.ellipsoid_mesh(**BLOB))
+    print(f"phase 12 blob: {blob.num_particles} particles, {blob.num_tets} "
+          f"tets, {blob.num_surface_verts} surface vertices; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    big = {}
+    for e in engines:
+        t0 = time.perf_counter()
+        a = big[e.name] = e.build(blob, tets_per_piece=PIECES_TPP,
+                                  boundary_prefix=True, device="cuda")
+        print(f"phase 12 {e.name} schedule: {a.B} pieces, rp {a.rp} (J=2 "
+              f"band {a.r2}, shared bands {a.rb}), {e.describe(a)}, "
+              f"{len(a.tier_counts)} tiers; {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    return blob, big
+
+
+def pieces_main_path(tt, e, mesh, arr, kernels):
+    """Phase 13 for one engine at full width: World/Body with a grab, the
+    surface and diagnostics, then the packed stepper; returns the kernel's
+    launches."""
+    mod, name = e.mod, e.name
+    params = tt.PhysicsParams(num_substeps=PIECES_SUBSTEPS)
+    frames = (10, 10)
+    want = sum(frames) * PIECES_SUBSTEPS * mod.LAUNCHES_PER_SUBSTEP
+    target = np.float32([0.0, 1.6, 0.0])
+    launches = 0
+
+    def checked(label, pos, pid, t0):
+        count = mod.launch_count
+        check(count == want, f"{label}: {count} launches, expected {want}")
+        others = {k: m.launch_count for k, m in kernels.items()
+                  if m is not mod and m.launch_count}
+        check(not others, f"{label} launched {others}")
+        check(np.isfinite(pos).all(), f"{label} positions not finite")
+        check(pos[:, 1].min() >= -1e-5, f"{label} below the ground")
+        check(np.array_equal(pos[pid], target), f"{label} grab off target")
+        print(f"phase 13 {label}: {sum(frames)} frames at {PIECES_SUBSTEPS} "
+              f"substeps, {count} launches, grab pid {pid} at target, min y "
+              f"{pos[:, 1].min():.4f}; {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        return count
+
+    for m in kernels.values():
+        m.launch_count = 0
+    t0 = time.perf_counter()
+    world = tt.World(params)
+    body = world.add_body(mesh, engine=name, arrays=arr)
+    with no_host_sync():
+        world.step(frames[0])
+    pid = body.start_grab([0.0, 1.5, 0.0])
+    body.move_grabbed(target)
+    with no_host_sync():
+        world.step(frames[1])
+    pos = body.positions
+    verts, normals, tris = body.surface_mesh()
+    diag = world.diagnostics()["body0"]
+    check(verts.shape == (mesh.num_surface_verts, 3) and np.isfinite(verts).all(),
+          f"{name} surface")
+    check(np.abs(np.linalg.norm(normals, axis=1) - 1.0).max() < 1e-4,
+          f"{name} normals")
+    check(not diag["nan"] and "volume_error" not in diag, f"diagnostics {diag}")
+    launches += checked(f"World/Body(engine={name!r})", pos, pid, t0)
+    print(f"phase 13 {name} surface {verts.shape[0]} vertices, {tris.shape[0]} "
+          f"triangles, unit normals; diagnostics {diag}", flush=True)
+
+    for m in kernels.values():
+        m.launch_count = 0
+    t0 = time.perf_counter()
+    pack, step, unpack, unpack_pos = e.make(arr)
+    packed = pack(tt.init_state(mesh, "cuda"), params)
+    free = tt.Controls.none("cuda")
+    grabbed = tt.Controls(
+        grab_id=torch.tensor(pid, dtype=torch.int32, device="cuda"),
+        grab_pos=torch.tensor(target, device="cuda"))
+    with no_host_sync():
+        for f in range(sum(frames)):
+            packed = step(packed, params, grabbed if f >= frames[0] else free)
+    pos = unpack_pos(packed).cpu().numpy()
+    check(np.isfinite(unpack(packed, params).vel.cpu().numpy()).all(),
+          f"{name} packed velocities")
+    launches += checked(f"{name} packed stepper", pos, pid, t0)
+    return launches
+
+
+def event_ms(fn, n):
+    """CUDA-event time per call over ``n`` calls, after one warm-up.  A spin
+    kernel ahead of them keeps the card busy while the host enqueues the
+    calls, so the span is their device time and not the host's pace (the
+    NH wrapper takes longer to enqueue a launch than the kernel runs)."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    sync()
+    torch.cuda._sleep(100_000_000)  # about 50 ms at 2 GHz
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def pieces_timings(tt, e, mesh, arr, label):
+    """Phase 14: (kernel ms and plain ms per substep, bound).  The solve is
+    timed on the state after the fit's 28 frames from rest: for the
+    Neo-Hookean engine a collapsed blob, as on its main path."""
+    params = tt.PhysicsParams(num_substeps=PIECES_SUBSTEPS)
+    pack, step, _, _ = e.make(arr)
+    st = {"p": pack(tt.init_state(mesh, "cuda"), params)}
+    none = tt.Controls.none("cuda")
+
+    def frames(k):
+        for _ in range(k):
+            st["p"] = step(st["p"], params, none)
+
+    sub_ms = per_frame(frames, lambda: st["p"][0].sum(), 4, 24) * 1e3 \
+        / PIECES_SUBSTEPS
+    args = e.solve_args(st["p"][:3], st["p"], arr, params)
+    k_ms = event_ms(lambda: e.solve(*args), 50)
+    p_ms = event_ms(lambda: e.plain(*args), 5)
+    one = dataclasses.replace(params, num_substeps=1)
+    b = bound(e.mod.frame_flops(arr, one), e.mod.frame_bytes(arr, one))
+    print(f"phase 14 [{label}] {e.name} at {mesh.num_tets} tets: substep "
+          f"{sub_ms:.4f} ms ({1e3 / sub_ms:.1f} substeps/s), of it the kernel "
+          f"{k_ms:.4f} ms (CUDA events; {b[0] * 1e3:.3f} us bound by {b[1]}) and "
+          f"the torch phases around it {sub_ms - k_ms:.4f} ms "
+          f"({(sub_ms - k_ms) / sub_ms:.1%}); plain twin of the solve "
+          f"{p_ms:.4f} ms", flush=True)
+    return k_ms, p_ms, b
+
+
 def sync():
     torch.cuda.synchronize()
 
@@ -895,7 +1277,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     import tetsim_torch as tt
-    from tetsim_torch.kernels import gs_fused, nh_stencil, polar_fused, polar_stencil
+    from tetsim_torch.kernels import (gs_fused, nh_pieces, nh_stencil,
+                                      polar_fused, polar_pieces, polar_stencil)
 
     t_start = time.perf_counter()
     label = card()
@@ -903,7 +1286,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     kernels = {"gs_frame": gs_fused, "polar_frame": polar_fused,
-               "polar_stencil": polar_stencil, "nh_stencil": nh_stencil}
+               "polar_stencil": polar_stencil, "nh_stencil": nh_stencil,
+               "polar_pieces": polar_pieces, "nh_pieces": nh_pieces}
     phase("phase 1 done", build_all, kernels)
 
     dragon = tt.load_dragon()
@@ -936,6 +1320,18 @@ def main() -> int:
     grid_times = {m: phase(f"phase 11 {m.__name__.split('.')[-1]} done",
                            grid_timings, tt, m, label)
                   for m in (polar_stencil, nh_stencil)}
+    engines = pieces_engines()
+    blob, big = phase("phase 12 full-width blob and schedules built",
+                      full_width_pieces, tt, engines)
+    pieces_err = {e: phase(f"phase 12 {e.name} done", pieces_vs_plain, tt, e,
+                           blob, big[e.name])
+                  for e in engines}
+    pieces_launches = {e: phase(f"phase 13 {e.name} done", pieces_main_path,
+                                tt, e, blob, big[e.name], kernels)
+                       for e in engines}
+    pieces_times = {e: phase(f"phase 14 {e.name} done", pieces_timings, tt, e,
+                             blob, big[e.name], label)
+                    for e in engines}
     print(f"bounds at the data sheet's peaks (67 TFLOP/s FP32, 3.35 TB/s): "
           f"gs_frame ordered B=1 frame {gs_bound * 1e3:.3f} us ({gs_by}), "
           f"polar_frame B=1 frame at 20 substeps {polar_bound * 1e3:.3f} us "
@@ -943,6 +1339,8 @@ def main() -> int:
           + ", ".join(f"{m.__name__.split('.')[-1]} 56^3 substep "
                       f"{t[2][0] * 1e3:.3f} us ({t[2][1]})"
                       for m, t in grid_times.items())
+          + ", " + ", ".join(f"{e.name} 987k substep {t[2][0] * 1e3:.3f} us "
+                             f"({t[2][1]})" for e, t in pieces_times.items())
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
     grid_lines = [
         {"name": m.__name__.split(".")[-1], "route": "cuda",
@@ -954,6 +1352,15 @@ def main() -> int:
          "library_ms": None}
         for m, src in ((nh_stencil, "nh_stencil.py:265"),
                        (polar_stencil, "polar_stencil.py:137"))]
+    pieces_lines = [
+        {"name": e.name, "route": "cuda",
+         "source": f"tetsim_torch/kernels/csrc/{e.name}.cu",
+         "replaces": f"tetsim_tpu/kernels/{e.replaces}",
+         "launches": pieces_launches[e], "max_abs_err": pieces_err[e],
+         "ms": pieces_times[e][0], "plain_ms": pieces_times[e][1],
+         "bound_ms": pieces_times[e][2][0], "bound_by": pieces_times[e][2][1],
+         "library_ms": None}
+        for e in reversed(engines)]
     print(json.dumps({"kernels": [
         {"name": "gs_frame", "route": "cuda",
          "source": "tetsim_torch/kernels/csrc/gs_frame.cu",
@@ -967,7 +1374,7 @@ def main() -> int:
          "launches": polar_launches, "max_abs_err": polar_err,
          "ms": pk_ms, "plain_ms": pp_ms, "bound_ms": polar_bound,
          "bound_by": polar_by, "library_ms": None},
-    ] + grid_lines}), flush=True)
+    ] + grid_lines + pieces_lines}), flush=True)
     print(label, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,11 @@ polar kernel (polar_frame, 20 substeps) through ``FusedPolarBody`` at
 B = 1, 8 and 132, then the grid stencil kernels on the 56^3 box of the scale
 workload (1,053,696 tets, 5 substeps, as examples/scale_grid.py) through
 ``World.add_grid_body(..., packed=True)``: polar_stencil (2 launches per
-substep) and nh_stencil (50):
+substep) and nh_stencil (50), then the pieces kernels on the 987,090-tet
+blob of the unstructured scale workload (bench.py: ellipsoid_mesh(68),
+2,048 tets per piece, banded lanes, 5 substeps) through their packed
+steppers: polar_pieces (2 launches per substep) and nh_pieces (1), each
+between the torch phases of the substep:
   host_ms     synced host time per frame: a two-point fit over k1 and k2
               frames, each run ending in a data-dependent sync;
   enqueue_ms  host time per frame to enqueue k2 frames, with no sync;
@@ -21,11 +25,17 @@ substep) and nh_stencil (50):
   device_ms   the kernels' device time per frame, over the same 20 frames;
   busy_share  device_ms / event_ms: the share of a frame's span in which
               the kernels run;
+  glue_device_ms  (pieces rows) the device time per frame of every other
+              kernel, the torch phases around the solve;
+  idle_ms     (pieces rows) event_ms less all device time: the span in
+              which the card runs nothing;
   bound_us    the least time the card could take for the frame: its
               operations at 67 TFLOP/s FP32 or its bytes (each input read
               once, each output written once) at 3.35 TB/s, whichever is
               longer (bound_by says which), from the kernel module's
               frame_flops and frame_bytes.
+Every shape is timed first and profiled after (a torch.profiler session
+slows later launches on the host), and the rows are printed then.
 Each polar shape is measured with two builds of polar_frame.cu, in the
 order A B B A: the shipped build (``polar_fused.NVCC_FLAGS``: nvcc's
 default, which contracts a multiply and an add into one FMA) and a
@@ -49,6 +59,8 @@ import torch
 
 from chip_smoke import bound, max_diff
 
+PIECES_SHAPES = (("pieces polar 987k", "polar_pieces", "polar_pieces_", 4, 24),
+                 ("pieces nh 987k", "nh_pieces", "nh_pieces_kernel", 4, 24))
 GRID_SHAPES = (("grid polar 56^3", "polar_grid_pallas", "polar_grid_", 20, 120),
                ("grid nh 56^3", "neohookean_grid_pallas", "nh_grid_", 20, 120))
 SHAPES = (("B=1 greedy", 1, "greedy", 50, 450),
@@ -97,8 +109,21 @@ def kernel_device_time(step, kernel):
     return device_us / launches, device_us / PROFILED_FRAMES / 1e3
 
 
-def measure(body, params, k1, k2, kernel, flops, nbytes,
-            state_sum=None) -> dict:
+def host_fit(step, state_sum, k1, k2) -> float:
+    """Synced host seconds per frame: a two-point fit over k1 and k2 frames
+    after a one-frame warm-up."""
+    synced_run(step, state_sum, 1)
+    return (synced_run(step, state_sum, k2)
+            - synced_run(step, state_sum, k1)) / (k2 - k1)
+
+
+def measure(body, params, k1, k2, kernel, flops, nbytes, state_sum=None,
+            build=contextlib.nullcontext):
+    """Times a shape now and returns (row, profile): ``profile()``, called
+    after every shape was timed, adds the device columns under ``build()``
+    and returns the row.  A torch.profiler session leaves later launches
+    slower on the host (``main`` re-times the pieces rows after all
+    sessions to show it), so no timing follows one."""
     def step(k):
         body.step(params, k)
 
@@ -106,9 +131,7 @@ def measure(body, params, k1, k2, kernel, flops, nbytes,
         def state_sum():
             return body.pos.sum()
 
-    synced_run(step, state_sum, 1)  # warm-up
-    host_s = (synced_run(step, state_sum, k2)
-              - synced_run(step, state_sum, k1)) / (k2 - k1)
+    host_s = host_fit(step, state_sum, k1, k2)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     start.record()
@@ -118,15 +141,21 @@ def measure(body, params, k1, k2, kernel, flops, nbytes,
     end.record()
     end.synchronize()
     event_ms = start.elapsed_time(end) / k2
-    kernel_us, device_ms = kernel_device_time(step, kernel)
     bound_ms, bound_by = bound(flops, nbytes)
-    return {
+    row = {
         "host_ms": host_s * 1e3, "enqueue_ms": enqueue_s * 1e3 / k2,
-        "event_ms": event_ms, "kernel_us": kernel_us, "device_ms": device_ms,
-        "busy_share": device_ms / event_ms if device_ms else None,
-        "substeps_per_s": params.num_substeps / host_s,
+        "event_ms": event_ms, "substeps_per_s": params.num_substeps / host_s,
         "bound_us": bound_ms * 1e3, "bound_by": bound_by,
     }
+
+    def profile():
+        with build():
+            kernel_us, device_ms = kernel_device_time(step, kernel)
+        row.update(kernel_us=kernel_us, device_ms=device_ms,
+                   busy_share=device_ms / event_ms if device_ms else None)
+        return row
+
+    return row, profile
 
 
 @contextlib.contextmanager
@@ -195,7 +224,7 @@ class _Frames:
             self.body.step(params)
 
 
-def grid_profile(tt):
+def grid_profile(tt, pending):
     """The 56^3 box of each grid kernel, packed, 5 substeps per frame."""
     from tetsim_torch.kernels import nh_stencil, polar_stencil
 
@@ -209,11 +238,59 @@ def grid_profile(tt):
         arr = body.arrays
         nbytes = (mod.frame_bytes(arr, 1, 1) if mod is polar_stencil
                   else mod.frame_bytes(arr, params, 1, 1))
-        row = measure(_Frames(body), params, k1, k2, kernel,
-                      mod.frame_flops(arr, params, 1), nbytes,
-                      state_sum=lambda: body.pos_device().sum())
+        row, profile = measure(_Frames(body), params, k1, k2, kernel,
+                               mod.frame_flops(arr, params, 1), nbytes,
+                               state_sum=lambda b=body: b.pos_device().sum())
         row["ms_per_substep"] = row["event_ms"] / params.num_substeps
-        print(name, json.dumps(row), flush=True)
+        pending.append((name, profile))
+
+
+class _Packed:
+    """A pieces stepper's packed state as ``measure`` drives a batch."""
+
+    def __init__(self, tt, stepper, state, params):
+        pack, self._step, _, _ = stepper
+        self.packed = pack(state, params)
+        self.controls = tt.Controls.none("cuda")
+
+    def step(self, params, k):
+        for _ in range(k):
+            self.packed = self._step(self.packed, params, self.controls)
+
+
+def pieces_profile(tt, pending):
+    """bench.py's 987,090-tet blob through each pieces engine's packed
+    stepper, 5 substeps per frame.  Returns a host re-timing per row, for
+    after the profiler sessions."""
+    from chip_smoke import BLOB, PIECES_TPP, pieces_engines
+
+    params = tt.PhysicsParams(num_substeps=5)
+    mesh = tt.ellipsoid_mesh(**BLOB)
+    engines = {e.name: e for e in pieces_engines()}
+    retimes = []
+    for name, engine, kernel, k1, k2 in PIECES_SHAPES:
+        e = engines[engine]
+        arr = e.build(mesh, tets_per_piece=PIECES_TPP, boundary_prefix=True,
+                      device="cuda")
+        body = _Packed(tt, e.make(arr), tt.init_state(mesh, "cuda"), params)
+        row, profile = measure(body, params, k1, k2, kernel,
+                               e.mod.frame_flops(arr, params),
+                               e.mod.frame_bytes(arr, params),
+                               state_sum=lambda b=body: b.packed[0].sum())
+        row["ms_per_substep"] = row["event_ms"] / params.num_substeps
+
+        def glue(profile=profile, body=body):
+            row = profile()
+            _, all_ms = kernel_device_time(lambda k: body.step(params, k), "")
+            row["glue_device_ms"] = all_ms - row["device_ms"]
+            row["idle_ms"] = row["event_ms"] - all_ms
+            return row
+
+        pending.append((name, glue))
+        retimes.append((name, lambda body=body, k1=k1, k2=k2: host_fit(
+            lambda k: body.step(params, k), lambda: body.packed[0].sum(),
+            k1, k2)))
+    return retimes
 
 
 def main() -> int:
@@ -232,6 +309,7 @@ def main() -> int:
     for flags in builds:
         with polar_build(polar_fused, flags):
             polar_fused.library()
+    pending = []  # (name, profile): every shape is timed before any profiling
     for name, b, coloring, k1, k2 in SHAPES:
         if coloring is None:
             params, kernel = tt.default_gpu_params(), "polar_frame_kernel"
@@ -239,18 +317,28 @@ def main() -> int:
                 body = FusedPolarBody(dragon, num_bodies=b)
                 work = (polar_fused.frame_flops(body.arrays, params, b),
                         polar_fused.frame_bytes(body.arrays, b, 1))
-                with polar_build(polar_fused, flags):
-                    row = measure(body, params, k1, k2, kernel, *work)
-                print(f"{name} [{build_name(flags)}]", json.dumps(row),
-                      flush=True)
+
+                def build(flags=flags):
+                    return polar_build(polar_fused, flags)
+
+                with build():
+                    _, profile = measure(body, params, k1, k2, kernel, *work,
+                                         build=build)
+                pending.append((f"{name} [{build_name(flags)}]", profile))
         else:
             body = FusedGSBody(dragon, num_bodies=b, coloring=coloring)
             params, kernel = tt.default_cpu_params(), "gs_frame_kernel"
             work = (gs_fused.frame_flops(body.arrays, params, b),
                     gs_fused.frame_bytes(body.arrays, params, b, 1))
-            print(name, json.dumps(measure(body, params, k1, k2, kernel,
-                                           *work)), flush=True)
-    grid_profile(tt)
+            pending.append((name, measure(body, params, k1, k2, kernel,
+                                          *work)[1]))
+    grid_profile(tt, pending)
+    retimes = pieces_profile(tt, pending)
+    for name, profile in pending:
+        print(name, json.dumps(profile()), flush=True)
+    for name, retime in retimes:
+        print(f"{name} after the profiler sessions: host_ms "
+              f"{retime() * 1e3:.4f}", flush=True)
     polar_agreement(tt, polar_fused, dragon, builds)
     print(card(), flush=True)
     return 0

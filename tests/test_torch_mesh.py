@@ -47,6 +47,48 @@ def test_grid_mesh_equal(dims, with_edges):
         assert port.edges is None
 
 
+@pytest.mark.parametrize("kw", [
+    dict(n=8, radii=(0.4, 0.3, 0.35), center=(0.0, 0.8, 0.0)),
+    dict(n=10, radii=(0.4, 0.35, 0.45), with_edges=True),
+    dict(n=6, cell=0.17, center=(0.1, 0.9, -0.2)),
+])
+def test_ellipsoid_and_surface_equal(kw):
+    """ellipsoid_mesh (a masked grid) and with_boundary_surface give the JAX
+    package's arrays exactly."""
+    ref, port = ts.ellipsoid_mesh(**kw), tt.ellipsoid_mesh(**kw)
+    for f in ("verts", "tets", "edges"):
+        a, b = getattr(ref, f), getattr(port, f)
+        if a is None:
+            assert b is None
+        else:
+            _assert_same(a, b, f)
+    ref, port = ts.with_boundary_surface(ref), tt.with_boundary_surface(port)
+    for f in ("vis_tet_ids", "vis_bary", "tris"):
+        _assert_same(getattr(ref, f), getattr(port, f), f)
+    assert port.num_surface_verts > 0
+
+
+def test_masked_grid_mesh_equal_and_refusals():
+    def keep(c):
+        return (c[:, 0] + c[:, 1] > 0.35) | (c[:, 2] < 0.15)
+
+    args = (3, 4, 2, keep)
+    ref = ts.masked_grid_mesh(*args, cell=0.15, origin=(0.0, 0.1, 0.0),
+                              with_edges=True)
+    port = tt.masked_grid_mesh(*args, cell=0.15, origin=(0.0, 0.1, 0.0),
+                               with_edges=True)
+    for f in ("verts", "tets", "edges"):
+        _assert_same(getattr(ref, f), getattr(port, f), f)
+    assert port.num_tets < 6 * 3 * 4 * 2
+    _assert_same(ts.with_boundary_surface(ts.grid_mesh(2, 2, 2)).tris,
+                 tt.with_boundary_surface(tt.grid_mesh(2, 2, 2)).tris,
+                 "grid surface tris")
+    with pytest.raises(ValueError, match="rejected every cube"):
+        tt.masked_grid_mesh(2, 2, 2, lambda c: np.zeros(len(c), bool))
+    with pytest.raises(ValueError, match="must return bool"):
+        tt.masked_grid_mesh(2, 2, 2, lambda c: np.ones(3, bool))
+
+
 @pytest.mark.parametrize("name", ["dragon", "small"])
 def test_rest_state_equal(name):
     ref_mesh, port_mesh = _meshes(name)

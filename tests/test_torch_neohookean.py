@@ -130,8 +130,8 @@ def test_step_frame_matches_xla_ordered_grab_pinned():
 
 def test_get_engine_and_non_cpu_route():
     assert tt.get_engine("neohookean") is tnh
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tt.get_engine("nh_pieces")
+    with pytest.raises(ValueError, match="unknown engine 'golden'"):
+        tt.get_engine("golden")
     # a state on any device other than the CPU goes to the kernel, which
     # refuses a device it cannot launch on instead of running the plain path
     m = tt.grid_mesh(1, 1, 1)

@@ -274,6 +274,16 @@ def test_grid_body_batch_matches_single_bodies():
     batch.end_grab(2)
     with pytest.raises(IndexError):
         batch.end_grab(3)
+    with pytest.raises(ValueError, match="render surface"):
+        batch.surface_mesh()
+    surf = world.add_grid_body_batch((2, 2, 3), 2, cell=0.2, with_surface=True)
+    verts, _, tris = surf.surface_mesh()
+    m = surf.mesh  # each surface vertex is one corner of its tet
+    w = np.concatenate([m.vis_bary, 1 - m.vis_bary.sum(1, keepdims=True)], 1)
+    pids = m.tets[m.vis_tet_ids, w.argmax(1)]
+    np.testing.assert_array_equal(verts[m.num_surface_verts:],
+                                  surf.positions[1][pids])
+    assert tris.shape == (2 * len(m.tris), 3)
 
 
 def test_grid_engines_registered_and_refusals():
@@ -286,8 +296,10 @@ def test_grid_engines_registered_and_refusals():
     mesh = tt.grid_mesh(*DIMS)
     with pytest.raises(ValueError, match="stencil arrays"):
         world.add_body(mesh, engine="polar_grid")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        world.add_grid_body(DIMS, with_surface=True)
+    surf = world.add_grid_body(DIMS, with_surface=True)
+    verts, normals, tris = surf.surface_mesh()
+    assert verts.shape == (surf.mesh.num_surface_verts, 3) and len(tris)
+    assert np.isfinite(normals).all()
     with pytest.raises(ValueError, match="fused kernel engine"):
         world.add_grid_body(DIMS, engine="polar_grid", packed=True)
     with pytest.raises(ValueError, match="stencil engines"):

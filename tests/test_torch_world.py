@@ -99,8 +99,8 @@ def test_batch_world_and_release():
 def test_unported_paths_raise():
     world = tt.World(tt.default_cpu_params(), device="cpu")
     mesh = tt.grid_mesh(1, 1, 1)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        world.add_body(mesh, engine="polar_pieces")
+    with pytest.raises(ValueError, match="unknown engine"):
+        world.add_body(mesh, engine="dense")
     for kw in ({"engine": "neohookean", "backend": "flat"},
                {"backend": "dense"}):
         with pytest.raises(ValueError, match="ROADMAP"):

@@ -8,13 +8,17 @@ runs on the CPU; on CUDA tensors a whole frame is one launch of a
 hand-written kernel (``kernels/csrc/gs_frame.cu``,
 ``kernels/csrc/polar_frame.cu``), and a substep of a structured grid box
 (``World.add_grid_body``) two launches of ``kernels/csrc/polar_stencil.cu``
-or 50 of ``kernels/csrc/nh_stencil.cu``.  The entry points run on the card unless
-the caller passes ``device="cpu"``.  The package imports neither jax nor
+or 50 of ``kernels/csrc/nh_stencil.cu``.  One large unstructured mesh
+(``ellipsoid_mesh``, a million tets) runs through the pieces engines, a
+substep two launches of ``kernels/csrc/polar_pieces.cu`` or one of
+``kernels/csrc/nh_pieces.cu`` between torch ops.  The entry points run on
+the card unless the caller passes ``device="cpu"``.  The package imports neither jax nor
 tetsim_tpu; it reads the dragon asset of ``tetsim_tpu/`` by path.
 """
 from .params import PhysicsParams, default_cpu_params, default_gpu_params
 from .state import SimState, Controls, init_state
-from .mesh import TetMesh, TetArrays, load_dragon, grid_mesh, build_arrays
+from .mesh import (TetMesh, TetArrays, load_dragon, grid_mesh, build_arrays,
+                   masked_grid_mesh, ellipsoid_mesh, with_boundary_surface)
 from .solvers import get_engine
 
 __version__ = "0.1.0"
@@ -30,6 +34,9 @@ __all__ = [
     "TetArrays",
     "load_dragon",
     "grid_mesh",
+    "masked_grid_mesh",
+    "ellipsoid_mesh",
+    "with_boundary_surface",
     "build_arrays",
     "get_engine",
     "World",

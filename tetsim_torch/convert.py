@@ -8,9 +8,11 @@ the JAX package can be handed to this one mid-trajectory:
     arrays = arrays_from_numpy(device, **{k: np.asarray(v) for k, v in ...})
 
 and a grid body's stencil arrays (``GridArrays``, ``NHGridArrays``) with
-``grid_arrays_from_numpy`` / ``nh_grid_arrays_from_numpy``, their static
-fields as they are and their arrays as numpy.  Every helper takes the
-device from its caller.
+``grid_arrays_from_numpy`` / ``nh_grid_arrays_from_numpy``, and a pieces
+body's tables (``PiecesArrays``, ``NHPiecesArrays``) with
+``pieces_arrays_from_numpy`` / ``nh_pieces_arrays_from_numpy``, their
+static fields as they are and their arrays as numpy.  Every helper takes
+the device from its caller.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .kernels.nh_pieces import NHPiecesArrays, live_counts
+from .kernels.polar_pieces import PiecesArrays
 from .mesh import TetArrays
 from .params import PhysicsParams
 from .solvers.neohookean_grid import NHGridArrays
@@ -64,9 +68,9 @@ def arrays_from_numpy(device, **fields) -> TetArrays:
 
 
 def _stencil_arrays(cls, device, fields: dict):
-    """A grid arrays dataclass from its fields: tuples and floats as given
-    (nested sequences become tuples), numpy arrays as tensors on
-    ``device``; missing or unknown fields raise."""
+    """A grid or pieces arrays dataclass from its fields: tuples and numbers
+    as given (nested sequences become tuples), numpy arrays as tensors of
+    their own type on ``device``; missing or unknown fields raise."""
     names = {f.name for f in dataclasses.fields(cls)}
     if set(fields) != names:
         raise ValueError(f"{cls.__name__} fields: expected {sorted(names)}, "
@@ -77,7 +81,7 @@ def _stencil_arrays(cls, device, fields: dict):
             return tuple(static(x) for x in v)
         return int(v) if isinstance(v, (int, np.integer)) else float(v)
 
-    return cls(**{k: torch.as_tensor(np.array(v, np.float32)).to(device)
+    return cls(**{k: torch.as_tensor(np.array(v)).to(device)
                   if isinstance(v, np.ndarray) else static(v)
                   for k, v in fields.items()})
 
@@ -92,3 +96,25 @@ def nh_grid_arrays_from_numpy(device, **fields) -> NHGridArrays:
     """NHGridArrays from the JAX package's NHGridArrays fields
     (inv_mass_blocks and inv_mass as numpy)."""
     return _stencil_arrays(NHGridArrays, device, fields)
+
+
+# the JAX package's pieces fields that exist only for Mosaic's tiled gathers
+_MOSAIC_FIELDS = ("t_tiles", "gather_tiles", "scatter_tiles")
+
+
+def pieces_arrays_from_numpy(device, **fields) -> PiecesArrays:
+    """PiecesArrays from the JAX package's PiecesArrays fields (arrays as
+    numpy); its Mosaic tile lists are dropped."""
+    kept = {k: v for k, v in fields.items() if k not in _MOSAIC_FIELDS}
+    return _stencil_arrays(PiecesArrays, device, kept)
+
+
+def nh_pieces_arrays_from_numpy(device, **fields) -> NHPiecesArrays:
+    """NHPiecesArrays from the JAX package's NHPiecesArrays fields (arrays
+    as numpy); its Mosaic tile lists are dropped, and its inverse table
+    ``winv`` becomes the live slot counts."""
+    kept = {k: v for k, v in fields.items()
+            if k not in _MOSAIC_FIELDS + ("winv",)}
+    kept["n_live"] = live_counts(np.asarray(fields["lids"]),
+                                 np.asarray(fields["winv"]))
+    return _stencil_arrays(NHPiecesArrays, device, kept)

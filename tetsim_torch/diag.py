@@ -2,7 +2,9 @@
 kinetic energy, speed and height of a body, as device tensors;
 ``summarize`` brings them to the host in one transfer.  Grid bodies
 (``GridArrays``, ``NHGridArrays``) carry no tet table: their volume error
-is read from the stencil's corner offsets."""
+is read from the stencil's corner offsets.  Pieces bodies (``PiecesArrays``,
+``NHPiecesArrays``) carry no global tet table either, and report no volume
+error."""
 from __future__ import annotations
 
 import math
@@ -10,6 +12,8 @@ import time
 
 import torch
 
+from .kernels.nh_pieces import NHPiecesArrays
+from .kernels.polar_pieces import PiecesArrays
 from .mesh import TetArrays
 from .solvers.polar_grid import SLAB_OFFSETS
 from .state import SimState
@@ -83,24 +87,21 @@ def summarize(state: SimState, arr, frame_diag=None) -> dict:
     """Diagnostics of one body as Python numbers.  ``frame_diag`` is the
     last frame's vol_errs [num_substeps]; its last entry becomes
     ``solver_vol_error`` when finite (engines that compute no volume error
-    report NaN)."""
-    vol_err = (volume_error(state, arr) if isinstance(arr, TetArrays)
-               else grid_volume_error(state, arr))
-    vals = [
-        vol_err, kinetic_energy(state, arr),
-        max_speed(state), min_height(state),
-        torch.isnan(state.pos).any().to(torch.float32),
-    ]
+    report NaN).  Pieces bodies have no ``volume_error`` key."""
+    names = ["kinetic_energy", "max_speed", "min_height", "nan"]
+    vals = [kinetic_energy(state, arr), max_speed(state), min_height(state),
+            torch.isnan(state.pos).any().to(torch.float32)]
+    if isinstance(arr, TetArrays):
+        names.append("volume_error")
+        vals.append(volume_error(state, arr))
+    elif not isinstance(arr, (PiecesArrays, NHPiecesArrays)):
+        names.append("volume_error")
+        vals.append(grid_volume_error(state, arr))
     if frame_diag is not None and frame_diag.numel():
+        names.append("solver_vol_error")
         vals.append(frame_diag.reshape(-1)[-1])
-    host = torch.stack(vals).tolist()  # one device -> host transfer
-    out = {
-        "volume_error": host[0],
-        "kinetic_energy": host[1],
-        "max_speed": host[2],
-        "min_height": host[3],
-        "nan": bool(host[4]),
-    }
-    if len(host) > 5 and math.isfinite(host[5]):
-        out["solver_vol_error"] = host[5]
+    out = dict(zip(names, torch.stack(vals).tolist()))  # one transfer
+    out["nan"] = bool(out["nan"])
+    if not math.isfinite(out.get("solver_vol_error", 0.0)):
+        del out["solver_vol_error"]
     return out

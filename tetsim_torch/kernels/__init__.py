@@ -1,5 +1,10 @@
 """Hand-written CUDA kernels of the port, each beside its plain-torch twin.
 
-  gs_fused  — the fused coloured Gauss-Seidel frame (csrc/gs_frame.cu)
+  gs_fused      — the fused coloured Gauss-Seidel frame (csrc/gs_frame.cu)
+  polar_fused   — the fused polar shape-matching frame (csrc/polar_frame.cu)
+  polar_stencil — the polar grid stencil substep (csrc/polar_stencil.cu)
+  nh_stencil    — the Neo-Hookean 48-colour grid sweep (csrc/nh_stencil.cu)
+  polar_pieces  — the polar solve on the pieces of one mesh (csrc/polar_pieces.cu)
+  nh_pieces     — the per-piece Neo-Hookean sweep (csrc/nh_pieces.cu)
 """
 from .gs_fused import FusedGSBody  # noqa: F401

@@ -1,6 +1,6 @@
 // Quaternion math of the polar shape-matching solve, shared by the CUDA
-// kernels that run it (polar_frame.cu, polar_stencil.cu; the pieces polar
-// kernel later).  Quaternions are float4 (x, y, z, w).
+// kernels that run it (polar_frame.cu, polar_stencil.cu, polar_pieces.cu).
+// Quaternions are float4 (x, y, z, w).
 //
 // Every expression follows tetsim_torch/solvers/polar.py term by term and
 // in its order.  nvcc contracts a multiply and an add into one FMA where it
@@ -35,6 +35,14 @@ __device__ __forceinline__ void qrot(const float v[3], float4 q, float out[3]) {
 // q / |q|, squares added in x, y, z, w order (polar.quat_normalize).
 __device__ __forceinline__ float4 qnormalize(float4 q) {
   const float n = sqrtf(((q.x * q.x + q.y * q.y) + q.z * q.z) + q.w * q.w);
+  return make_float4(q.x / n, q.y / n, q.z / n, q.w / n);
+}
+
+// q / max(|q|, 1e-30): the grid and pieces engines' normalisation, which
+// keeps a zero quaternion finite.
+__device__ __forceinline__ float4 qnormalize_guarded(float4 q) {
+  const float n =
+      fmaxf(sqrtf(((q.x * q.x + q.y * q.y) + q.z * q.z) + q.w * q.w), 1e-30f);
   return make_float4(q.x / n, q.y / n, q.z / n, q.w / n);
 }
 

@@ -123,10 +123,7 @@ polar_grid_tet_kernel(const float* __restrict__ pos,  // [B,3,N]
                  pc[2][r] * rr[2][c]) + pc[3][r] * rr[3][c];
   const float4 inc = polar::extract_rotation<polar::AxisForm::kReciprocal>(
       a, make_float4(0.0f, 0.0f, 0.0f, 1.0f), P.iters);
-  q = polar::qmul(inc, q);
-  const float norm =
-      fmaxf(sqrtf(((q.x * q.x + q.y * q.y) + q.z * q.z) + q.w * q.w), 1e-30f);
-  q = make_float4(q.x / norm, q.y / norm, q.z / norm, q.w / norm);
+  q = polar::qnormalize_guarded(polar::qmul(inc, q));
   float* qo = quat_out + ((size_t)b * 24 + 4 * t) * C + cube;
   qo[0] = q.x;
   qo[C] = q.y;

@@ -371,3 +371,89 @@ def _derive_edges(tets: np.ndarray) -> np.ndarray:
         np.sort(np.concatenate([tets[:, list(c)] for c in pairs], axis=0), axis=1),
         axis=0,
     ).astype(np.int32)
+
+
+def masked_grid_mesh(nx: int, ny: int, nz: int, keep, cell: float = 0.1,
+                     origin=(0.0, 0.0, 0.0), with_edges: bool = False) -> TetMesh:
+    """``grid_mesh`` with its cubes filtered by ``keep(centers f32 [C,3]) ->
+    bool [C]`` over the cube centres, unused vertices compacted: a shaped,
+    irregular body (no stencil engine applies; the pieces engines do)."""
+    full = grid_mesh(nx, ny, nz, cell=cell, origin=origin)
+    ci, cj, ck = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                             indexing="ij")
+    centers = (
+        np.asarray(origin, np.float32)
+        + (np.stack([ci, cj, ck], axis=-1).reshape(-1, 3) + 0.5)
+        * np.float32(cell)
+    ).astype(np.float32)
+    mask = np.asarray(keep(centers), bool)
+    if mask.shape != (nx * ny * nz,):
+        raise ValueError(f"keep() must return bool [{nx*ny*nz}], got {mask.shape}")
+    if not mask.any():
+        raise ValueError("keep() rejected every cube")
+    tets = full.tets[np.tile(mask, 6)]  # tets are type-major: 6 x C blocks
+    used = np.unique(tets)
+    remap = np.full(full.num_particles, -1, np.int32)
+    remap[used] = np.arange(len(used), dtype=np.int32)
+    tets = remap[tets]
+    edges = _derive_edges(tets) if with_edges else None
+    return TetMesh(verts=full.verts[used], tets=tets, edges=edges)
+
+
+def ellipsoid_mesh(n: int = 12, radii=(0.5, 0.5, 0.5),
+                   cell: Optional[float] = None, center=(0.0, 1.0, 0.0),
+                   with_edges: bool = False) -> TetMesh:
+    """Solid tet ellipsoid (a sphere for equal radii): a masked grid of about
+    n cubes across each diameter."""
+    radii = np.asarray(radii, np.float32)
+    c = np.asarray(center, np.float32)
+    if cell is None:
+        cell = float(2.0 * radii.max() / n)
+    dims = tuple(int(np.ceil(2.0 * r / cell)) + 1 for r in radii)
+    origin = tuple(c - np.asarray(dims) * cell / 2.0)
+
+    def keep(centers):
+        return np.sum(((centers - c) / radii) ** 2, axis=-1) <= 1.0
+
+    return masked_grid_mesh(*dims, keep, cell=cell, origin=origin,
+                            with_edges=with_edges)
+
+
+def with_boundary_surface(mesh: TetMesh) -> TetMesh:
+    """The mesh with its own boundary triangles as its render surface: each
+    surface vertex is a boundary particle, skinned with weight 1 at one
+    corner of an incident tet, and faces are wound outward (normal away
+    from the owning tet's centroid)."""
+    tets = mesh.tets
+    # faces opposite each corner; a face seen once across the mesh is boundary
+    face_corners = [(1, 2, 3), (0, 3, 2), (0, 1, 3), (0, 2, 1)]
+    faces = np.concatenate([tets[:, list(c)] for c in face_corners], axis=0)
+    owner = np.tile(np.arange(tets.shape[0], dtype=np.int64), 4)
+    _, first, counts = np.unique(np.sort(faces, axis=1), axis=0,
+                                 return_index=True, return_counts=True)
+    sel = first[counts == 1]
+    bfaces = faces[sel]
+    bowner = owner[sel]
+
+    v = mesh.verts
+    tc = v[tets[bowner]].mean(axis=1)
+    p0, p1, p2 = v[bfaces[:, 0]], v[bfaces[:, 1]], v[bfaces[:, 2]]
+    n = np.cross(p1 - p0, p2 - p0)
+    inward = np.einsum("ij,ij->i", n, (p0 + p1 + p2) / 3.0 - tc) < 0.0
+    bfaces[inward] = bfaces[inward][:, [0, 2, 1]]
+
+    surf_pids, tri_idx = np.unique(bfaces, return_inverse=True)
+    tris = tri_idx.reshape(bfaces.shape).astype(np.int32)
+    # one incident tet and corner per surface particle (the last one seen)
+    tet_of = np.full(mesh.num_particles, -1, np.int64)
+    corner_of = np.zeros(mesh.num_particles, np.int64)
+    for k in range(4):
+        col = tets[:, k]
+        tet_of[col] = np.arange(tets.shape[0])
+        corner_of[col] = k
+    cb = corner_of[surf_pids]
+    # bary (b0, b1, b2), b3 = 1 - b0 - b1 - b2: the corner's indicator
+    vis_bary = np.zeros((len(surf_pids), 3), np.float32)
+    vis_bary[cb < 3, cb[cb < 3]] = 1.0  # corner 3 -> all zeros
+    return dataclasses.replace(mesh, vis_tet_ids=tet_of[surf_pids].astype(np.int32),
+                               vis_bary=vis_bary, tris=tris)

@@ -13,7 +13,10 @@ per frame on CUDA), ``add_body_batch`` runs ``FusedGSBody``,
 ``FusedPolarBody`` or the polar ``BatchedBody``.  ``add_grid_body`` runs a
 ``grid_mesh`` box through the stencil engines (``Body`` with grid arrays,
 or ``PackedGridBody``, whose state stays in the kernels' layout), and
-``add_grid_body_batch`` steps B boxes at once (``GridBodyBatch``).
+``add_grid_body_batch`` steps B boxes at once (``GridBodyBatch``).  One
+large unstructured mesh runs through ``Body`` with the pieces engines
+(``engine="polar_pieces"`` or ``"nh_pieces"``, the kernels of
+``kernels/polar_pieces.py`` and ``kernels/nh_pieces.py``).
 """
 from __future__ import annotations
 
@@ -23,11 +26,12 @@ import numpy as np
 import torch
 
 from . import diag
-from .kernels import gs_fused, polar_fused
+from .kernels import gs_fused, nh_pieces, polar_fused, polar_pieces
 from .kernels.batch import FusedBatch
 from .kernels.gs_fused import FusedGSBody
 from .kernels.polar_fused import FusedPolarBody
-from .mesh import TetArrays, TetMesh, build_arrays, grid_mesh, replicate_mesh
+from .mesh import (TetArrays, TetMesh, build_arrays, grid_mesh, replicate_mesh,
+                   with_boundary_surface)
 from .params import PhysicsParams
 from .solvers import GRID_ENGINES, get_engine
 from .solvers.neohookean_grid import build_nh_grid_arrays
@@ -117,8 +121,14 @@ class _Surface:
         return vn[0], vn[1], self.tris_np
 
 
+_PIECES_BUILDERS = {"polar_pieces": polar_pieces.build_pieces_arrays,
+                    "nh_pieces": nh_pieces.build_nh_pieces_arrays}
+
+
 class Body:
-    """One soft body: mesh constants + simulation state + interaction."""
+    """One soft body: mesh constants + simulation state + interaction.  The
+    pieces engines build their tables with the pins baked in (default
+    layout, 2,048 tets per piece); pass ``arrays=`` for another."""
 
     def __init__(
         self,
@@ -138,6 +148,11 @@ class Body:
             # polar is Jacobi: no GS schedule
             coloring = "ordered" if engine == "neohookean" else None
         grid = engine in GRID_ENGINES
+        pieces = engine in _PIECES_BUILDERS
+        if pieces and arrays is None:
+            arrays = _PIECES_BUILDERS[engine](mesh, density=density,
+                                              pinned=pinned, device=self.device)
+            pinned = None
         if grid and arrays is None:
             raise ValueError(
                 f"the {engine} engine needs stencil arrays: pass "
@@ -150,7 +165,7 @@ class Body:
                 "pinned= has no effect when arrays= is prebuilt — bake the "
                 "pins in (build_arrays/build_grid_arrays take pinned=)"
             )
-        if self.device.type == "cuda" and not grid:
+        if self.device.type == "cuda" and not (grid or pieces):
             kernel = polar_fused if engine == "polar" else gs_fused
             kernel.check_fits(mesh.num_particles)
         self.arrays = (
@@ -386,14 +401,14 @@ class GridBodyBatch:
                 "GridBodyBatch runs the stencil engines "
                 f"(polar_grid / neohookean_grid), not {engine!r}"
             )
-        if with_surface:
-            raise ValueError(_NO_SURFACE)
         self.engine = engine
         self.num_bodies = num_bodies
         self.dims = tuple(int(d) for d in dims)
         self.device = check_device(device)
         self.mesh = grid_mesh(*dims, cell=cell, origin=(0.0, 0.0, 0.0),
                               with_edges=with_edges)
+        if with_surface:
+            self.mesh = with_boundary_surface(self.mesh)
         self._n = self.mesh.num_particles
         self.arrays = _build_grid_arrays(self.mesh, dims, engine, density,
                                          None, self.device)
@@ -421,6 +436,8 @@ class GridBodyBatch:
                                     device=self.device)
         self.last_diag: Optional[torch.Tensor] = None
         self.flat_mesh = replicate_mesh(self.mesh, num_bodies)
+        self._surface = (_Surface(self.flat_mesh, self.device)
+                         if with_surface else None)
 
     def step(self, params: PhysicsParams, frames: int = 1):
         """Advance every box by ``frames`` frames (no sync)."""
@@ -453,6 +470,15 @@ class GridBodyBatch:
     def positions(self) -> np.ndarray:
         """[num_bodies, N, 3]."""
         return unplanes(self.pos).cpu().numpy()
+
+    def surface_mesh(self, normals: str = "smooth"):
+        """Skinned boundary surfaces of all boxes, concatenated (built with
+        ``with_surface=True``): (verts [B*S,3], normals [B*S,3], tris
+        [B*T,3])."""
+        if self._surface is None:
+            raise ValueError("mesh has no embedded render surface")
+        return self._surface.mesh_data(unplanes(self.pos).reshape(-1, 3),
+                                       None, normals)
 
     def summary(self) -> dict:
         """Batch size, lowest particle, fastest particle and NaN flag, in
@@ -501,12 +527,6 @@ class GridBodyBatch:
         self.grab_id[body, 0] = -1
 
 
-_NO_SURFACE = (
-    "with_surface=True needs mesh.with_boundary_surface, which is not "
-    "ported yet (ROADMAP.md Queue 1 item 7)"
-)
-
-
 class World:
     """Scene container + frame loop on one device ("cuda" or "cpu")."""
 
@@ -545,18 +565,19 @@ class World:
         """Add a ``grid_mesh`` box stepped by a stencil engine: ``Body`` with
         grid arrays, or with ``packed=True`` (the ``*_pallas`` engines) a
         ``PackedGridBody``, whose state stays in the kernels' layout across
-        frames."""
+        frames.  ``with_surface`` gives the box its boundary triangles as a
+        render surface."""
         if engine not in GRID_ENGINES:
             raise ValueError(
                 f"add_grid_body runs the stencil engines, not {engine!r}")
-        if with_surface:
-            raise ValueError(_NO_SURFACE)
         if packed and not engine.endswith("_pallas"):
             raise ValueError(
                 "packed grid state requires a fused kernel engine "
                 "(polar_grid_pallas / neohookean_grid_pallas)")
         d = float(self.params.density) if density is None else density
         mesh = grid_mesh(*dims, cell=cell, origin=origin, with_edges=with_edges)
+        if with_surface:
+            mesh = with_boundary_surface(mesh)
         arrays = _build_grid_arrays(mesh, dims, engine, d, pinned, self.device)
         if packed:
             body = PackedGridBody(mesh, arrays, self.params, engine=engine)
