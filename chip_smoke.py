@@ -69,7 +69,26 @@ code is non-zero:
      for 20 frames; no host sync while stepping, each launch counter
      equal to frames x substeps x launches per substep;
  14. ms per substep at 987,090 tets of each pieces engine (two-point fit),
-     its kernel's CUDA-event time, bound and plain twin.
+     its kernel's CUDA-event time, bound and plain twin;
+ 15. the exact-order kernel (gs_ordered, K7) vs its plain twin after every
+     frame at 5 substeps: 8 jittered dragons with a pinned particle and a
+     grab on body 2, 3 frames; 8 dragons resting on the ground after 120
+     frames, 1 frame; two dragons past +x and -z at friction k = 0.1, 2
+     frames; each beside K7's own spread from positions 1 ulp apart; and K7
+     vs K1 (gs_frame) on the same ordered schedule at B = 8, 1 frame;
+ 16. the exact-order main path: World -> add_body_batch(load_dragon(), 8,
+     engine="neohookean", backend="fused_ordered", jitter=0.5) for 150
+     frames with a grab, no host sync while stepping, one launch per frame,
+     finite diagnostics; then world.save -> World.load(device="cuda") and
+     one more frame in each world, bitwise equal;
+ 17. the viewer on the card: a ViewerServer over a polar dragon Body (20
+     substeps, K2) and the fused_ordered batch for about 5 s: /mesh,
+     /state with the frame advancing, grabs on both bodies that hold their
+     targets, rotated normals, /reset, /diag, no sim error, both kernels'
+     counters rising, the sim's frames per second, /shutdown;
+ 18. the extract_rotation micro-kernel (K9) vs its twin on 1,048,576 lanes
+     at 4 passes, ms per 9-iteration pass (two-point fit over 4 and 16
+     passes), the twin's ms and the measured copy rate (y = x * c, 256 MB).
 Then a JSON line with every kernel's numbers, the card's name and power
 limit, and, last, the device line.  It exits non-zero, printing no result,
 where CUDA is unavailable.
@@ -364,7 +383,7 @@ def timings(tt, gs_fused, dragon, label):
                 plain["pos"], _, plain["vel"], _ = gs_fused.gs_frame_reference(
                     plain["pos"], plain["vel"], arrays, params, gid, gpos)
 
-        kp = (1, 3) if not greedy else (2, 8)
+        kp = (1, 2) if not greedy else (2, 8)
         p_ms = per_frame(plain_step, lambda: plain["pos"].sum(), *kp)
         k_ms, p_ms = k_ms * 1e3, p_ms * 1e3
         out[name] = (k_ms, p_ms)
@@ -1219,6 +1238,303 @@ def pieces_timings(tt, e, mesh, arr, label):
     return k_ms, p_ms, b
 
 
+# -- the exact-order kernel (K7), the viewer and extract_rotation (K9) ---------
+
+def ordered_case(go, body, params, frames, label):
+    """K7 vs its plain twin from ``body``'s state, after each of ``frames``
+    frames, beside K7's own spread: the largest difference between K7 from
+    the state and K7 from positions 1 ulp above it, 1 ulp below it, or
+    velocities 1 ulp above.  Positions are held to 2e-5 and velocities to
+    2e-3, or to twice K7's spread where that is larger: the dragon's exact
+    order amplifies a 1-ulp change (in free fall to 6.5e-5 in 3 frames,
+    PERF.md), and K7 contracts multiply-adds into FMAs where the twin
+    rounds each product.  Returns (the largest position difference, the
+    twin's seconds per frame)."""
+    args = (body.tables, params, body.grab_id, body.grab_pos)
+
+    def run(frame, p, v=body.vel):
+        out = []
+        for _ in range(frames):
+            p, _, v = frame(p, v, *args)
+            out.append((p, v))
+        sync()
+        return out
+
+    got = run(go.ordered_frame, body.pos)
+    t0 = time.perf_counter()
+    want = run(go.ordered_frame_reference, body.pos)
+    plain_s = (time.perf_counter() - t0) / frames
+
+    def ulp(x, to):
+        return torch.nextafter(x, torch.full_like(x, to))
+
+    moved = [run(go.ordered_frame, ulp(body.pos, 10.0)),
+             run(go.ordered_frame, ulp(body.pos, -10.0)),
+             run(go.ordered_frame, body.pos, ulp(body.vel, 10.0))]
+    worst = 0.0
+    for f, (k, r, *m) in enumerate(zip(got, want, *moved), 1):
+        dp, dv = max_diff(k[0], r[0]), max_diff(k[1], r[1])
+        sp = max(max_diff(k[0], x[0]) for x in m)
+        sv = max(max_diff(k[1], x[1]) for x in m)
+        ptol, vtol = max(2e-5, 2 * sp), max(2e-3, 2 * sv)
+        print(f"phase 15 {label}, frame {f} of {frames}: K7 vs plain "
+              f"max|dpos| {dp:.3e} (tol {ptol:.3e}) max|dvel| {dv:.3e} (tol "
+              f"{vtol:.3e}); K7 vs K7 from 1 ulp apart: pos {sp:.3e}, vel "
+              f"{sv:.3e}", flush=True)
+        check(dp <= ptol and dv <= vtol, f"K7 {label} disagrees after frame {f}")
+        worst = max(worst, dp)
+    body.pos, body.vel = got[-1]
+    return worst, plain_s
+
+
+def ordered_vs_plain(tt, go, gs_fused, dragon):
+    """Phase 15: returns (largest position difference, the twin's ms per
+    frame of 8 dragons)."""
+    params = tt.default_cpu_params()
+    body = go.OrderedGSBody(dragon, jitter=0.5, pinned=[0])
+    start = body.pos
+    body.set_grab(2, 100, start[2, 100].cpu().numpy() + np.float32([0, 0.05, 0]))
+    tables = body.tables
+    arr = tt.build_arrays(dragon, coloring="ordered", pinned=[0], device="cuda")
+    k1, _, k1v, _ = gs_fused.gs_frame(start, body.vel, arr, params,
+                                       body.grab_id, body.grab_pos)
+    k7, _, k7v = go.ordered_frame(start, body.vel, tables, params,
+                                  body.grab_id, body.grab_pos)
+    d17, d17v = max_diff(k7, k1), max_diff(k7v, k1v)
+    print(f"phase 15 K7 vs K1 on the ordered schedule, B=8, 1 frame: "
+          f"max|dpos| {d17:.3e} max|dvel| {d17v:.3e} (the predict and "
+          "velocity rounding; tol 2e-5)", flush=True)
+    check(d17 <= 2e-5, "K7 and K1 on one schedule disagree")
+    err, plain_s = ordered_case(go, body, params, 3, "B=8 jittered, a pinned "
+                                "particle, a grab on body 2")
+    check(torch.equal(body.pos[:, 0], start[:, 0]), "pinned particle moved")
+    check(torch.equal(body.pos[2, 100], body.grab_pos[2, 0]), "grab off target")
+
+    rest = go.OrderedGSBody(dragon, jitter=0.5)
+    rest.step(params, 120)
+    errs = [err, ordered_case(go, rest, params, 1,
+                              "B=8 resting on the ground")[0]]
+    grounded = int((rest.pos[..., 1] == 0).any(dim=1).sum())
+    print(f"phase 15 resting: {grounded} of 8 bodies on the ground", flush=True)
+    check(grounded == 8, "a resting dragon does not touch the ground")
+
+    # body 0 2 mm past +x moving at +1 m/s, body 1 2 mm past -z and below
+    # the ground moving at -1 m/s in z, friction k = dt * 30 = 0.1
+    slip = dataclasses.replace(params, friction=30.0)
+    lo, hi = params.world_min, params.world_max
+    v = dragon.verts
+    wall = go.OrderedGSBody(dragon)
+    shift = torch.zeros((8, 1, 3), device="cuda")
+    shift[0, 0, 0] = float(hi[0] + 0.002 - v[:, 0].max())
+    shift[1, 0, 1] = float(-0.002 - v[:, 1].min())
+    shift[1, 0, 2] = float(lo[2] - 0.002 - v[:, 2].min())
+    wall.pos = wall.pos + shift
+    wall.vel[0, :, 0] = 1.0
+    wall.vel[1, :, 2] = -1.0
+    errs.append(ordered_case(go, wall, slip, 2, "two dragons past the walls, "
+                             "friction k=0.1")[0])
+    at_x = int((wall.pos[0, :, 0] == float(hi[0])).sum())
+    at_z = int((wall.pos[1, :, 2] == float(lo[2])).sum())
+    ground = int((wall.pos[1, :, 1] == 0).sum())
+    print(f"phase 15 walls: {at_x} particles at +x, {at_z} at -z, {ground} on "
+          "the ground", flush=True)
+    check(at_x > 0 and at_z > 0 and ground > 0, "the walls were not reached")
+    return max(errs), plain_s * 1e3
+
+
+def ordered_main_path(tt, go, gs_fused, dragon):
+    """Phase 16: World -> add_body_batch(..., backend="fused_ordered") for
+    150 frames, a grab, diagnostics, then save -> World.load and one more
+    frame in each world.  Returns (launches, K7 ms per frame)."""
+    from tetsim_torch._compile import BUILD_DIR
+
+    params = tt.default_cpu_params()
+    lo, hi = params.world_min - 1e-5, params.world_max + 1e-5
+    target = np.float32([0.0, 1.5, 0.5])
+    go.launch_count = gs_fused.launch_count = 0
+    world = tt.World(tt.default_cpu_params())
+    batch = world.add_body_batch(dragon, 8, engine="neohookean",
+                                 backend="fused_ordered", jitter=0.5)
+    check(type(batch) is go.OrderedGSBody, "fused_ordered is not OrderedGSBody")
+    with no_host_sync():
+        world.step(120)
+    pid = batch.start_grab(3, [0.0, 1.0, 0.5])
+    batch.move_grabbed(3, target)
+    with no_host_sync():
+        world.step(30)
+    launches = go.launch_count
+    pos = batch.positions()
+    diag = world.diagnostics()["body0"]
+    check(launches == 150, f"{launches} K7 launches for 150 frames")
+    check(gs_fused.launch_count == 0, "the exact-order batch ran gs_frame")
+    check(np.isfinite(pos).all() and pos.shape == (8, 1234, 3), "positions")
+    check(pos[..., 1].min() >= -1e-5, "below the ground")
+    check(((pos >= lo) & (pos <= hi)).all(), "outside the world bounds")
+    check(np.abs(pos[3, pid] - target).max() <= 1e-6, "grab off target")
+    check(not diag["nan"] and diag["batch"] == 8
+          and all(np.isfinite(x) for x in diag.values()),
+          f"diagnostics {diag}")
+    print(f"phase 16 add_body_batch(dragon, 8, backend='fused_ordered'): 150 "
+          f"frames, {launches} launches, grab pid {pid} of body 3 at target, "
+          f"diagnostics {diag}", flush=True)
+
+    path = f"{BUILD_DIR}/phase16_scene.npz"  # inside the checkout, ignored
+    world.save(path)
+    loaded = tt.World.load(path, device="cuda")
+    check(loaded.device.type == "cuda", "World.load is not on the card")
+    world.step(1)
+    loaded.step(1)
+    a, b = world.bodies[0], loaded.bodies[0]
+    same = all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("pos", "prev_pos", "vel", "grab_id", "grab_pos"))
+    print(f"phase 16 save -> World.load(device='cuda'), one more frame in each: "
+          f"bitwise equal {same}", flush=True)
+    check(same, "the loaded world steps differently")
+    k_ms = event_ms(lambda: batch.step(params), 50)
+    return launches, k_ms
+
+
+def viewer_on_card(tt, go, polar_fused, dragon):
+    """Phase 17: a ViewerServer over a polar dragon Body (20 substeps, K2)
+    and the fused_ordered batch (K7), driven over HTTP for about 5 s."""
+    import urllib.request
+
+    from tetsim_torch.viewer import ViewerServer
+
+    def get(path):
+        with urllib.request.urlopen(f"{url}{path}", timeout=120) as r:
+            return r.read()
+
+    def post(path, obj):
+        req = urllib.request.Request(f"{url}{path}", method="POST",
+                                     data=json.dumps(obj).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    def header(blob):
+        return json.loads(blob[:blob.index(b"\n")])
+
+    world = tt.World(tt.default_gpu_params())
+    body = world.add_body(dragon, engine="polar")
+    batch = world.add_body_batch(dragon, 8, engine="neohookean",
+                                 backend="fused_ordered", jitter=0.5)
+    # apart in z (the dragon spans 1 m in z, 2.2 m in x), so a ray along x
+    # through the polar dragon passes the batch 1.6 m away or more
+    body.state = body.state.replace(
+        pos=body.state.pos + torch.tensor([0.0, 0.0, -1.5], device="cuda"))
+    batch.pos = batch.pos + torch.tensor([0.0, 0.0, 1.2], device="cuda")
+    go.launch_count = polar_fused.launch_count = 0
+    srv = ViewerServer(world, port=0).start()
+    url = f"http://127.0.0.1:{srv.port}"
+    try:
+        t0 = time.perf_counter()
+        mesh = header(get("/mesh"))
+        check(mesh["n_vis"] == 29800 * 9 and mesh["n_particles"] == 1234 * 9,
+              f"/mesh header {mesh}")
+        time.sleep(0.5)
+        h1, t1 = header(get("/state")), time.perf_counter()
+        time.sleep(0.5)
+        blob = get("/state")
+        h2 = header(blob)
+        check(h2["frame"] > h1["frame"], "the sim thread does not advance")
+        check(len(blob) - blob.index(b"\n") - 1
+              == 4 * 3 * (2 * mesh["n_vis"] + mesh["n_particles"]),
+              "/state payload size")
+        # a grab on the polar dragon: a ray along -x through its centroid,
+        # then dragged up
+        with srv._lock:
+            c = body.state.pos.mean(dim=0).cpu().numpy()
+        origin, d = c + np.float32([3.0, 0.0, 0.0]), [-1.0, 0.0, 0.0]
+        gid = post("/grab", {"action": "start", "origin": origin.tolist(),
+                             "dir": d})["grabbed"]
+        check(0 <= gid < 1234, f"grab on the polar dragon gave {gid}")
+        post("/grab", {"action": "move", "dir": d,
+                       "origin": (origin + np.float32([0, 0.3, 0])).tolist()})
+        time.sleep(0.5)
+        with srv._lock:
+            held = max_diff(body.state.pos[gid], body.controls.grab_pos)
+        check(held <= 1e-6, f"the grabbed polar particle is {held} off target")
+        # a grab on the batch: a ray straight down onto body 5's particle
+        # 300 (the bodies move and overlap: the owner comes from the id)
+        with srv._lock:
+            p = batch.pos[5, 300].cpu().numpy()
+        flat = post("/grab", {"action": "start", "dir": [0.0, -1.0, 0.0],
+                              "origin": (p + np.float32([0, 3, 0])).tolist()}
+                    )["grabbed"] - 1234
+        owner, local = flat // 1234, flat % 1234
+        check(0 <= owner < 8, f"the ray onto the batch grabbed {flat + 1234}")
+        check(int(batch.grab_id[owner, 0]) == local,
+              "the batch grab is not in its body's slot")
+        check(int(body.controls.grab_id) == -1, "the first grab leaked")
+        post("/grab", {"action": "move", "dir": [0.0, -1.0, 0.0],
+                       "origin": (p + np.float32([0.2, 3.3, 0])).tolist()})
+        time.sleep(0.5)
+        with srv._lock:
+            held = max_diff(batch.pos[owner, local], batch.grab_pos[owner, 0])
+        check(held <= 1e-6, f"the grabbed batch particle is {held} off target")
+        post("/grab", {"action": "end"})
+        check(int(batch.grab_id[owner, 0]) == -1, "the batch grab did not end")
+        post("/params", {"normals": "rotated"})
+        time.sleep(0.3)
+        blob = get("/state")
+        check(header(blob)["normals"] == "rotated", "rotated normals not set")
+        nv = mesh["n_vis"]
+        nrm = np.frombuffer(blob[blob.index(b"\n") + 1:], "<f4")[
+            3 * nv:6 * nv].reshape(-1, 3)
+        check(np.isfinite(nrm).all(), "rotated normals not finite")
+        post("/reset", {})
+        time.sleep(0.3)
+        diag = json.loads(get("/diag"))
+        check(all(not v["nan"] for v in diag.values()), f"/diag {diag}")
+        time.sleep(max(0.0, 5.0 - (time.perf_counter() - t0)))
+        h3, t3 = header(get("/state")), time.perf_counter()
+        seconds = t3 - t0
+        check(srv.sim_error is None, f"sim error: {srv.sim_error}")
+        check(go.launch_count > 0 and polar_fused.launch_count > 0,
+              f"launches K7 {go.launch_count}, K2 {polar_fused.launch_count}")
+        fps = (h3["frame"] - h1["frame"]) / (t3 - t1)
+        print(f"phase 17 viewer: /mesh {mesh['n_vis']} vertices, "
+              f"{mesh['n_tris']} triangles; grabs on polar particle {gid} and "
+              f"batch body {owner} particle {local} held their targets; "
+              f"rotated normals, reset, "
+              f"/diag; sim error {srv.sim_error}; {h3['frame']} frames in "
+              f"{seconds:.2f} s ({fps:.1f} frames/s, step_ms "
+              f"{h3['step_ms']}); launches K7 {go.launch_count}, K2 "
+              f"{polar_fused.launch_count}", flush=True)
+        post("/shutdown", {})
+        srv._sim_thread.join(timeout=30)
+        check(not srv._sim_thread.is_alive(), "/shutdown left the sim running")
+    finally:
+        srv.stop()
+
+
+def extract_rotation_vs_plain(roofline):
+    """Phase 18: K9 vs its twin on 1,048,576 lanes at k = 4, then ms per
+    9-iteration pass (two-point fit over 4 and 16 passes), the twin's ms and
+    the measured copy rate.  Returns (difference, launches, ms, plain ms,
+    GB/s)."""
+    a = roofline.random_planes()
+    q = roofline.extract_rotation(a, 4)
+    want = roofline.extract_rotation_reference(a, 4)
+    moved = roofline.extract_rotation(
+        torch.nextafter(a, torch.full_like(a, 10.0)), 4)
+    dq, sq = max_diff(q, want), max_diff(q, moved)
+    tol = max(2e-5, 2 * sq)
+    print(f"phase 18 extract_rotation {a[0].numel()} lanes, 4 passes: K9 vs "
+          f"plain max|dquat| {dq:.3e} (tol {tol:.3e}); K9 vs K9 from 1 ulp "
+          f"apart {sq:.3e}", flush=True)
+    check(dq <= tol, "K9 disagrees")
+    roofline.launch_count = 0
+    k_ms = roofline.bench_extract_rotation_kernel(a)
+    launches = roofline.launch_count
+    p_ms = roofline.bench_extract_rotation_plain(a)
+    gbps = roofline.bench_hbm_copy()
+    print(f"phase 18 K9 {k_ms:.4f} ms per 9-iteration pass ({launches} "
+          f"launches), plain twin {p_ms:.3f} ms ({p_ms / k_ms:.1f}x); copy "
+          f"y = x * c over 256 MB {gbps:.1f} GB/s", flush=True)
+    return dq, launches, k_ms, p_ms, gbps
+
+
 def sync():
     torch.cuda.synchronize()
 
@@ -1277,8 +1593,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     import tetsim_torch as tt
-    from tetsim_torch.kernels import (gs_fused, nh_pieces, nh_stencil,
-                                      polar_fused, polar_pieces, polar_stencil)
+    from tetsim_torch import roofline
+    from tetsim_torch.kernels import (gs_fused, gs_ordered, nh_pieces,
+                                      nh_stencil, polar_fused, polar_pieces,
+                                      polar_stencil)
 
     t_start = time.perf_counter()
     label = card()
@@ -1287,7 +1605,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     kernels = {"gs_frame": gs_fused, "polar_frame": polar_fused,
                "polar_stencil": polar_stencil, "nh_stencil": nh_stencil,
-               "polar_pieces": polar_pieces, "nh_pieces": nh_pieces}
+               "polar_pieces": polar_pieces, "nh_pieces": nh_pieces,
+               "gs_ordered": gs_ordered, "extract_rotation": roofline}
     phase("phase 1 done", build_all, kernels)
 
     dragon = tt.load_dragon()
@@ -1332,6 +1651,25 @@ def main() -> int:
     pieces_times = {e: phase(f"phase 14 {e.name} done", pieces_timings, tt, e,
                              blob, big[e.name], label)
                     for e in engines}
+    ordered_err, ordered_plain_ms = phase(
+        "phase 15 done", ordered_vs_plain, tt, gs_ordered, gs_fused, dragon)
+    ordered_launches, ordered_ms = phase(
+        "phase 16 done", ordered_main_path, tt, gs_ordered, gs_fused, dragon)
+    phase("phase 17 done", viewer_on_card, tt, gs_ordered, polar_fused, dragon)
+    er_err, er_launches, er_ms, er_plain_ms, gbps = phase(
+        "phase 18 done", extract_rotation_vs_plain, roofline)
+    sched = gs_ordered.build_ordered_schedule(dragon)
+    ordered_bound, ordered_by = bound(
+        gs_ordered.frame_flops(sched, params, 8),
+        gs_ordered.frame_bytes(sched, 8, 1))
+    lanes = roofline.M_ROWS * 128
+    er_bound, er_by = bound(roofline.extract_rotation_flops(lanes),
+                            (9 + 4) * 4 * lanes)
+    er_rate = roofline.extract_rotation_flops(lanes) / (er_ms * 1e-3)
+    print(f"phase 18 measured beside the data sheet: copy {gbps:.1f} GB/s "
+          f"({gbps * 1e9 / PEAK_BYTES:.1%} of 3,350), extract_rotation "
+          f"{er_rate / 1e12:.3f} TFLOP/s counted ({er_rate / PEAK_FLOPS:.1%} "
+          "of 67)", flush=True)
     print(f"bounds at the data sheet's peaks (67 TFLOP/s FP32, 3.35 TB/s): "
           f"gs_frame ordered B=1 frame {gs_bound * 1e3:.3f} us ({gs_by}), "
           f"polar_frame B=1 frame at 20 substeps {polar_bound * 1e3:.3f} us "
@@ -1341,6 +1679,9 @@ def main() -> int:
                       for m, t in grid_times.items())
           + ", " + ", ".join(f"{e.name} 987k substep {t[2][0] * 1e3:.3f} us "
                              f"({t[2][1]})" for e, t in pieces_times.items())
+          + f", gs_ordered 8 dragons frame {ordered_bound * 1e3:.3f} us "
+          f"({ordered_by}), extract_rotation pass {er_bound * 1e3:.3f} us "
+          f"({er_by})"
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
     grid_lines = [
         {"name": m.__name__.split(".")[-1], "route": "cuda",
@@ -1374,7 +1715,20 @@ def main() -> int:
          "launches": polar_launches, "max_abs_err": polar_err,
          "ms": pk_ms, "plain_ms": pp_ms, "bound_ms": polar_bound,
          "bound_by": polar_by, "library_ms": None},
-    ] + grid_lines + pieces_lines}), flush=True)
+    ] + grid_lines + pieces_lines + [
+        {"name": "gs_ordered", "route": "cuda",
+         "source": "tetsim_torch/kernels/csrc/gs_ordered.cu",
+         "replaces": "tetsim_tpu/kernels/gs_ordered.py:161",
+         "launches": ordered_launches, "max_abs_err": ordered_err,
+         "ms": ordered_ms, "plain_ms": ordered_plain_ms,
+         "bound_ms": ordered_bound, "bound_by": ordered_by, "library_ms": None},
+        {"name": "extract_rotation", "route": "cuda",
+         "source": "tetsim_torch/kernels/csrc/extract_rotation.cu",
+         "replaces": "scripts/roofline.py:86",
+         "launches": er_launches, "max_abs_err": er_err,
+         "ms": er_ms, "plain_ms": er_plain_ms,
+         "bound_ms": er_bound, "bound_by": er_by, "library_ms": None},
+    ]}), flush=True)
     print(label, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,10 @@ time, on one CUDA card.
 
 For each dragon shape it prints one JSON line: the Neo-Hookean kernel
 (gs_frame, 5 substeps) through ``FusedGSBody`` on the greedy schedule at
-B = 1, 8, 64 and 132 bodies and on the ordered schedule at B = 1, then the
-polar kernel (polar_frame, 20 substeps) through ``FusedPolarBody`` at
+B = 1, 8, 64 and 132 bodies and on the ordered schedule at B = 1 and 8,
+the exact-order kernel (gs_ordered, 5 substeps) through ``OrderedGSBody``
+(8 bodies, the same ordered schedule in sub-levels of at most 32 tets),
+then the polar kernel (polar_frame, 20 substeps) through ``FusedPolarBody`` at
 B = 1, 8 and 132, then the grid stencil kernels on the 56^3 box of the scale
 workload (1,053,696 tets, 5 substeps, as examples/scale_grid.py) through
 ``World.add_grid_body(..., packed=True)``: polar_stencil (2 launches per
@@ -68,6 +70,8 @@ SHAPES = (("B=1 greedy", 1, "greedy", 50, 450),
           ("B=64 greedy", 64, "greedy", 50, 450),
           ("B=132 greedy", 132, "greedy", 50, 450),
           ("B=1 ordered", 1, "ordered", 20, 80),
+          ("B=8 ordered", 8, "ordered", 20, 80),
+          ("gs_ordered B=8", 8, "exact", 20, 80),
           ("polar B=1", 1, None, 20, 120),
           ("polar B=8", 8, None, 20, 120),
           ("polar B=132", 132, None, 20, 120))
@@ -299,7 +303,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import tetsim_torch as tt
-    from tetsim_torch.kernels import gs_fused, polar_fused
+    from tetsim_torch.kernels import gs_fused, gs_ordered, polar_fused
     from tetsim_torch.kernels.gs_fused import FusedGSBody
     from tetsim_torch.kernels.polar_fused import FusedPolarBody
 
@@ -325,6 +329,13 @@ def main() -> int:
                     _, profile = measure(body, params, k1, k2, kernel, *work,
                                          build=build)
                 pending.append((f"{name} [{build_name(flags)}]", profile))
+        elif coloring == "exact":
+            body = gs_ordered.OrderedGSBody(dragon)
+            params, kernel = tt.default_cpu_params(), "gs_ordered_kernel"
+            work = (gs_ordered.frame_flops(body.sched, params, b),
+                    gs_ordered.frame_bytes(body.sched, b, 1))
+            pending.append((name, measure(body, params, k1, k2, kernel,
+                                          *work)[1]))
         else:
             body = FusedGSBody(dragon, num_bodies=b, coloring=coloring)
             params, kernel = tt.default_cpu_params(), "gs_frame_kernel"

@@ -11,9 +11,15 @@ hand-written kernel (``kernels/csrc/gs_frame.cu``,
 or 50 of ``kernels/csrc/nh_stencil.cu``.  One large unstructured mesh
 (``ellipsoid_mesh``, a million tets) runs through the pieces engines, a
 substep two launches of ``kernels/csrc/polar_pieces.cu`` or one of
-``kernels/csrc/nh_pieces.cu`` between torch ops.  The entry points run on
-the card unless the caller passes ``device="cpu"``.  The package imports neither jax nor
-tetsim_tpu; it reads the dragon asset of ``tetsim_tpu/`` by path.
+``kernels/csrc/nh_pieces.cu`` between torch ops.  Eight bodies in the
+reference's exact constraint order (``add_body_batch(...,
+backend="fused_ordered")``) are one launch of ``kernels/csrc/gs_ordered.cu``
+per frame.  ``World.save`` / ``load`` write and read scene checkpoints in
+the JAX package's format, and ``python -m tetsim_torch.viewer.server``
+serves the browser viewer.  The entry points run on the card unless the
+caller passes ``device="cpu"``.  The package imports neither jax nor
+tetsim_tpu; it reads the dragon asset and the viewer's page of
+``tetsim_tpu/`` by path.
 """
 from .params import PhysicsParams, default_cpu_params, default_gpu_params
 from .state import SimState, Controls, init_state

@@ -6,5 +6,9 @@
   nh_stencil    — the Neo-Hookean 48-colour grid sweep (csrc/nh_stencil.cu)
   polar_pieces  — the polar solve on the pieces of one mesh (csrc/polar_pieces.cu)
   nh_pieces     — the per-piece Neo-Hookean sweep (csrc/nh_pieces.cu)
+  gs_ordered    — the exact-order Gauss-Seidel frame (csrc/gs_ordered.cu)
+
+(``tetsim_torch/roofline.py`` wraps the extract_rotation micro-kernel,
+csrc/extract_rotation.cu.)
 """
 from .gs_fused import FusedGSBody  # noqa: F401

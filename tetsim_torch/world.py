@@ -16,10 +16,19 @@ or ``PackedGridBody``, whose state stays in the kernels' layout), and
 ``add_grid_body_batch`` steps B boxes at once (``GridBodyBatch``).  One
 large unstructured mesh runs through ``Body`` with the pieces engines
 (``engine="polar_pieces"`` or ``"nh_pieces"``, the kernels of
-``kernels/polar_pieces.py`` and ``kernels/nh_pieces.py``).
+``kernels/polar_pieces.py`` and ``kernels/nh_pieces.py``), and
+``add_body_batch(..., backend="fused_ordered")`` steps 8 bodies in the
+reference's exact constraint order (``OrderedGSBody``).
+
+``enable_render_export`` / ``step_many_export`` run a body's frames and
+then its surface export ([2, S, 3]: skinned vertices and normals) as one
+call with no host sync, the viewer's per-frame path.  ``World.save`` /
+``restore`` / ``load`` write and read a scene checkpoint in the JAX
+package's format (``checkpoint.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -29,6 +38,7 @@ from . import diag
 from .kernels import gs_fused, nh_pieces, polar_fused, polar_pieces
 from .kernels.batch import FusedBatch
 from .kernels.gs_fused import FusedGSBody
+from .kernels.gs_ordered import OrderedGSBody
 from .kernels.polar_fused import FusedPolarBody
 from .mesh import (TetArrays, TetMesh, build_arrays, grid_mesh, replicate_mesh,
                    with_boundary_surface)
@@ -81,6 +91,47 @@ def _rotated_normals(rest_normals, quats, vis_tet_ids):
     return quat_rotate(rest_normals, quats[vis_tet_ids])
 
 
+def _surface_render_data(pos, skin_ids, skin_w, tris):
+    """The viewer's export: skinned vertices and smooth normals stacked as
+    one [2,S,3] device tensor."""
+    verts = _skin_surface(pos, skin_ids, skin_w)
+    return torch.stack([verts, _vertex_normals(verts, tris)])
+
+
+def _surface_render_data_rotated(pos, skin_ids, skin_w, rest_normals, quats,
+                                 vis_tet_ids):
+    """The viewer's export with the reference GPU path's shading: skinned
+    vertices and the rest normals rotated by each tet's quaternion, [2,S,3]."""
+    verts = _skin_surface(pos, skin_ids, skin_w)
+    return torch.stack([verts, _rotated_normals(rest_normals, quats,
+                                                vis_tet_ids)])
+
+
+_POLAR_ENGINES = ("polar", "polar_grid", "polar_pieces")
+
+
+def _make_many_export(step_many, positions, quats):
+    """The fused N frames + surface export of Body, BatchedBody and
+    GridBodyBatch: ``step_many(params, frames)`` advances the body,
+    ``positions()`` gives its flat [P,3] device positions and ``quats()``
+    its flat per-tet quaternions, or None where the engine carries none
+    (then normals="rotated" falls back to smooth, as in the JAX package).
+    The returned ``many(surf, params, frames, normals)`` gives the [2,S,3]
+    device export without a host sync."""
+
+    def many(surf, params, frames, normals):
+        step_many(params, frames)
+        pos = positions()
+        q = quats() if normals == "rotated" else None
+        if q is not None:
+            return _surface_render_data_rotated(
+                pos, surf.skin_ids, surf.skin_w, surf.rest_normals, q,
+                surf.vis_tet_ids)
+        return _surface_render_data(pos, surf.skin_ids, surf.skin_w, surf.tris)
+
+    return many
+
+
 class _Surface:
     """Embedded-surface render tables + skinning for one (possibly
     flattened multi-body) mesh."""
@@ -119,6 +170,12 @@ class _Surface:
             raise ValueError(f"unknown normals mode {normals!r}")
         vn = torch.stack([verts, nrm]).cpu().numpy()
         return vn[0], vn[1], self.tris_np
+
+    def render_data(self, pos) -> np.ndarray:
+        """Stacked [2,S,3] (vertices, smooth normals) in one device-to-host
+        transfer."""
+        return _surface_render_data(pos, self.skin_ids, self.skin_w,
+                                    self.tris).cpu().numpy()
 
 
 _PIECES_BUILDERS = {"polar_pieces": polar_pieces.build_pieces_arrays,
@@ -179,6 +236,7 @@ class Body:
         self._surface = (
             _Surface(mesh, self.device) if mesh.vis_tet_ids is not None else None
         )
+        self._many_export = None
 
     # -- stepping ---------------------------------------------------------
     def step(self, params: PhysicsParams):
@@ -193,6 +251,40 @@ class Body:
         for _ in range(frames):
             self.step(params)
         return self.last_diag
+
+    def enable_render_export(self):
+        """Set up ``step_many_export``: frames and surface export in one
+        call."""
+        self._need_surface()
+        self._many_export = _make_many_export(
+            self.step_many, lambda: self.state.pos,
+            lambda: (self.state.quats if self.engine in _POLAR_ENGINES
+                     else None))
+
+    def step_many_export(self, params: PhysicsParams, frames: int,
+                         normals: str = "smooth"):
+        """``frames`` frames, then the surface export: returns the device
+        [2,S,3] (vertices, normals) without a host sync.  Needs a prior
+        ``enable_render_export``."""
+        if self._many_export is None:
+            raise RuntimeError("call enable_render_export() first")
+        vn = self._many_export(self._surface, params, frames, normals)
+        self.last_diag = None
+        return vn
+
+    def simulate(self, dt, params: Optional[PhysicsParams] = None):
+        """The reference API's simulate(dt, physicsParams): one substep of
+        length ``dt``.  ``step`` runs a whole frame in one call."""
+        one = dataclasses.replace(params or PhysicsParams(), time_step=dt,
+                                  time_scale=1.0, num_substeps=1)
+        return self.step(one)
+
+    def end_frame(self):
+        """The reference API's endFrame: (positions [N,3], skinned surface
+        vertices [S,3] or None)."""
+        surface = (self.surface_positions() if self._surface is not None
+                   else None)
+        return self.positions, surface
 
     # -- interaction --------------------------------------------------------
     def start_grab(self, point) -> int:
@@ -272,6 +364,23 @@ class BatchedBody(FusedPolarBody):
             _Surface(self.flat_mesh, self.device)
             if self.flat_mesh.vis_tet_ids is not None else None
         )
+        self._many_export = None
+
+    def enable_render_export(self):
+        """Set up ``step_many_export`` for the whole batch's surface."""
+        if self._surface is None:
+            raise ValueError("mesh has no embedded render surface")
+        self._many_export = _make_many_export(
+            self.step, lambda: self.pos.reshape(-1, 3),
+            lambda: self.quats.reshape(-1, 4))
+
+    def step_many_export(self, params: PhysicsParams, frames: int,
+                         normals: str = "smooth"):
+        """``frames`` frames, then the batch's surface export [2,B*S,3]
+        (device tensor, no sync; see ``Body.step_many_export``)."""
+        if self._many_export is None:
+            raise RuntimeError("call enable_render_export() first")
+        return self._many_export(self._surface, params, frames, normals)
 
     @property
     def positions(self) -> np.ndarray:
@@ -329,6 +438,9 @@ class PackedGridBody:
         self._packed0 = self._packed
         self.controls = Controls.none(self.device)
         self.last_diag = None
+        self._surface = (_Surface(mesh, self.device)
+                         if mesh.vis_tet_ids is not None else None)
+        self._many_export = None
 
     def step(self, params: PhysicsParams):
         self._packed = self._stepfn(self._packed, params, self.controls)
@@ -338,6 +450,28 @@ class PackedGridBody:
     def step_many(self, params: PhysicsParams, frames: int):
         for _ in range(frames):
             self.step(params)
+
+    def enable_render_export(self, skin_ids, skin_w, tris):
+        """Set up ``step_many_export`` with these skinning tables (device
+        tensors, as ``_Surface`` holds them)."""
+        def many(params, frames):
+            self.step_many(params, frames)
+            return _surface_render_data(self.pos_device(), skin_ids, skin_w,
+                                        tris)
+
+        self._many_export = many
+
+    def step_many_export(self, params: PhysicsParams, frames: int,
+                         normals: str = "smooth"):
+        """``frames`` frames, then the surface export [2,S,3] (device tensor,
+        no sync).  The packed layout keeps the quaternions in kernel planes,
+        so ``normals`` is accepted for Body's interface and the normals are
+        always smooth, as in the JAX package."""
+        del normals
+        if self._many_export is None:
+            raise RuntimeError(
+                "call enable_render_export(skin_ids, skin_w, tris) first")
+        return self._many_export(params, frames)
 
     # -- state I/O boundary -------------------------------------------------
     @property
@@ -438,6 +572,7 @@ class GridBodyBatch:
         self.flat_mesh = replicate_mesh(self.mesh, num_bodies)
         self._surface = (_Surface(self.flat_mesh, self.device)
                          if with_surface else None)
+        self._many_export = None
 
     def step(self, params: PhysicsParams, frames: int = 1):
         """Advance every box by ``frames`` frames (no sync)."""
@@ -454,6 +589,25 @@ class GridBodyBatch:
                                             self.grab_pos)
                 self.last_diag = self.pos.new_zeros(
                     (self.num_bodies, params.num_substeps))
+
+    def enable_render_export(self):
+        """Set up ``step_many_export`` for all boxes' boundary surfaces."""
+        if self._surface is None:
+            raise ValueError("batch was built without with_surface=True")
+        self._many_export = _make_many_export(
+            self.step, lambda: unplanes(self.pos).reshape(-1, 3),
+            lambda: (None if self.quats is None
+                     else quats_from_kernel(self.quats).reshape(-1, 4)))
+
+    def step_many_export(self, params: PhysicsParams, frames: int,
+                         normals: str = "smooth"):
+        """``frames`` frames, then all boxes' surface export [2,B*S,3]
+        (device tensor, no sync; see ``Body.step_many_export``)."""
+        if self._many_export is None:
+            raise RuntimeError("call enable_render_export() first")
+        vn = self._many_export(self._surface, params, frames, normals)
+        self.last_diag = None
+        return vn
 
     @property
     def states(self) -> SimState:
@@ -534,6 +688,14 @@ class World:
         self.params = params if params is not None else PhysicsParams()
         self.device = check_device(device)
         self.bodies: list = []
+        # construction specs recorded by the add_* calls, so that a scene
+        # checkpoint rebuilds the world from one file; None marks a body
+        # that load cannot rebuild (prebuilt arrays)
+        self._specs: list = []
+
+    @staticmethod
+    def _pins(pinned):
+        return None if pinned is None else np.asarray(pinned).tolist()
 
     def add_body(
         self,
@@ -548,6 +710,10 @@ class World:
         body = Body(mesh, engine=engine, coloring=coloring, density=d,
                     arrays=arrays, pinned=pinned, device=self.device)
         self.bodies.append(body)
+        self._specs.append(None if arrays is not None else {
+            "add": "body", "engine": engine, "coloring": coloring,
+            "density": d, "pinned": self._pins(pinned), "_mesh": mesh,
+        })
         return body
 
     def add_grid_body(
@@ -585,6 +751,13 @@ class World:
             body = Body(mesh, engine=engine, arrays=arrays, coloring=None,
                         device=self.device)
         self.bodies.append(body)
+        self._specs.append({
+            "add": "grid_body", "dims": [int(x) for x in dims],
+            "cell": float(cell), "origin": [float(x) for x in origin],
+            "density": d, "pinned": self._pins(pinned),
+            "with_edges": with_edges, "engine": engine, "packed": packed,
+            "with_surface": with_surface,
+        })
         return body
 
     def add_grid_body_batch(
@@ -604,6 +777,15 @@ class World:
                               engine=engine, density=d, with_edges=with_edges,
                               with_surface=with_surface, device=self.device)
         self.bodies.append(batch)
+        self._specs.append({
+            "add": "grid_body_batch", "dims": [int(x) for x in dims],
+            "num_bodies": num_bodies, "cell": float(cell),
+            "origins": None if origins is None
+            else np.asarray(origins, np.float32).tolist(),
+            "engine": engine, "density": d, "with_edges": with_edges,
+            "with_surface": with_surface,
+            "color_scan": False,  # the JAX package's flag; no effect here
+        })
         return batch
 
     def add_body_batch(
@@ -621,11 +803,27 @@ class World:
         backend="flat"  — ``BatchedBody``, one flattened disjoint mesh (the
                           polar engine; neohookean is not ported here);
         backend="fused" — ``FusedGSBody`` (neohookean) or ``FusedPolarBody``
-                          (polar): one fused-kernel launch per frame.
+                          (polar): one fused-kernel launch per frame;
+        backend="fused_ordered" — ``OrderedGSBody``: the neohookean engine in
+                          the reference's exact constraint order, exactly 8
+                          bodies, one launch of the exact-order kernel per
+                          frame.
         """
         d = float(self.params.density) if density is None else density
         kw = dict(density=d, jitter=jitter, seed=seed, device=self.device)
-        if backend == "fused":
+        if backend == "fused_ordered":
+            if engine != "neohookean":
+                raise ValueError(
+                    "the fused_ordered backend implements the neohookean "
+                    f"engine, not {engine!r}"
+                )
+            if num_bodies != 8:
+                raise ValueError(
+                    "the fused_ordered kernel batches exactly 8 bodies "
+                    f"(sublane-fixed), got num_bodies={num_bodies}"
+                )
+            batch = OrderedGSBody(mesh, **kw)
+        elif backend == "fused":
             if engine == "neohookean":
                 batch = FusedGSBody(mesh, num_bodies, **kw)
             elif engine == "polar":
@@ -640,10 +838,38 @@ class World:
         else:
             raise ValueError(
                 f"backend {backend!r} is not ported (see ROADMAP.md); the "
-                "port has 'flat' and 'fused'"
+                "port has 'flat', 'fused' and 'fused_ordered'"
             )
         self.bodies.append(batch)
+        self._specs.append({
+            "add": "body_batch", "num_bodies": num_bodies, "engine": engine,
+            "backend": backend, "jitter": float(jitter), "seed": int(seed),
+            "density": d, "_mesh": mesh,
+        })
         return batch
+
+    # -- scene checkpoint ------------------------------------------------------
+    def save(self, path: str) -> None:
+        """One-file scene checkpoint: the params, every body's state (the
+        fused batches' planes, a packed grid body's state) and the
+        construction specs, in the JAX package's format."""
+        from . import checkpoint
+
+        checkpoint.save_world(self, path)
+
+    def restore(self, path: str) -> None:
+        """Restore a scene checkpoint into this world, which must hold the
+        same bodies (types, engines and meshes are checked)."""
+        from . import checkpoint
+
+        checkpoint.restore_world(self, path)
+
+    @staticmethod
+    def load(path: str, device="cuda") -> "World":
+        """Rebuild a whole World on ``device`` from a scene checkpoint."""
+        from . import checkpoint
+
+        return checkpoint.load_world(path, device=device)
 
     def step(self, frames: int = 1):
         """Advance all bodies by ``frames`` frames (bodies are independent,
@@ -655,6 +881,10 @@ class World:
                 body.step_many(self.params, frames)
 
     def diagnostics(self) -> dict:
+        """Per body, as Python numbers: a batch (``FusedGSBody``,
+        ``FusedPolarBody``, ``OrderedGSBody``, ``BatchedBody``,
+        ``GridBodyBatch``) its size, lowest particle, fastest particle and
+        NaN flag; any other body ``diag.summarize``."""
         out = {}
         for i, b in enumerate(self.bodies):
             if isinstance(b, (FusedBatch, GridBodyBatch)):
