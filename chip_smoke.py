@@ -88,7 +88,30 @@ code is non-zero:
      counters rising, the sim's frames per second, /shutdown;
  18. the extract_rotation micro-kernel (K9) vs its twin on 1,048,576 lanes
      at 4 passes, ms per 9-iteration pass (two-point fit over 4 and 16
-     passes), the twin's ms and the measured copy rate (y = x * c, 256 MB).
+     passes), the twin's ms and the measured copy rate (y = x * c, 256 MB);
+ 19. the large bodies: World().add_body(grid_mesh(20, 20, 20), engine=
+     "neohookean" | "polar") (9,261 particles, over one block's shared
+     memory) through gs_levels and polar_jacobi, 5 frames with a grab, each
+     frame held to the twin (positions 2e-5, velocities 2e-3 / 2e-2,
+     vol_err 1e-5, quaternions 2e-5 or twice the kernel's 1-ulp spread),
+     no host sync, K1 and K2 not launched;
+ 20. the flat Neo-Hookean batch: add_body_batch(dragon, 8, engine=
+     "neohookean", backend="flat") with a grab, frame 1 within 2e-5 of the
+     plain twin (velocities 2e-2, as phase 2 holds K1), 2 frames bitwise
+     FusedGSBody(coloring="ordered"), one K1 launch per frame;
+ 21. the polar slab form (K4a): the 56^3 box at cell 0.02 through
+     make_grid_sharded_stepper on SlabMesh(4) and SlabMesh(2), 3 frames
+     from seeded velocities with a grab on a slab boundary, after every
+     frame within 2e-5 or twice K4's 1-ulp spread of K4 unsharded and at
+     the polar bars of the sharded twin;
+ 22. the Neo-Hookean slab form (K3s): the 56^3 box at cell 0.05 through
+     make_nh_sharded_stepper on SlabMesh(4), 3 frames, bit for bit K3
+     unsharded after every frame and within 2e-5 / 2e-3 of the sharded
+     twin;
+ 23. ms per substep at 56^3 of both slab forms at 1, 2 and 4 slabs beside
+     the unsharded kernels, with launches per substep and the sharded
+     twins' ms; ms per frame of gs_levels and polar_jacobi on
+     grid_mesh(20, 20, 20) and of their twins.
 Then a JSON line with every kernel's numbers, the card's name and power
 limit, and, last, the device line.  It exits non-zero, printing no result,
 where CUDA is unavailable.
@@ -1535,6 +1558,411 @@ def extract_rotation_vs_plain(roofline):
     return dq, launches, k_ms, p_ms, gbps
 
 
+# -- the large bodies (gs_levels, polar_jacobi) and the flat NH batch ----------
+
+LARGE = (20, 20, 20)  # 9,261 particles, 48,000 tets: over one block's 6,456
+LARGE_BOX = dict(cell=0.05, origin=(-0.5, 0.3, -0.5))
+LARGE_FRAMES = 5
+
+
+def hold(label, rows):
+    """Each row (name, kernel, reference, tol, spread): the kernel against
+    the reference within tol, or within twice ``spread`` (a kernel's own
+    difference from a start 1 ulp apart) where that is given and larger.
+    Returns the position difference."""
+    parts, ok, dpos = [], True, 0.0
+    for name, k, r, tol, spread in rows:
+        d = max_diff(k, r)
+        t = tol if spread is None else max(tol, 2 * spread)
+        ok = ok and d <= t
+        if name == "pos":
+            dpos = d
+        parts.append(f"{name} {d:.3e} (tol {t:.3e}"
+                     + ("" if spread is None else f", spread {spread:.3e}")
+                     + ")")
+    print(f"{label}: kernel vs plain " + ", ".join(parts), flush=True)
+    check(ok, f"{label} disagrees")
+    return dpos
+
+
+def large_bodies(tt, kernels):
+    """Phase 19: World().add_body(grid_mesh(20, 20, 20), engine=...) on the
+    card for both engines, 5 frames with a grab holding a corner 2 cm up;
+    after every frame the body is held to the twin run from the same start
+    (and beside the kernel from positions 1 ulp apart); the multi-block
+    kernel's launch counter counts the frames, K1's and K2's stay 0.
+    Returns {module: (launches, largest position difference)}."""
+    from tetsim_torch.kernels import gs_levels, polar_jacobi
+
+    mesh = tt.grid_mesh(*LARGE, **LARGE_BOX)
+    target = torch.tensor(np.float32(mesh.verts[0] + [0.0, 0.02, 0.0]),
+                          device="cuda")
+    out = {}
+    for engine, mod in (("neohookean", gs_levels), ("polar", polar_jacobi)):
+        polar = engine == "polar"
+        bodies = []
+        for shift in (False, True):
+            world = tt.World()
+            body = world.add_body(mesh, engine=engine)
+            check(body.kernel is mod, f"{engine}: Body runs {body.kernel}")
+            if shift:
+                body.state = body.state.replace(pos=torch.nextafter(
+                    body.state.pos, torch.full_like(body.state.pos, 10.0)))
+            body.controls = tt.Controls(
+                grab_id=torch.tensor(0, dtype=torch.int32, device="cuda"),
+                grab_pos=target)
+            bodies.append((world, body))
+        (world, body), (world1, body1) = bodies
+        params = world.params
+        gid, gpos = target.new_zeros((1, 1), dtype=torch.int32), target[None, None]
+        s = body.state
+        twin = [s.pos[None], s.vel[None]] + ([s.quats[None]] if polar else [])
+        for m in kernels.values():
+            m.launch_count = 0
+        t0 = time.perf_counter()
+        worst = 0.0
+        for f in range(1, LARGE_FRAMES + 1):
+            with no_host_sync():
+                world.step(1)
+                world1.step(1)
+            if polar:
+                r = mod.jacobi_frame_reference(*twin, body.arrays, params, gid,
+                                               gpos)
+                twin = [r[0], r[2], r[3]]
+                extra = [("quat", body.state.quats, r[3][0], 2e-5,
+                          max_diff(body.state.quats, body1.state.quats))]
+                vtol = 2e-2
+            else:
+                r = mod.levels_frame_reference(*twin, body.arrays, params,
+                                               gid, gpos)
+                twin = [r[0], r[2]]
+                extra = [("vol_err", body.last_diag, r[3][0], 1e-5, None)]
+                vtol = 2e-3
+            worst = max(worst, hold(
+                f"phase 19 {engine} Body {LARGE} ({mesh.num_tets} tets) "
+                f"frame {f}", [
+                    ("pos", body.state.pos, r[0][0], 2e-5, None),
+                    ("vel", body.state.vel, r[2][0], vtol, None)] + extra))
+        seconds = time.perf_counter() - t0
+        want = 2 * LARGE_FRAMES * params.num_substeps * (
+            gs_levels.launches_per_substep(body.arrays) if not polar
+            else polar_jacobi.LAUNCHES_PER_SUBSTEP)
+        others = {k: m.launch_count for k, m in kernels.items()
+                  if m is not mod and m.launch_count}
+        check(mod.launch_count == want and not others,
+              f"{engine}: {mod.launch_count} launches (expected {want}), "
+              f"others {others}")
+        check(max_diff(body.state.pos[0], target) == 0.0, "grab off target")
+        diag = world.diagnostics()["body0"]
+        check(not diag["nan"], f"{engine} diagnostics {diag}")
+        print(f"phase 19 {engine}: {mod.__name__.split('.')[-1]} "
+              f"{mod.launch_count} launches for 2 bodies x {LARGE_FRAMES} "
+              f"frames, K1 and K2 none; min y {diag['min_height']:.4f}; "
+              f"{seconds:.2f} s", flush=True)
+        out[mod] = (mod.launch_count // 2, worst)
+    return out
+
+
+def flat_nh_batch(tt, gs_fused, dragon):
+    """Phase 20: add_body_batch(dragon, 8, engine="neohookean",
+    backend="flat") with a grab: bitwise FusedGSBody(coloring="ordered")
+    from the same state for 2 frames, its first frame within 2e-5 of the
+    plain twin in position (velocities 2e-2, K1's bar in phase 2); K1
+    launches once per frame.  Returns (launches,
+    difference)."""
+    world = tt.World()
+    flat = world.add_body_batch(dragon, 8, engine="neohookean",
+                                backend="flat", jitter=0.3, seed=5)
+    fused = gs_fused.FusedGSBody(dragon, 8, coloring="ordered", jitter=0.3,
+                                 seed=5)
+    check(torch.equal(flat.pos, fused.pos), "the batches start apart")
+    target = (flat.pos[2, 30] + torch.tensor([0.0, 0.02, 0.0],
+                                             device="cuda")).tolist()
+    flat.set_grab(2, 30, target)
+    fused.set_grab(2, 30, target)
+    params = world.params
+    start = (flat.pos, flat.vel)
+    gs_fused.launch_count = 0
+    with no_host_sync():
+        world.step(1)
+    launches = gs_fused.launch_count
+    want = gs_fused.gs_frame_reference(*start, flat.arrays, params,
+                                       flat.grab_id, flat.grab_pos)
+    # K1 contracts its predict into FMAs, so its velocities are held as in
+    # phase 2, 2e-2
+    err = hold("phase 20 flat neohookean batch of 8 dragons, frame 1", [
+        ("pos", flat.pos, want[0], 2e-5, None),
+        ("vel", flat.vel, want[2], 2e-2, None)])
+    before = gs_fused.launch_count
+    with no_host_sync():
+        world.step(1)
+    launches += gs_fused.launch_count - before
+    check(launches == 2, f"{launches} K1 launches for 2 frames")
+    fused.step(params, 2)
+    same = all(torch.equal(a, b) for a, b in (
+        (flat.pos, fused.pos), (flat.vel, fused.vel),
+        (flat.prev_pos, fused.prev_pos)))
+    check(same, "the flat batch is not FusedGSBody(coloring='ordered')")
+    check(torch.equal(flat.pos[2, 30], flat.grab_pos[2, 0]),
+          "grab off target")
+    print(f"phase 20 flat batch: {launches} K1 launches for 2 frames, "
+          "bitwise equal to FusedGSBody(coloring='ordered') after 2 frames",
+          flush=True)
+    return launches, err
+
+
+# -- the slab forms (K4a, K3s) ---------------------------------------------------
+
+
+def slab_start(tt, polar, cell, origin):
+    """(arrays, state, controls) of the 56^3 box with velocities seeded in
+    +-0.1 and a grab lifting the top vertex of global plane x = 28 (a slab
+    boundary at 2 and at 4 slabs) by 1 cm."""
+    from tetsim_torch.solvers import neohookean_grid, polar_grid
+
+    mesh = tt.grid_mesh(*GRID, cell=cell, origin=origin)
+    build = (polar_grid.build_grid_arrays if polar
+             else neohookean_grid.build_nh_grid_arrays)
+    arr = build(mesh, GRID, device="cuda")
+    rng = np.random.RandomState(6)
+    st = tt.init_state(mesh, "cuda")
+    st = st.replace(vel=torch.tensor(rng.uniform(-0.1, 0.1, st.vel.shape)
+                                     .astype(np.float32), device="cuda"))
+    g = GRID[1] + 1
+    gid = (28 * g + g - 1) * g + 28
+    ctl = tt.Controls(
+        grab_id=torch.tensor(gid, dtype=torch.int32, device="cuda"),
+        grab_pos=torch.tensor(np.float32(mesh.verts[gid] + [0.0, 0.01, 0.0]),
+                              device="cuda"))
+    return arr, st, ctl
+
+
+def unsharded_frames(mod, arr, state, params, ctl, frames):
+    """The unsharded kernel's states after each of ``frames`` frames."""
+    pack, step, unpack, _ = mod.make_frame_stepper(arr)
+    packed, out = pack(state, params), []
+    for _ in range(frames):
+        packed = step(packed, params, ctl)
+        out.append(unpack(packed, params))
+    return out
+
+
+def polar_slabs(tt, polar_stencil):
+    """Phase 21: the 56^3 box at cell 0.02 through make_grid_sharded_stepper
+    on SlabMesh(4) and SlabMesh(2), 3 frames from a seeded state with a grab
+    on a slab boundary; after every frame, positions and quaternions within
+    2e-5 or twice K4's 1-ulp spread of K4 unsharded, and the sharded twin at
+    the polar bars.  Returns (K4a launches, largest difference from the
+    twin)."""
+    from tetsim_torch.parallel import SlabMesh
+    from tetsim_torch.solvers import polar_grid
+
+    params = tt.PhysicsParams(num_substeps=GRID_SUBSTEPS)
+    arr, st, ctl = slab_start(tt, True, **GRID_BOX)
+    ref = unsharded_frames(polar_stencil, arr, st, params, ctl, 3)
+    moved = unsharded_frames(polar_stencil, arr, st.replace(
+        pos=torch.nextafter(st.pos, torch.full_like(st.pos, 10.0))), params,
+        ctl, 3)
+    polar_stencil.acc_launch_count = 0
+    launches, worst = 0, 0.0
+    for d in (4, 2):
+        slabs = SlabMesh(d)
+        prepare, step, unprepare = polar_stencil.make_grid_sharded_stepper(
+            slabs, arr)
+        twin = polar_grid.make_grid_sharded_step(slabs, arr)
+        tslab, tarr = polar_grid.grid_prepare(st, arr, slabs)
+        packed = prepare(st, params)
+        for f in range(3):
+            before = polar_stencil.acc_launch_count
+            with no_host_sync():
+                packed = step(packed, params, ctl)
+            launches += polar_stencil.acc_launch_count - before
+            got = unprepare(packed, params)
+            tslab, _ = twin(tslab, tarr, params, ctl)
+            tw = polar_grid.grid_unprepare(tslab, arr, d)
+            k4, m4 = ref[f], moved[f]
+            sp, sq = max_diff(k4.pos, m4.pos), max_diff(k4.quats, m4.quats)
+            label = f"phase 21 K4a {GRID} in {d} slabs, frame {f + 1}"
+            hold(label + " vs K4 unsharded", [
+                ("pos", got.pos, k4.pos, 2e-5, sp),
+                ("quat", got.quats, k4.quats, 2e-5, sq)])
+            worst = max(worst, hold(label + " vs its sharded twin", [
+                ("pos", got.pos, tw.pos, 2e-5, None),
+                ("quat", got.quats, tw.quats, 2e-5, sq),
+                ("vel", got.vel, tw.vel, 2e-2, None)]))
+        check(max_diff(got.pos[ctl.grab_id.long()], ctl.grab_pos) == 0.0,
+              "grab off target")
+    check(launches > 0 and launches == polar_stencil.acc_launch_count,
+          f"K4a launches {launches}")
+    print(f"phase 21 K4a: {launches} launches for 3 frames at 4 and at 2 "
+          "slabs", flush=True)
+    return launches, worst
+
+
+def nh_slabs(tt, nh_stencil):
+    """Phase 22: the 56^3 box at cell 0.05 (the Neo-Hookean engine collapses
+    at 0.02) through make_nh_sharded_stepper on SlabMesh(4), 3 frames from a
+    seeded state with a grab on a slab boundary: bit for bit K3 unsharded
+    after every frame, and within the Neo-Hookean bars of the sharded twin.
+    Returns (K3s launches, largest difference from the twin)."""
+    from tetsim_torch.parallel import SlabMesh
+    from tetsim_torch.solvers import neohookean_grid
+
+    params = tt.PhysicsParams(num_substeps=GRID_SUBSTEPS)
+    arr, st, ctl = slab_start(tt, False, 0.05, (-1.4, 0.1, -1.4))
+    ref = unsharded_frames(nh_stencil, arr, st, params, ctl, 3)
+    slabs = SlabMesh(4)
+    prepare, step, unprepare = nh_stencil.make_nh_sharded_stepper(slabs, arr)
+    twin = neohookean_grid.make_nh_sharded_step(slabs, arr)
+    tslab = neohookean_grid.nh_prepare(st, arr, slabs)
+    packed = prepare(st, params)
+    nh_stencil.segment_launch_count = 0
+    launches, worst = 0, 0.0
+    for f in range(3):
+        before = nh_stencil.segment_launch_count
+        with no_host_sync():
+            packed = step(packed, params, ctl)
+        launches += nh_stencil.segment_launch_count - before
+        got = unprepare(packed, params)
+        check(torch.equal(got.pos, ref[f].pos)
+              and torch.equal(got.vel, ref[f].vel),
+              f"K3s is not K3 after frame {f + 1}: pos "
+              f"{max_diff(got.pos, ref[f].pos):.3e}")
+        tslab, _ = twin(tslab, params, ctl)
+        tw = neohookean_grid.nh_unprepare(tslab, arr, 4, params)
+        worst = max(worst, hold(
+            f"phase 22 K3s {GRID} in 4 slabs, frame {f + 1} (bitwise K3 "
+            "unsharded) vs its sharded twin", [
+                ("pos", got.pos, tw.pos, 2e-5, None),
+                ("vel", got.vel, tw.vel, 2e-3, None)]))
+    check(max_diff(got.pos[ctl.grab_id.long()], ctl.grab_pos) == 0.0,
+          "grab off target")
+    check(launches > 0 and launches == nh_stencil.segment_launch_count,
+          f"K3s launches {launches}")
+    print(f"phase 22 K3s: {launches} launches for 3 frames at 4 slabs, every "
+          "frame bit for bit K3 unsharded", flush=True)
+    return launches, worst
+
+
+def slab_timings(tt, polar_stencil, nh_stencil, label):
+    """Phase 23: ms per substep at 56^3 of each slab form at 1, 2 and 4 slabs
+    beside the unsharded kernel (two-point fits, data-dependent sync),
+    launches per substep, and the sharded twins' ms at 4 slabs.  Returns
+    {module: (ms at 4 slabs, twin ms, bound)}."""
+    from tetsim_torch.parallel import SlabMesh
+    from tetsim_torch.solvers import neohookean_grid, polar_grid
+
+    params = tt.PhysicsParams(num_substeps=GRID_SUBSTEPS)
+    one = dataclasses.replace(params, num_substeps=1)
+    out = {}
+    for mod, polar, box in ((polar_stencil, True, GRID_BOX),
+                            (nh_stencil, False,
+                             dict(cell=0.05, origin=(-1.4, 0.1, -1.4)))):
+        arr, st, ctl = slab_start(tt, polar, **box)
+        name = mod.__name__.split(".")[-1]
+        make = (mod.make_grid_sharded_stepper if polar
+                else mod.make_nh_sharded_stepper)
+        counter = "acc_launch_count" if polar else "segment_launch_count"
+        times = {}
+
+        def fit(step, packed, pos_of):
+            state = {"p": packed}
+
+            def run(k):
+                for _ in range(k):
+                    state["p"] = step(state["p"], params, ctl)
+
+            return per_frame(run, lambda: pos_of(state["p"]).sum(), 5, 25) \
+                * 1e3 / GRID_SUBSTEPS
+
+        pack, step, _, _ = mod.make_frame_stepper(arr)
+        times["unsharded"] = fit(step, pack(st, params), lambda p: p[0])
+        for d in (1, 2, 4):
+            prepare, step, _ = make(SlabMesh(d), arr)
+            setattr(mod, counter, 0)
+            times[d] = fit(step, prepare(st, params),
+                           lambda p: (p.pos if polar else p[0])[0])
+            per = getattr(mod, counter) / ((1 + 25 + 5) * GRID_SUBSTEPS)
+            times[f"launches {d}"] = per
+        if polar:
+            twin = polar_grid.make_grid_sharded_step(SlabMesh(4), arr)
+            slab, sarr = polar_grid.grid_prepare(st, arr, SlabMesh(4))
+            tstep = (lambda p, prm, c: twin(p, sarr, prm, c)[0])
+            tp = slab
+            work = (mod.frame_flops(arr, one, 1), mod.frame_bytes(arr, 1, 1))
+        else:
+            twin = neohookean_grid.make_nh_sharded_step(SlabMesh(4), arr)
+            tstep = (lambda p, prm, c: twin(p, prm, c)[0])
+            tp = neohookean_grid.nh_prepare(st, arr, SlabMesh(4))
+            work = (mod.frame_flops(arr, one, 1),
+                    mod.frame_bytes(arr, one, 1, 1))
+        tstate = {"p": tp}
+
+        def trun(k):
+            for _ in range(k):
+                tstate["p"] = tstep(tstate["p"], params, ctl)
+
+        twin_ms = per_frame(trun, lambda: (tstate["p"].pos if polar
+                                           else tstate["p"][0])[0].sum(),
+                            1, 2) * 1e3 / GRID_SUBSTEPS
+        print(f"phase 23 [{label}] {name} slab form at {GRID}: "
+              + ", ".join(f"{d} slab{'s' if d > 1 else ''} {times[d]:.4f} "
+                          f"ms/substep ({times[f'launches {d}']:.0f} launches)"
+                          for d in (1, 2, 4))
+              + f"; unsharded {times['unsharded']:.4f} ms/substep "
+              f"({mod.LAUNCHES_PER_SUBSTEP} launches); sharded twin at 4 "
+              f"slabs {twin_ms:.3f} ms/substep", flush=True)
+        out[mod] = (times[4], twin_ms, bound(*work))
+    return out
+
+
+def large_timings(tt, label):
+    """Phase 23, the large bodies: ms per frame (5 substeps) of the
+    multi-block kernels on grid_mesh(20, 20, 20) through Body, and of their
+    twins.  Returns {module: (ms, plain ms, bound)}."""
+    from tetsim_torch.kernels import gs_levels, polar_jacobi
+
+    mesh = tt.grid_mesh(*LARGE, **LARGE_BOX)
+    out = {}
+    for engine, mod in (("neohookean", gs_levels), ("polar", polar_jacobi)):
+        world = tt.World()
+        body = world.add_body(mesh, engine=engine)
+        params = world.params
+        k_ms = per_frame(lambda k: world.step(k),
+                         lambda: body.state.pos.sum(), 10, 50) * 1e3
+        s = body.state
+        gid, gpos = no_grab(1)
+        twin = {"s": [s.pos[None], s.vel[None]]
+                + ([s.quats[None]] if engine == "polar" else [])}
+
+        def plain_step(k):
+            for _ in range(k):
+                if engine == "polar":
+                    r = mod.jacobi_frame_reference(*twin["s"], body.arrays,
+                                                   params, gid, gpos)
+                    twin["s"] = [r[0], r[2], r[3]]
+                else:
+                    r = mod.levels_frame_reference(*twin["s"], body.arrays,
+                                                   params, gid, gpos)
+                    twin["s"] = [r[0], r[2]]
+
+        p_ms = per_frame(plain_step, lambda: twin["s"][0].sum(), 1, 3) * 1e3
+        if engine == "polar":
+            work = (mod.frame_flops(body.arrays, params, 1),
+                    mod.frame_bytes(body.arrays, 1, 1))
+            per = mod.LAUNCHES_PER_SUBSTEP
+        else:
+            work = (mod.frame_flops(body.arrays, params, 1),
+                    mod.frame_bytes(body.arrays, params, 1, 1))
+            per = mod.launches_per_substep(body.arrays)
+        print(f"phase 23 [{label}] {mod.__name__.split('.')[-1]} Body "
+              f"{LARGE}: {k_ms:.4f} ms/frame at {params.num_substeps} "
+              f"substeps ({per} launches per substep), plain twin "
+              f"{p_ms:.3f} ms/frame", flush=True)
+        out[mod] = (k_ms, p_ms, bound(*work))
+    return out
+
+
 def sync():
     torch.cuda.synchronize()
 
@@ -1594,8 +2022,9 @@ def main() -> int:
         return 1
     import tetsim_torch as tt
     from tetsim_torch import roofline
-    from tetsim_torch.kernels import (gs_fused, gs_ordered, nh_pieces,
-                                      nh_stencil, polar_fused, polar_pieces,
+    from tetsim_torch.kernels import (gs_fused, gs_levels, gs_ordered,
+                                      nh_pieces, nh_stencil, polar_fused,
+                                      polar_jacobi, polar_pieces,
                                       polar_stencil)
 
     t_start = time.perf_counter()
@@ -1606,7 +2035,8 @@ def main() -> int:
     kernels = {"gs_frame": gs_fused, "polar_frame": polar_fused,
                "polar_stencil": polar_stencil, "nh_stencil": nh_stencil,
                "polar_pieces": polar_pieces, "nh_pieces": nh_pieces,
-               "gs_ordered": gs_ordered, "extract_rotation": roofline}
+               "gs_ordered": gs_ordered, "extract_rotation": roofline,
+               "gs_levels": gs_levels, "polar_jacobi": polar_jacobi}
     phase("phase 1 done", build_all, kernels)
 
     dragon = tt.load_dragon()
@@ -1658,6 +2088,15 @@ def main() -> int:
     phase("phase 17 done", viewer_on_card, tt, gs_ordered, polar_fused, dragon)
     er_err, er_launches, er_ms, er_plain_ms, gbps = phase(
         "phase 18 done", extract_rotation_vs_plain, roofline)
+    large = phase("phase 19 done", large_bodies, tt, kernels)
+    phase("phase 20 done", flat_nh_batch, tt, gs_fused, dragon)
+    k4a_launches, k4a_err = phase("phase 21 done", polar_slabs, tt,
+                                  polar_stencil)
+    k3s_launches, k3s_err = phase("phase 22 done", nh_slabs, tt, nh_stencil)
+    slab_times = phase("phase 23 slabs done", slab_timings, tt, polar_stencil,
+                       nh_stencil, label)
+    large_times = phase("phase 23 large bodies done", large_timings, tt,
+                        label)
     sched = gs_ordered.build_ordered_schedule(dragon)
     ordered_bound, ordered_by = bound(
         gs_ordered.frame_flops(sched, params, 8),
@@ -1682,6 +2121,14 @@ def main() -> int:
           + f", gs_ordered 8 dragons frame {ordered_bound * 1e3:.3f} us "
           f"({ordered_by}), extract_rotation pass {er_bound * 1e3:.3f} us "
           f"({er_by})"
+          + ", " + ", ".join(
+              f"{m.__name__.split('.')[-1]} slab form 56^3 substep "
+              f"{t[2][0] * 1e3:.3f} us ({t[2][1]})"
+              for m, t in slab_times.items())
+          + ", " + ", ".join(
+              f"{m.__name__.split('.')[-1]} {LARGE} frame "
+              f"{t[2][0] * 1e3:.3f} us ({t[2][1]})"
+              for m, t in large_times.items())
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
     grid_lines = [
         {"name": m.__name__.split(".")[-1], "route": "cuda",
@@ -1702,6 +2149,24 @@ def main() -> int:
          "bound_ms": pieces_times[e][2][0], "bound_by": pieces_times[e][2][1],
          "library_ms": None}
         for e in reversed(engines)]
+    slab_lines = [
+        {"name": f"{m.__name__.split('.')[-1]}_slabs", "route": "cuda",
+         "source": f"tetsim_torch/kernels/csrc/{m.__name__.split('.')[-1]}.cu",
+         "replaces": f"tetsim_tpu/kernels/{src}", "launches": n,
+         "max_abs_err": e, "ms": slab_times[m][0],
+         "plain_ms": slab_times[m][1], "bound_ms": slab_times[m][2][0],
+         "bound_by": slab_times[m][2][1], "library_ms": None}
+        for m, src, n, e in (
+            (nh_stencil, "nh_stencil.py:596", k3s_launches, k3s_err),
+            (polar_stencil, "polar_stencil.py:358", k4a_launches, k4a_err))]
+    large_lines = [
+        {"name": m.__name__.split(".")[-1], "route": "cuda",
+         "source": f"tetsim_torch/kernels/csrc/{m.__name__.split('.')[-1]}.cu",
+         "replaces": "none: the XLA engine", "launches": large[m][0],
+         "max_abs_err": large[m][1], "ms": large_times[m][0],
+         "plain_ms": large_times[m][1], "bound_ms": large_times[m][2][0],
+         "bound_by": large_times[m][2][1], "library_ms": None}
+        for m in (gs_levels, polar_jacobi)]
     print(json.dumps({"kernels": [
         {"name": "gs_frame", "route": "cuda",
          "source": "tetsim_torch/kernels/csrc/gs_frame.cu",
@@ -1728,7 +2193,7 @@ def main() -> int:
          "launches": er_launches, "max_abs_err": er_err,
          "ms": er_ms, "plain_ms": er_plain_ms,
          "bound_ms": er_bound, "bound_by": er_by, "library_ms": None},
-    ]}), flush=True)
+    ] + slab_lines + large_lines}), flush=True)
     print(label, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

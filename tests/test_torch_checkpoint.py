@@ -219,6 +219,10 @@ def test_jax_world_file_loads_in_port(tmp_path):
     jw.save(path)
     tw = tt.World.load(path, device="cpu")
     _assert_same(jw, tw)
+    for b in tw.bodies:  # the kernels take contiguous tensors only
+        for x in (vars(b.state) if hasattr(b, "controls") else vars(b)
+                  ).values():
+            assert not torch.is_tensor(x) or x.is_contiguous()
     tw.step(1)  # and it runs
     assert all(not d["nan"] for d in tw.diagnostics().values())
 
@@ -237,3 +241,97 @@ def test_port_world_file_loads_in_jax(tmp_path):
     jw = ts.World.load(path)
     _assert_same(jw, tw)
     assert np.abs(tw.bodies[3].quats.numpy()[..., 3] - 1.0).max() > 1e-6
+
+
+# -- the other body kinds, and the files' key shapes ---------------------------
+
+
+def _add_five_more(world, mesh):
+    """The kinds the five above leave out: a grid Body, a packed grid body,
+    the flat polar batch and both pieces bodies."""
+    world.add_grid_body((3, 3, 3), cell=0.2, engine="polar_grid")
+    world.add_grid_body((2, 2, 3), cell=0.25, origin=(0.0, 0.5, 0.0),
+                        engine="polar_grid_pallas", packed=True)
+    world.add_body_batch(mesh, 3, engine="polar", backend="flat",
+                         jitter=0.05, seed=2)
+    world.add_body(mesh, engine="polar_pieces")
+    world.add_body(mesh, engine="nh_pieces")
+
+
+def _perturbed(path, out, seed):
+    """Copy a scene file with every body moved off rest (pos and prev by
+    the same seeded noise, so a packed body's velocity stays 0), its
+    quaternions turned and a grab set on particle 9 (body 1 of a batch)."""
+    rng = np.random.RandomState(seed)
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    for k in sorted(data):
+        if k.endswith(".pos"):
+            noise = rng.normal(0, 0.01, data[k].shape).astype(np.float32)
+            data[k] = data[k] + noise
+            data[k[:-3] + "prev_pos"] = data[k[:-3] + "prev_pos"] + noise
+        elif k.endswith(".quats") and data[k].ndim == 2:
+            q = data[k] + rng.normal(0, 0.1, data[k].shape).astype(np.float32)
+            data[k] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+        elif k.endswith(".grab_id") and k[:-8] + ".pos" in data:
+            gid = data[k]
+            if gid.ndim == 0:
+                data[k] = np.int32(9)
+            else:  # a flat batch: body 1's slot holds a flat id
+                n = data[k[:-8] + ".pos"].shape[0] // gid.shape[0]
+                data[k] = np.int32([-1, n + 9] + [-1] * (gid.shape[0] - 2))
+            data[k[:-8] + ".grab_pos"] = np.full(
+                data[k[:-8] + ".grab_pos"].shape, 0.3, np.float32)
+    np.savez_compressed(out, **data)
+
+
+def _assert_files_alike(a_path, b_path, values=True):
+    """Same body keys, each with the same shape and dtype (and values)."""
+    with np.load(a_path) as a, np.load(b_path) as b:
+        keys = sorted(k for k in a.files if k.startswith("b"))
+        assert keys == sorted(k for k in b.files if k.startswith("b"))
+        for k in keys:
+            assert (a[k].shape, a[k].dtype) == (b[k].shape, b[k].dtype), k
+            if values:
+                np.testing.assert_array_equal(a[k], b[k], k)
+
+
+def test_five_more_kinds_jax_port_jax(tmp_path):
+    """Grid Body, packed grid body, flat polar batch and both pieces bodies
+    (perturbed, with grabs) go JAX -> port -> JAX with equal states, keys
+    and shapes, a restored grab_id keeping shape ()."""
+    jw = ts.World(ts.PhysicsParams(num_substeps=2))
+    _add_five_more(jw, ts.grid_mesh(3, 3, 3, **SMALL))
+    j0, j1 = str(tmp_path / "j0.npz"), str(tmp_path / "j1.npz")
+    jw.save(j0)
+    _perturbed(j0, j1, seed=11)
+    tw = tt.World.load(j1, device="cpu")
+    assert [type(b).__name__ for b in tw.bodies] == [
+        "Body", "PackedGridBody", "BatchedBody", "Body", "Body"]
+    assert tw.bodies[0].controls.grab_id.shape == ()
+    p1 = str(tmp_path / "p1.npz")
+    tw.save(p1)
+    _assert_files_alike(j1, p1)
+    j2 = str(tmp_path / "j2.npz")
+    ts.World.load(p1).save(j2)
+    _assert_files_alike(j1, j2)
+
+
+@pytest.mark.parametrize("kinds", ["five", "five_more"])
+def test_port_files_have_jax_key_shapes(tmp_path, kinds):
+    """The same scene built by each package: the port's file, fresh and
+    after a restore, has the JAX file's keys, shapes and dtypes (grab_id
+    of a single body shape (), not (1,))."""
+    add = _add_five if kinds == "five" else _add_five_more
+    jw = ts.World(ts.PhysicsParams(num_substeps=2))
+    add(jw, ts.grid_mesh(3, 3, 3, **SMALL))
+    tw = _world()
+    add(tw, _small())
+    jpath, tpath = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    jw.save(jpath)
+    tw.save(tpath)
+    _assert_files_alike(jpath, tpath, values=False)
+    tw.restore(jpath)  # (the fused batches' padded bodies are not kept)
+    again = str(tmp_path / "t2.npz")
+    tw.save(again)
+    _assert_files_alike(jpath, again, values=False)

@@ -86,7 +86,8 @@ def test_import_leaves_out_jax_and_tetsim_tpu():
         "grid = ('solvers.polar_grid', 'solvers.neohookean_grid', "
         "'kernels.polar_stencil', 'kernels.nh_stencil', "
         "'kernels.polar_pieces', 'kernels.nh_pieces', 'kernels.gs_ordered', "
-        "'checkpoint', 'viewer.server', 'roofline')\n"
+        "'checkpoint', 'viewer.server', 'roofline', 'kernels.gs_levels', "
+        "'kernels.polar_jacobi', 'parallel', 'parallel.slabs')\n"
         "missed = [m for m in grid if 'tetsim_torch.' + m not in sys.modules]\n"
         "assert not missed, missed\n"
         "print('ok')\n"

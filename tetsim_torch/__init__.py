@@ -14,8 +14,15 @@ substep two launches of ``kernels/csrc/polar_pieces.cu`` or one of
 ``kernels/csrc/nh_pieces.cu`` between torch ops.  Eight bodies in the
 reference's exact constraint order (``add_body_batch(...,
 backend="fused_ordered")``) are one launch of ``kernels/csrc/gs_ordered.cu``
-per frame.  ``World.save`` / ``load`` write and read scene checkpoints in
-the JAX package's format, and ``python -m tetsim_torch.viewer.server``
+per frame.  A grid box also runs in x-slabs (``parallel.SlabMesh``, one
+process driving every slab, several slabs to a card if need be) through
+``solvers.polar_grid.make_grid_sharded_step``,
+``solvers.neohookean_grid.make_nh_sharded_step`` and their kernel forms in
+``kernels/polar_stencil.py`` and ``kernels/nh_stencil.py``; a body too
+large for one block's shared memory runs through
+``kernels/csrc/gs_levels.cu`` or ``kernels/csrc/polar_jacobi.cu``.
+``World.save`` / ``load`` write and read scene checkpoints in the JAX
+package's format, and ``python -m tetsim_torch.viewer.server``
 serves the browser viewer.  The entry points run on the card unless the
 caller passes ``device="cpu"``.  The package imports neither jax nor
 tetsim_tpu; it reads the dragon asset and the viewer's page of
@@ -26,6 +33,7 @@ from .state import SimState, Controls, init_state
 from .mesh import (TetMesh, TetArrays, load_dragon, grid_mesh, build_arrays,
                    masked_grid_mesh, ellipsoid_mesh, with_boundary_surface)
 from .solvers import get_engine
+from . import parallel  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -45,6 +53,7 @@ __all__ = [
     "with_boundary_surface",
     "build_arrays",
     "get_engine",
+    "parallel",
     "World",
 ]
 

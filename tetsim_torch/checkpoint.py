@@ -260,10 +260,15 @@ def _capture_body(body) -> dict:
         n = body.mesh.num_particles
         gid = _host(body.grab_id)[:, 0].astype(np.int32)
         flat = np.where(gid >= 0, gid + n * np.arange(len(gid)), -1)
+        if body.quats is None:  # neohookean: the flat state's identity
+            quats = np.zeros((body.num_bodies * body.mesh.num_tets, 4),
+                             np.float32)
+            quats[:, 3] = 1.0
+        else:
+            quats = _host(body.quats).reshape(-1, 4)
         return {"pos": _host(body.pos).reshape(-1, 3),
                 "prev_pos": _host(body.prev_pos).reshape(-1, 3),
-                "vel": _host(body.vel).reshape(-1, 3),
-                "quats": _host(body.quats).reshape(-1, 4),
+                "vel": _host(body.vel).reshape(-1, 3), "quats": quats,
                 "grab_id": flat.astype(np.int32),
                 "grab_pos": _host(body.grab_pos)[:, 0]}
     if isinstance(body, GridBodyBatch):
@@ -303,7 +308,9 @@ def _restore_body(body, d: dict, params: PhysicsParams) -> None:
     from .world import BatchedBody, Body, GridBodyBatch, PackedGridBody
 
     def t(x, dtype=np.float32):
-        return torch.as_tensor(np.ascontiguousarray(x, dtype)).to(body.device)
+        # C-contiguous for the kernels; np.array keeps a 0-d grab id 0-d
+        # (ascontiguousarray makes it 1-d)
+        return torch.as_tensor(np.array(x, dtype, order="C")).to(body.device)
 
     if isinstance(body, (Body, PackedGridBody)):
         if isinstance(body, PackedGridBody):
@@ -317,7 +324,8 @@ def _restore_body(body, d: dict, params: PhysicsParams) -> None:
         n, m = body.mesh.num_particles, body.mesh.num_tets
         body.pos, body.prev_pos, body.vel = (
             t(d[k]).reshape(b, n, 3) for k in ("pos", "prev_pos", "vel"))
-        body.quats = t(d["quats"]).reshape(b, m, 4)
+        if body.quats is not None:
+            body.quats = t(d["quats"]).reshape(b, m, 4)
         flat = d["grab_id"].astype(np.int64)
         local = np.where(flat >= 0, flat - n * np.arange(b), -1)
         body.grab_id = t(local[:, None], np.int32)

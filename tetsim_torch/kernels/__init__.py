@@ -7,6 +7,13 @@
   polar_pieces  — the polar solve on the pieces of one mesh (csrc/polar_pieces.cu)
   nh_pieces     — the per-piece Neo-Hookean sweep (csrc/nh_pieces.cu)
   gs_ordered    — the exact-order Gauss-Seidel frame (csrc/gs_ordered.cu)
+  gs_levels     — the Neo-Hookean frame of a body too large for one block,
+                  a launch per colour level (csrc/gs_levels.cu)
+  polar_jacobi  — the polar frame of a body too large for one block, two
+                  launches per substep (csrc/polar_jacobi.cu)
+
+polar_stencil and nh_stencil also carry the grid boxes' x-slab forms (K4a,
+K3s), driven over a ``parallel.SlabMesh``.
 
 (``tetsim_torch/roofline.py`` wraps the extract_rotation micro-kernel,
 csrc/extract_rotation.cu.)

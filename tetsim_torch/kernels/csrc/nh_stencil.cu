@@ -42,6 +42,22 @@
 // kernel with a grid-wide barrier between colours, or capture the
 // substep's 50 launches in a CUDA graph.
 
+// K3s, the slab form: replaces the TPU kernel
+// tetsim_tpu/kernels/nh_stencil.py:_build_seg_call, one colour group (the 4
+// colours of one (type, px) pair) of K3's sweep on one x-slab, which
+// make_nh_sharded_stepper runs 12 times per substep with a one-plane
+// ppermute between groups.  Here the slabs of one device run together:
+// the same nh_grid_color_kernel as K3 on the slab's local dims, with
+// blockIdx.y over the slabs and each slab's own inv_mass row, so 4 slabs
+// on one card cost one launch per colour as one box does; predict and
+// collide likewise, the collide decoding grabs by global particle id.  A
+// px=0 colour updates a shared vertex plane only on the right slab and a
+// px=1 colour only on the left, so the 12 SlabMesh copies per substep
+// between the groups (one plane of 3 * gy * gz * 4 = 38,988 B per
+// neighbour pair at 56^3, one way each) give K3's trajectory bit for bit.
+// What bounds it: launches, as K3 (50 per substep for the whole device),
+// plus the 12 exchanges' copies (3 per exchange at 4 slabs).
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,14 +89,16 @@ nh_grid_predict_kernel(const float* pos,     // [B,3,N] substep start
                        const float* __restrict__ vel,  // [B,3,N]
                        float* pos_out,       // [B,3,N] predicted
                        float* __restrict__ prev_out,   // [B,3,N]
-                       const float* __restrict__ inv_mass,  // [N]
+                       const float* __restrict__ inv_mass,  // [N] or [B,N]
+                       int im_stride,  // 0: one inv_mass row for every body
                        int N, GridNHParams P) {
   const int v = blockIdx.x * kThreads + threadIdx.x;
   if (v >= N) return;
   const size_t base = (size_t)blockIdx.y * 3 * N;
   float vx = vel[base + v], vy = __fadd_rn(vel[base + N + v], P.gdt),
         vz = vel[base + 2 * N + v];
-  if (!(inv_mass[v] > 0.0f)) vx = vy = vz = 0.0f;
+  if (!(inv_mass[(size_t)blockIdx.y * im_stride + v] > 0.0f))
+    vx = vy = vz = 0.0f;
   const float x = pos[base + v], y = pos[base + N + v],
               z = pos[base + 2 * N + v];
   prev_out[base + v] = x;
@@ -105,7 +123,8 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
 
 __global__ void __launch_bounds__(kThreads)
 nh_grid_color_kernel(float* __restrict__ pos,             // [B,3,N] in place
-                     const float* __restrict__ inv_mass,  // [N]
+                     const float* __restrict__ inv_mass,  // [N] or [B,N]
+                     int im_stride,  // 0: one inv_mass row for every body
                      float* __restrict__ partial,  // [B,48,nblk] or null
                      int N, int color, GridNHParams P) {
   __shared__ float red[kThreads];
@@ -122,6 +141,7 @@ nh_grid_color_kernel(float* __restrict__ pos,             // [B,3,N] in place
     const int ck = pz + 2 * (lane % cwz);
     const int gy = P.ny + 1, gz = P.nz + 1;
     float* bpos = pos + (size_t)blockIdx.y * 3 * N;
+    const float* bim = inv_mass + (size_t)blockIdx.y * im_stride;
     int ids[4];
     float p[4][3], w[4], ir[9];
     for (int c = 0; c < 4; ++c) {
@@ -129,7 +149,7 @@ nh_grid_color_kernel(float* __restrict__ pos,             // [B,3,N] in place
       ids[c] = ((ci + ((s >> 2) & 1)) * gy + (cj + ((s >> 1) & 1))) * gz +
                (ck + (s & 1));
       for (int r = 0; r < 3; ++r) p[c][r] = bpos[(size_t)r * N + ids[c]];
-      w[c] = inv_mass[ids[c]];
+      w[c] = bim[ids[c]];
     }
     for (int e = 0; e < 9; ++e) ir[e] = P.ir[t][e];
     verr = nh::solve_tet<true>(p, ir, P.irv, w, P.dev_scale, P.vol_scale,
@@ -149,11 +169,13 @@ __global__ void __launch_bounds__(kThreads)
 nh_grid_collide_kernel(float* __restrict__ pos,             // [B,3,N]
                        const float* __restrict__ prev,      // [B,3,N]
                        float* __restrict__ vel_out,         // [B,3,N]
-                       const int* __restrict__ grab_id,     // [B,G]
-                       const float* __restrict__ grab_pos,  // [B,G,3]
+                       const int* __restrict__ grab_id,     // [B,G] or [G]
+                       const float* __restrict__ grab_pos,  // [B,G,3] or [G,3]
                        const float* __restrict__ partial,   // [B,48,nblk]
                        float* __restrict__ vol_err,         // [B,S] or null
                        int N, int G, int S, int s, int nblk, int num_tets,
+                       int grab_stride,  // G: a grab row per body; 0: shared
+                       int x_offset0, int x_stride,  // id = v + these
                        GridNHParams P) {
   __shared__ float red[kThreads];
   const int b = blockIdx.y;
@@ -170,11 +192,14 @@ nh_grid_collide_kernel(float* __restrict__ pos,             // [B,3,N]
       x = __fadd_rn(x, __fmul_rn(px - x, P.k_fric));
       z = __fadd_rn(z, __fmul_rn(pz - z, P.k_fric));
     }
+    const int* gid = grab_id + (size_t)b * grab_stride;
+    const float* gpos = grab_pos + (size_t)b * grab_stride * 3;
+    const int id = v + x_offset0 + b * x_stride;
     for (int g = 0; g < G; ++g) {  // the last grab on v wins
-      if (grab_id[b * G + g] == v) {
-        x = grab_pos[(b * G + g) * 3];
-        y = grab_pos[(b * G + g) * 3 + 1];
-        z = grab_pos[(b * G + g) * 3 + 2];
+      if (gid[g] == id) {
+        x = gpos[3 * g];
+        y = gpos[3 * g + 1];
+        z = gpos[3 * g + 2];
       }
     }
     pos[base + v] = x;
@@ -225,23 +250,67 @@ int nh_stencil_launch(const void* pos_in, const void* vel_in, void* pos_out,
     const float* vel = (const float*)(s == 0 ? vel_in : vel_out);
     nh_grid_predict_kernel<<<verts, kThreads, 0, st>>>(
         pos, vel, (float*)pos_out, (float*)prev_out, (const float*)inv_mass,
-        N, P);
+        0, N, P);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     for (int color = 0; color < kColors; ++color) {
       nh_grid_color_kernel<<<cells, kThreads, 0, st>>>(
-          (float*)pos_out, (const float*)inv_mass, part, N, color, P);
+          (float*)pos_out, (const float*)inv_mass, 0, part, N, color, P);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
     nh_grid_collide_kernel<<<verts, kThreads, 0, st>>>(
         (float*)pos_out, (const float*)prev_out, (float*)vel_out,
         (const int*)grab_id, (const float*)grab_pos, part, (float*)vol_err, N,
-        G, S, s, nblk, 6 * P.nx * P.ny * P.nz, P);
+        G, S, s, nblk, 6 * P.nx * P.ny * P.nz, G, 0, 0, P);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// K3s, the slab form: B slabs of one device (P holds the slab's local
+// dims, inv_mass is [B, N], the grabs are shared and decoded by global id
+// v + x_offset0 + b * x_stride).  A substep is slab_predict, the 12
+// segments (each with a boundary-plane copy between slabs after it) and
+// slab_collide.  Each returns the first launch error.
+int nh_stencil_slab_predict(const void* pos, const void* vel, void* pos_out,
+                            void* prev_out, const void* inv_mass, int B,
+                            GridNHParams P, void* stream) {
+  const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
+  const dim3 verts((N + kThreads - 1) / kThreads, B);
+  nh_grid_predict_kernel<<<verts, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)pos, (const float*)vel, (float*)pos_out, (float*)prev_out,
+      (const float*)inv_mass, N, N, P);
+  return (int)cudaGetLastError();
+}
+
+// Colour group seg (0..11): the 4 colours of one (type, px) pair, as K3
+// launches them.
+int nh_stencil_slab_segment(void* pos, const void* inv_mass, int B, int seg,
+                            GridNHParams P, void* stream) {
+  const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
+  const dim3 cells(nh_stencil_partial_blocks(P.nx, P.ny, P.nz), B);
+  for (int color = 4 * seg; color < 4 * seg + 4; ++color) {
+    nh_grid_color_kernel<<<cells, kThreads, 0, (cudaStream_t)stream>>>(
+        (float*)pos, (const float*)inv_mass, N, nullptr, N, color, P);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+int nh_stencil_slab_collide(void* pos, const void* prev, void* vel_out,
+                            const void* grab_id, const void* grab_pos, int B,
+                            int G, int x_offset0, int x_stride,
+                            GridNHParams P, void* stream) {
+  const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
+  const dim3 verts((N + kThreads - 1) / kThreads, B);
+  nh_grid_collide_kernel<<<verts, kThreads, 0, (cudaStream_t)stream>>>(
+      (float*)pos, (const float*)prev, (float*)vel_out, (const int*)grab_id,
+      (const float*)grab_pos, nullptr, nullptr, N, G, 1, 0, 1, 0, 0,
+      x_offset0, x_stride, P);
+  return (int)cudaGetLastError();
 }
 
 const char* nh_stencil_error_string(int code) {

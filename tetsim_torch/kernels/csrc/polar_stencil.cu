@@ -43,6 +43,27 @@
 // cosine); 1,053,696 threads keep all 132 SMs busy.  The delta scratch (51
 // MB at 56^3) is written and read once per substep, mostly through L2.
 
+// K4a, the slab form: replaces the TPU kernel
+// tetsim_tpu/kernels/polar_stencil.py:_make_call_acc (_build_call with
+// epilogue=False), which stops a slab's substep after the accumulation and
+// returns the predicted positions, the new quaternions and the unapplied
+// numerator planes; make_grid_sharded_stepper completes the boundary
+// planes with a ppermute per neighbour and applies them.  Here the slabs
+// of one device run together (blockIdx.y over the slabs, each with its own
+// inv_mass and den rows), three launches per substep: pass A unchanged on
+// the slab's local dims; pass B split in two, B1 (polar_grid_acc_kernel:
+// predict and the inverse stencil into three numerator planes) and, after
+// the SlabMesh halo has added the neighbour's partial plane (two plane
+// adds per neighbour pair, one each way, of 3 * gy * gz * 4 = 38,988 B at
+// 56^3),
+// B2 (polar_grid_apply_kernel: apply over max(den, eps), collide, grab by
+// global id, prev and velocity).  The halo re-associates a shared plane's
+// sum (the left partial plus the right one, where K4 sums the slabs in
+// order), so K4a agrees with K4 to rounding, not bitwise.  What bounds it:
+// pass A as in K4, plus the numerator planes written and read once more
+// (about 5 MB per substep at 56^3) and, at 4 slabs, the halo's nine small
+// copies per substep (three snapshots and six adds).
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,17 +101,45 @@ __device__ __forceinline__ void predict(const float* pos, const float* vel,
   out[2] = __fadd_rn(pos[2 * N + v], __fmul_rn(vz, P.dt));
 }
 
+// The inverse stencil at vertex (vi, vj, vk) of one body's deltas bd
+// [72, C]: slab s holds the corners of the cube v - (dx, dy, dz); the slabs
+// are summed in order s = 0..7, each over types t = 0..5 (the engine's
+// order).
+__device__ __forceinline__ void gather(const float* __restrict__ bd, int vi,
+                                       int vj, int vk, int C,
+                                       const GridPolarParams& P,
+                                       float num[3]) {
+  num[0] = num[1] = num[2] = 0.0f;
+  for (int s = 0; s < 8; ++s) {
+    const int ci = vi - ((s >> 2) & 1), cj = vj - ((s >> 1) & 1),
+              ck = vk - (s & 1);
+    if (ci < 0 || ci >= P.nx || cj < 0 || cj >= P.ny || ck < 0 || ck >= P.nz)
+      continue;
+    const int cube = (ci * P.ny + cj) * P.nz + ck;
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+    for (int t = 0; t < 6; ++t)
+      for (int c = 0; c < 4; ++c)
+        if (P.corner_slab[t][c] == s)
+          for (int r = 0; r < 3; ++r)
+            acc[r] = __fadd_rn(acc[r],
+                               bd[(size_t)(12 * t + 3 * c + r) * C + cube]);
+    for (int r = 0; r < 3; ++r) num[r] = __fadd_rn(num[r], acc[r]);
+  }
+}
+
 __global__ void __launch_bounds__(kTetThreads)
 polar_grid_tet_kernel(const float* __restrict__ pos,  // [B,3,N]
                       const float* __restrict__ vel,  // [B,3,N]
                       const float* quat_in,           // [B,24,C]
                       float* quat_out,                // [B,24,C]
                       float* __restrict__ delta,      // [B,72,C] scratch
-                      const float* __restrict__ inv_mass,  // [N]
+                      const float* __restrict__ inv_mass,  // [N] or [B,N]
+                      int im_stride,  // 0: one inv_mass row for every body
                       int N, int C, GridPolarParams P) {
   const int b = blockIdx.y;
   const int idx = blockIdx.x * kTetThreads + threadIdx.x;
   if (idx >= 6 * C) return;
+  inv_mass += (size_t)b * im_stride;
   const int t = idx / C, cube = idx - t * C;
   const int i = cube / (P.ny * P.nz), j = (cube / P.nz) % P.ny,
             k = cube % P.nz;
@@ -162,24 +211,8 @@ polar_grid_vertex_kernel(const float* pos,        // [B,3,N] substep start
   float p[3];
   predict(bpos, vel + base, inv_mass, v, N, P, p);
 
-  // the inverse stencil: slab s holds the corners of the cube v - (dx,dy,dz)
-  const float* bd = delta + (size_t)b * 72 * C;
-  float num[3] = {0.0f, 0.0f, 0.0f};
-  for (int s = 0; s < 8; ++s) {
-    const int ci = vi - ((s >> 2) & 1), cj = vj - ((s >> 1) & 1),
-              ck = vk - (s & 1);
-    if (ci < 0 || ci >= P.nx || cj < 0 || cj >= P.ny || ck < 0 || ck >= P.nz)
-      continue;
-    const int cube = (ci * P.ny + cj) * P.nz + ck;
-    float acc[3] = {0.0f, 0.0f, 0.0f};
-    for (int t = 0; t < 6; ++t)
-      for (int c = 0; c < 4; ++c)
-        if (P.corner_slab[t][c] == s)
-          for (int r = 0; r < 3; ++r)
-            acc[r] = __fadd_rn(acc[r],
-                               bd[(size_t)(12 * t + 3 * c + r) * C + cube]);
-    for (int r = 0; r < 3; ++r) num[r] = __fadd_rn(num[r], acc[r]);
-  }
+  float num[3];
+  gather(delta + (size_t)b * 72 * C, vi, vj, vk, C, P, num);
 
   float x = p[0], y = p[1], z = p[2];
   if (inv_mass[v] > 0.0f) {
@@ -217,9 +250,138 @@ polar_grid_vertex_kernel(const float* pos,        // [B,3,N] substep start
   vel_out[base + 2 * N + v] = (z - pz) / P.dt;
 }
 
+// K4a, pass B1 on the slabs of one device (blockIdx.y): a thread per
+// vertex writes its predicted position and its unapplied numerator, the
+// partial sum over the slab's own cubes (a shared plane gets the rest from
+// the neighbour's halo).
+__global__ void __launch_bounds__(kVertexThreads)
+polar_grid_acc_kernel(const float* __restrict__ pos,  // [B,3,N] substep start
+                      const float* __restrict__ vel,  // [B,3,N]
+                      float* __restrict__ pred_out,   // [B,3,N]
+                      float* __restrict__ acc_out,    // [B,3,N]
+                      const float* __restrict__ delta,     // [B,72,C]
+                      const float* __restrict__ inv_mass,  // [B,N]
+                      int N, int C, GridPolarParams P) {
+  const int b = blockIdx.y;
+  const int v = blockIdx.x * kVertexThreads + threadIdx.x;
+  if (v >= N) return;
+  const int gy = P.ny + 1, gz = P.nz + 1;
+  const int vi = v / (gy * gz), vj = (v / gz) % gy, vk = v % gz;
+  const size_t base = (size_t)b * 3 * N;
+  float p[3], num[3];
+  predict(pos + base, vel + base, inv_mass + (size_t)b * N, v, N, P, p);
+  gather(delta + (size_t)b * 72 * C, vi, vj, vk, C, P, num);
+  for (int r = 0; r < 3; ++r) {
+    pred_out[base + (size_t)r * N + v] = p[r];
+    acc_out[base + (size_t)r * N + v] = num[r];
+  }
+}
+
+// K4a, pass B2, after the halo: a thread per vertex applies its completed
+// numerator over max(den, eps), collides, grabs by global particle id
+// (v + x_offset0 + b * x_stride) and sets prev and the velocity.
+__global__ void __launch_bounds__(kVertexThreads)
+polar_grid_apply_kernel(const float* pos,  // [B,3,N] substep start
+                        const float* __restrict__ pred,  // [B,3,N]
+                        const float* __restrict__ acc,   // [B,3,N]
+                        float* pos_out,                  // [B,3,N]
+                        float* __restrict__ prev_out,    // [B,3,N]
+                        float* __restrict__ vel_out,     // [B,3,N]
+                        const float* __restrict__ inv_mass,  // [B,N]
+                        const float* __restrict__ den,       // [B,N]
+                        const int* __restrict__ grab_id,     // [G]
+                        const float* __restrict__ grab_pos,  // [G,3]
+                        int N, int G, int x_offset0, int x_stride,
+                        GridPolarParams P) {
+  const int b = blockIdx.y;
+  const int v = blockIdx.x * kVertexThreads + threadIdx.x;
+  if (v >= N) return;
+  const size_t base = (size_t)b * 3 * N;
+  float x = pred[base + v], y = pred[base + N + v], z = pred[base + 2 * N + v];
+  const size_t at = (size_t)b * N + v;
+  if (inv_mass[at] > 0.0f) {
+    const float d = fmaxf(den[at], polar::kEps);
+    x = __fadd_rn(x, acc[base + v] / d);
+    y = __fadd_rn(y, acc[base + N + v] / d);
+    z = __fadd_rn(z, acc[base + 2 * N + v] / d);
+  }
+  const float px = pos[base + v], py = pos[base + N + v],
+              pz = pos[base + 2 * N + v];
+  x = fminf(fmaxf(x, P.wmin[0]), P.wmax[0]);
+  y = fminf(fmaxf(y, P.wmin[1]), P.wmax[1]);
+  z = fminf(fmaxf(z, P.wmin[2]), P.wmax[2]);
+  if (y < 0.0f) {
+    y = 0.0f;
+    x = __fadd_rn(x, __fmul_rn(px - x, P.k_fric));
+    z = __fadd_rn(z, __fmul_rn(pz - z, P.k_fric));
+  }
+  const int id = v + x_offset0 + b * x_stride;
+  for (int g = 0; g < G; ++g) {  // the last grab on v wins
+    if (grab_id[g] == id) {
+      x = grab_pos[3 * g];
+      y = grab_pos[3 * g + 1];
+      z = grab_pos[3 * g + 2];
+    }
+  }
+  prev_out[base + v] = px;
+  prev_out[base + N + v] = py;
+  prev_out[base + 2 * N + v] = pz;
+  pos_out[base + v] = x;
+  pos_out[base + N + v] = y;
+  pos_out[base + 2 * N + v] = z;
+  vel_out[base + v] = (x - px) / P.dt;
+  vel_out[base + N + v] = (y - py) / P.dt;
+  vel_out[base + 2 * N + v] = (z - pz) / P.dt;
+}
+
 }  // namespace
 
 extern "C" {
+
+int polar_stencil_slab_launches_per_substep() { return 3; }
+
+// K4a, one substep's first part on B slabs of one device (P holds the
+// slab's local dims): pass A (tets -> quat_out, delta) and pass B1
+// (vertices -> pred, acc).  Returns the first launch error.
+int polar_stencil_slab_accumulate(const void* pos, const void* vel,
+                                  const void* quat_in, void* quat_out,
+                                  void* delta, void* pred, void* acc,
+                                  const void* inv_mass, int B,
+                                  GridPolarParams P, void* stream) {
+  const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
+  const int C = P.nx * P.ny * P.nz;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 tets((6 * C + kTetThreads - 1) / kTetThreads, B);
+  const dim3 verts((N + kVertexThreads - 1) / kVertexThreads, B);
+  polar_grid_tet_kernel<<<tets, kTetThreads, 0, st>>>(
+      (const float*)pos, (const float*)vel, (const float*)quat_in,
+      (float*)quat_out, (float*)delta, (const float*)inv_mass, N, N, C, P);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  polar_grid_acc_kernel<<<verts, kVertexThreads, 0, st>>>(
+      (const float*)pos, (const float*)vel, (float*)pred, (float*)acc,
+      (const float*)delta, (const float*)inv_mass, N, C, P);
+  return (int)cudaGetLastError();
+}
+
+// K4a, the substep's last part after the halo: pass B2.  pos_out may be
+// pos (a thread reads its vertex before it writes it).
+int polar_stencil_slab_apply(const void* pos, const void* pred,
+                             const void* acc, void* pos_out, void* prev_out,
+                             void* vel_out, const void* inv_mass,
+                             const void* den, const void* grab_id,
+                             const void* grab_pos, int B, int G,
+                             int x_offset0, int x_stride, GridPolarParams P,
+                             void* stream) {
+  const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
+  const dim3 verts((N + kVertexThreads - 1) / kVertexThreads, B);
+  polar_grid_apply_kernel<<<verts, kVertexThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)pos, (const float*)pred, (const float*)acc,
+      (float*)pos_out, (float*)prev_out, (float*)vel_out,
+      (const float*)inv_mass, (const float*)den, (const int*)grab_id,
+      (const float*)grab_pos, N, G, x_offset0, x_stride, P);
+  return (int)cudaGetLastError();
+}
 
 int polar_stencil_launches_per_substep() { return 2; }
 
@@ -242,7 +404,7 @@ int polar_stencil_launch(const void* pos_in, const void* vel_in,
     const float* quat = (const float*)(s == 0 ? quat_in : quat_out);
     polar_grid_tet_kernel<<<tets, kTetThreads, 0, st>>>(
         pos, vel, quat, (float*)quat_out, (float*)delta,
-        (const float*)inv_mass, N, C, P);
+        (const float*)inv_mass, 0, N, C, P);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     polar_grid_vertex_kernel<<<verts, kVertexThreads, 0, st>>>(

@@ -28,6 +28,7 @@ from ..state import SimState, Controls
 from ..solvers import common, neohookean_grid
 from ..solvers.neohookean_grid import NHGridArrays
 from ..solvers.polar_grid import planes, unplanes
+from ..parallel.slabs import device_groups, plane, ungroup
 from . import build
 from .batch import expect
 
@@ -35,6 +36,8 @@ COLORS = 48
 LAUNCHES_PER_SUBSTEP = COLORS + 2  # as nh_stencil_launches_per_substep()
 
 launch_count = 0  # kernel launches since import (or reset)
+SEGMENTS = 12  # colour groups of the slab form: one per (type, px) pair
+segment_launch_count = 0  # launches of the slab form (K3s) since import
 
 
 def frame_flops(arr: NHGridArrays, params: PhysicsParams,
@@ -104,6 +107,16 @@ def library() -> ctypes.CDLL:
         if lib.nh_stencil_launches_per_substep() != LAUNCHES_PER_SUBSTEP:
             raise RuntimeError("csrc/nh_stencil.cu launches per substep != "
                                "nh_stencil.LAUNCHES_PER_SUBSTEP")
+        tail = [_GridNHParams, ctypes.c_void_p]
+        lib.nh_stencil_slab_predict.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] + tail)
+        lib.nh_stencil_slab_segment.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + tail)
+        lib.nh_stencil_slab_collide.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + tail)
+        for f in (lib.nh_stencil_slab_predict, lib.nh_stencil_slab_segment,
+                  lib.nh_stencil_slab_collide):
+            f.restype = ctypes.c_int
     return lib
 
 
@@ -220,3 +233,102 @@ def substep(state: SimState, arr: NHGridArrays, params: PhysicsParams, dt,
     one = dataclasses.replace(params, num_substeps=1)
     new, diags = step_frame(state, arr, one, controls)
     return new, diags[0]
+
+
+# -- the slab form (K3s) ---------------------------------------------------------
+
+
+def make_nh_sharded_stepper(mesh, arr: NHGridArrays, axis: str = "x"):
+    """(prepare, step, unprepare) for the stencil kernels over ``mesh``'s
+    x-slabs (``parallel.SlabMesh``; ``axis`` names its one axis).
+
+    prepare(state, params)         -> packed (pos, vel) slab lists
+    step(packed, params, controls) -> packed  (num_substeps substeps)
+    unprepare(packed, params)      -> SimState (prev_pos = pos - vel * dt)
+
+    On CUDA slabs a substep is predict, the 12 colour groups of
+    ``csrc/nh_stencil.cu`` over each device's slabs with a ``SlabMesh``
+    boundary-plane copy after each group, and collide: the unsharded
+    kernels' trajectory bit for bit.  On CPU slabs it is
+    ``neohookean_grid.make_nh_sharded_step``, the plain sweep with the
+    exchange hook."""
+    del axis
+    d = mesh.size
+    lx, local_dims = neohookean_grid._slab_geometry(arr.dims, d)
+    local = dataclasses.replace(arr, dims=local_dims)
+    inv_mass = mesh.place(neohookean_grid.slab_inv_mass(arr, d))
+    twin = neohookean_grid.make_nh_sharded_step(mesh, arr)
+
+    def prepare(state: SimState, params: PhysicsParams):
+        del params
+        return neohookean_grid.nh_prepare(state, arr, mesh)
+
+    def step(packed, params: PhysicsParams, controls: Controls):
+        if all(p.device.type == "cpu" for p in packed[0]):
+            return twin(packed, params, controls)[0]
+        return _slab_frame_cuda(packed, inv_mass, mesh, local, lx, params,
+                                controls)
+
+    def unprepare(packed, params: PhysicsParams) -> SimState:
+        return neohookean_grid.nh_unprepare(packed, arr, d, params)
+
+    return prepare, step, unprepare
+
+
+def _slab_frame_cuda(packed, inv_mass, mesh, local: NHGridArrays, lx: int,
+                     params: PhysicsParams, controls: Controls):
+    global segment_launch_count
+    S = params.num_substeps
+    if S < 1:
+        raise ValueError(f"num_substeps must be at least 1, got {S}")
+    lib = library()
+    par = _grid_params(local, params)
+    n = local.num_particles
+    gyz = (local.dims[1] + 1) * (local.dims[2] + 1)
+    gid, gpos = common.norm_grabs(controls)
+    groups = device_groups(mesh, pos=packed[0], vel=packed[1], im=inv_mass)
+    for g in groups:
+        k, dev = g["k"], g["dev"]
+        expect(g["pos"], "pos", torch.float32, (k, 3, n), dev)
+        expect(g["vel"], "vel", torch.float32, (k, 3, n), dev)
+        expect(g["im"], "inv_mass", torch.float32, (k, n), dev)
+        g.update(gid=gid.to(dev).contiguous(), gpos=gpos.to(dev).contiguous(),
+                 pos_out=torch.empty_like(g["pos"]),
+                 prev_out=torch.empty_like(g["pos"]),
+                 vel_out=torch.empty_like(g["pos"]))
+    slabs = [x for g in groups for x in ungroup(g["pos_out"])]
+    lo = [plane(x, 0, gyz) for x in slabs]
+    hi = [plane(x, lx, gyz) for x in slabs]
+
+    def launch(fn, g, *args):
+        with torch.cuda.device(g["dev"]):
+            err = fn(*args, par, g["stream"])
+        if err != 0:
+            raise RuntimeError("nh_stencil slab launch failed: "
+                               f"{lib.nh_stencil_error_string(err).decode()}")
+
+    for s in range(S):
+        for g in groups:
+            src = (g["pos"], g["vel"]) if s == 0 else (g["pos_out"],
+                                                       g["vel_out"])
+            launch(lib.nh_stencil_slab_predict, g, src[0].data_ptr(),
+                   src[1].data_ptr(), g["pos_out"].data_ptr(),
+                   g["prev_out"].data_ptr(), g["im"].data_ptr(), g["k"])
+        for seg in range(SEGMENTS):
+            for g in groups:
+                launch(lib.nh_stencil_slab_segment, g, g["pos_out"].data_ptr(),
+                       g["im"].data_ptr(), g["k"], seg)
+            # the plan is type-major, px-minor: odd groups are px = 1; after
+            # the last, refresh the right copies for collide
+            if seg + 1 < SEGMENTS and (seg + 1) % 2 == 1:
+                mesh.send_left(lo, hi)  # right's plane 0 -> plane lx
+            else:
+                mesh.send_right(hi, lo)  # left's plane lx -> plane 0
+        for g in groups:
+            launch(lib.nh_stencil_slab_collide, g, g["pos_out"].data_ptr(),
+                   g["prev_out"].data_ptr(), g["vel_out"].data_ptr(),
+                   g["gid"].data_ptr(), g["gpos"].data_ptr(), g["k"],
+                   g["gid"].shape[0], g["first"] * lx * gyz, lx * gyz)
+    segment_launch_count += LAUNCHES_PER_SUBSTEP * S * len(groups)
+    return ([x for g in groups for x in ungroup(g["pos_out"])],
+            [x for g in groups for x in ungroup(g["vel_out"])])

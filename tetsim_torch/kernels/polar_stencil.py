@@ -28,12 +28,15 @@ from ..params import PhysicsParams
 from ..state import SimState, Controls
 from ..solvers import common, polar_grid
 from ..solvers.polar_grid import GridArrays
+from ..parallel.slabs import device_groups, plane, ungroup
 from . import build
 from .batch import expect
 
 LAUNCHES_PER_SUBSTEP = 2  # as polar_stencil_launches_per_substep()
 
 launch_count = 0  # kernel launches since import (or reset)
+SLAB_LAUNCHES_PER_SUBSTEP = 3  # as polar_stencil_slab_launches_per_substep()
+acc_launch_count = 0  # launches of the slab form (K4a) since import (or reset)
 
 
 def frame_flops(arr: GridArrays, params: PhysicsParams, num_bodies: int) -> int:
@@ -102,6 +105,19 @@ def library() -> ctypes.CDLL:
         if lib.polar_stencil_launches_per_substep() != LAUNCHES_PER_SUBSTEP:
             raise RuntimeError("csrc/polar_stencil.cu launches per substep != "
                                "polar_stencil.LAUNCHES_PER_SUBSTEP")
+        lib.polar_stencil_slab_accumulate.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int]
+            + [_GridPolarParams, ctypes.c_void_p])
+        lib.polar_stencil_slab_accumulate.restype = ctypes.c_int
+        lib.polar_stencil_slab_apply.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+            + [_GridPolarParams, ctypes.c_void_p])
+        lib.polar_stencil_slab_apply.restype = ctypes.c_int
+        lib.polar_stencil_slab_launches_per_substep.restype = ctypes.c_int
+        if (lib.polar_stencil_slab_launches_per_substep()
+                != SLAB_LAUNCHES_PER_SUBSTEP):
+            raise RuntimeError("csrc/polar_stencil.cu slab launches per "
+                               "substep != SLAB_LAUNCHES_PER_SUBSTEP")
     return lib
 
 
@@ -216,3 +232,111 @@ def substep(state: SimState, arr: GridArrays, params: PhysicsParams, dt,
     one = dataclasses.replace(params, num_substeps=1)
     new, diags = step_frame(state, arr, one, controls)
     return new, diags[0]
+
+
+# -- the slab form (K4a) ---------------------------------------------------------
+
+
+def make_grid_sharded_stepper(mesh, garr: GridArrays, axis: str = "x"):
+    """(prepare, step, unprepare) for the stencil kernel over ``mesh``'s
+    x-slabs (``parallel.SlabMesh``; ``axis`` names its one axis).
+
+    prepare(state, params)         -> packed ``GridSlabState``
+    step(packed, params, controls) -> packed  (num_substeps substeps)
+    unprepare(packed, params)      -> SimState
+
+    On CUDA slabs a substep is, per device, pass A and pass B1 of
+    ``csrc/polar_stencil.cu`` over that device's slabs, then the halo
+    (``SlabMesh`` adds of the numerators' boundary planes), then pass B2;
+    on CPU slabs it is ``polar_grid.make_grid_sharded_step``, the plain
+    ``_substep`` with the halo hook."""
+    del axis
+    d = mesh.size
+    lx = polar_grid.slab_width(garr.dims, d)
+    local = dataclasses.replace(garr, dims=(lx,) + tuple(garr.dims[1:]))
+    slab_arr = polar_grid.grid_slab_arrays(garr, mesh)
+    twin = polar_grid.make_grid_sharded_step(mesh, garr)
+
+    def prepare(state: SimState, params: PhysicsParams):
+        del params
+        return polar_grid.grid_prepare(state, garr, mesh)[0]
+
+    def step(packed, params: PhysicsParams, controls: Controls):
+        if all(p.device.type == "cpu" for p in packed.pos):
+            return twin(packed, slab_arr, params, controls)[0]
+        return _slab_frame_cuda(packed, slab_arr, mesh, local, params,
+                                controls)
+
+    def unprepare(packed, params: PhysicsParams) -> SimState:
+        del params
+        return polar_grid.grid_unprepare(packed, garr, d)
+
+    return prepare, step, unprepare
+
+
+def _slab_frame_cuda(packed, slab_arr, mesh, local: GridArrays,
+                     params: PhysicsParams, controls: Controls):
+    global acc_launch_count
+    S = params.num_substeps
+    if S < 1:
+        raise ValueError(f"num_substeps must be at least 1, got {S}")
+    lib = library()
+    par = _grid_params(local, params)
+    lx, ny, nz = local.dims
+    n, c = local.num_particles, local.num_tets // 6
+    gyz = (ny + 1) * (nz + 1)
+    gid, gpos = common.norm_grabs(controls)
+    f32 = torch.float32
+    groups = device_groups(mesh, pos=packed.pos, vel=packed.vel,
+                           quats=packed.quats, im=slab_arr.inv_mass,
+                           den=slab_arr.den)
+    for g in groups:
+        k, dev = g["k"], g["dev"]
+        for name, shape in (("pos", (k, 3, n)), ("vel", (k, 3, n)),
+                            ("quats", (k, 24, c)), ("im", (k, n)),
+                            ("den", (k, n))):
+            expect(g[name], name, f32, shape, dev)
+        g.update(gid=gid.to(dev).contiguous(), gpos=gpos.to(dev).contiguous(),
+                 pos_out=torch.empty_like(g["pos"]),
+                 prev_out=torch.empty_like(g["pos"]),
+                 vel_out=torch.empty_like(g["pos"]),
+                 quat_out=torch.empty_like(g["quats"]),
+                 delta=torch.empty((k, 72, c), dtype=f32, device=dev),
+                 pred=torch.empty_like(g["pos"]),
+                 acc=torch.empty_like(g["pos"]))
+    acc = [a for g in groups for a in ungroup(g["acc"])]
+    lo = [plane(a, 0, gyz) for a in acc]
+    hi = [plane(a, lx, gyz) for a in acc]
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError("polar_stencil slab launch failed: "
+                               f"{lib.polar_stencil_error_string(err).decode()}")
+
+    for s in range(S):
+        src = ("pos", "vel", "quats") if s == 0 else ("pos_out", "vel_out",
+                                                     "quat_out")
+        for g in groups:
+            with torch.cuda.device(g["dev"]):
+                check(lib.polar_stencil_slab_accumulate(
+                    g[src[0]].data_ptr(), g[src[1]].data_ptr(),
+                    g[src[2]].data_ptr(), g["quat_out"].data_ptr(),
+                    g["delta"].data_ptr(), g["pred"].data_ptr(),
+                    g["acc"].data_ptr(), g["im"].data_ptr(), g["k"], par,
+                    g["stream"]))
+        mesh.add_halo(lo, hi)
+        for g in groups:
+            with torch.cuda.device(g["dev"]):
+                check(lib.polar_stencil_slab_apply(
+                    g[src[0]].data_ptr(), g["pred"].data_ptr(),
+                    g["acc"].data_ptr(), g["pos_out"].data_ptr(),
+                    g["prev_out"].data_ptr(), g["vel_out"].data_ptr(),
+                    g["im"].data_ptr(), g["den"].data_ptr(),
+                    g["gid"].data_ptr(), g["gpos"].data_ptr(), g["k"],
+                    g["gid"].shape[0], g["first"] * lx * gyz, lx * gyz, par,
+                    g["stream"]))
+    acc_launch_count += SLAB_LAUNCHES_PER_SUBSTEP * S * len(groups)
+    return polar_grid.GridSlabState(
+        **{f: [x for g in groups for x in ungroup(g[k])]
+           for f, k in (("pos", "pos_out"), ("prev", "prev_out"),
+                        ("vel", "vel_out"), ("quats", "quat_out"))})

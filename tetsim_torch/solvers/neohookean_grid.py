@@ -31,7 +31,8 @@ from ..params import PhysicsParams
 from ..state import SimState, Controls
 from . import common
 from .polar_grid import (SLAB_OFFSETS, decode_cube_corners, incidence_count,
-                         lumped_inv_mass, planes, unplanes)
+                         lumped_inv_mass, planes, slab_planes, unplanes,
+                         unslab_planes)
 
 EPS = 1e-9
 
@@ -259,10 +260,18 @@ def _solve_color(p, imc, ir, irv, dt, dev_compliance, vol_compliance):
     return p, det - 1.0
 
 
-def _gs_sweep(X, Y, Z, arr: NHGridArrays, dt, params: PhysicsParams):
+def _gs_sweep(X, Y, Z, arr: NHGridArrays, dt, params: PhysicsParams,
+              exchange=None):
     """The 48-colour sweep on parity-block state [..., 8, LHp], colours in
     order, each colour's tets at once, written back in place (the tets of a
     colour share no vertex).  Returns (X, Y, Z, sum of masked det F - 1).
+
+    ``exchange(X, Y, Z, to_px)`` (the slab stepper) is called at every
+    cube-x-parity flip of the colour plan and once after the sweep: with
+    slab cuts at even cube columns a px=0 colour updates a shared vertex
+    plane only on the right slab and a px=1 colour only on the left, so
+    refreshing the stale copy at those 12 points per substep gives the
+    unsharded sweep exactly.
 
     Lanes outside a colour's cube window are dropped with ``where``, not
     multiplied by a 0/1 mask as in the JAX engine: their corners are
@@ -271,11 +280,15 @@ def _gs_sweep(X, Y, Z, arr: NHGridArrays, dt, params: PhysicsParams):
     _, lh, _ = _geometry(arr.dims)
     X, Y, Z = X.clone(), Y.clone(), Z.clone()
     vol_err = X.new_zeros(X.shape[:-2])
-    for t, _, corners, cw in _color_plan(arr):
+    last_px = None
+    for t, p, corners, cw in _color_plan(arr):
+        if exchange is not None and last_px is not None and p[0] != last_px:
+            X, Y, Z = exchange(X, Y, Z, p[0])
+        last_px = p[0]
         ok = _cube_mask(cw, arr.dims, X.device) > 0.0
         pc = [[comp[..., b, o:o + lh].clone() for comp in (X, Y, Z)]
               for (b, o) in corners]
-        imc = [arr.inv_mass_blocks[b, o:o + lh] for (b, o) in corners]
+        imc = [arr.inv_mass_blocks[..., b, o:o + lh] for (b, o) in corners]
         newp, verr = _solve_color(pc, imc, arr.inv_rest_pose[t],
                                   arr.inv_rest_volume, dt,
                                   params.dev_compliance, params.vol_compliance)
@@ -284,6 +297,10 @@ def _gs_sweep(X, Y, Z, arr: NHGridArrays, dt, params: PhysicsParams):
                 comp[..., b, o:o + lh] += torch.where(
                     ok, newp[k][c] - pc[k][c], 0.0)
         vol_err = vol_err + torch.where(ok, verr, 0.0).sum(dim=-1)
+    if exchange is not None:
+        # the last px=1 colours updated the shared planes on the left slabs:
+        # refresh the right copies before collide
+        X, Y, Z = exchange(X, Y, Z, 0)
     return X, Y, Z, vol_err
 
 
@@ -322,17 +339,21 @@ def collide_grab_phase(X, Y, Z, PX, PY, PZ, pid, params: PhysicsParams, dt,
 
 
 def _substep_blocks(carry, arr: NHGridArrays, params: PhysicsParams, dt,
-                    grab_id, grab_pos):
-    """One substep on parity-block state.  Returns (new carry, (previous
-    positions, vol_err / num_tets))."""
+                    grab_id, grab_pos, exchange=None, x_offset=None):
+    """One substep on parity-block state.  ``exchange`` goes to the sweep;
+    ``x_offset`` (a tensor broadcasting against the lanes) shifts the local
+    particle ids of the grab decode to global ones on the slab path.
+    Returns (new carry, (previous positions, vol_err / num_tets))."""
     X, Y, Z, VX, VY, VZ = carry
     PX, PY, PZ = X, Y, Z
     X, Y, Z, VX, VY, VZ = predict_phase(arr.inv_mass_blocks, X, Y, Z, VX, VY,
                                         VZ, params, dt)
-    X, Y, Z, vol_err = _gs_sweep(X, Y, Z, arr, dt, params)
+    X, Y, Z, vol_err = _gs_sweep(X, Y, Z, arr, dt, params, exchange)
     _, lh, lhp = _geometry(arr.dims)
     pid = torch.nn.functional.pad(_block_pid(arr.dims, X.device),
                                   (0, lhp - lh), value=-2)
+    if x_offset is not None:
+        pid = torch.where(pid >= 0, pid + x_offset, pid)
     carry = collide_grab_phase(X, Y, Z, PX, PY, PZ, pid, params, dt, grab_id,
                                grab_pos)
     return carry, ((PX, PY, PZ), vol_err / arr.num_tets)
@@ -388,3 +409,120 @@ def step_frame(state: SimState, arr: NHGridArrays, params: PhysicsParams,
         gid[None], gpos[None], vol_err=True)
     return state.replace(pos=unplanes(pos[0]), prev_pos=unplanes(prev[0]),
                          vel=unplanes(vel[0])), vol_err[0]
+
+
+# -- x-slab decomposition ------------------------------------------------------
+#
+# Gauss-Seidel is sequential over colours, so the polar engine's one halo
+# per substep cannot reproduce its trajectory.  The colour plan makes an
+# exact cut possible: with slab cuts at even cube columns, a px=0 colour
+# updates a shared vertex plane only from the right slab and a px=1 colour
+# only from the left, and no colour reads a vertex the other slab updated
+# within the same px group.  Refreshing the stale copy at the plan's px
+# flips (12 one-plane copies per substep, ``SlabMesh`` moves) gives the
+# unsharded 48-colour trajectory exactly.
+
+
+def _slab_geometry(dims, d: int):
+    """(lx, local dims) of d slabs; raises unless d divides nx into even
+    cube columns (one slab may hold any count)."""
+    nx, ny, nz = dims
+    if nx % d != 0:
+        raise ValueError(f"nx={nx} must divide evenly over {d} slabs")
+    lx = nx // d
+    if d > 1 and lx % 2 != 0:
+        raise ValueError(
+            f"cubes per slab must be even for parity-aligned cuts "
+            f"(nx={nx}, {d} slabs -> {lx})")
+    return lx, (lx, ny, nz)
+
+
+def nh_prepare(state: SimState, arr: NHGridArrays, d):
+    """SimState -> slab state (pos, vel): two lists of d tensors
+    [3, (lx+1)*gy*gz] in the stencil kernels' plane layout, the shared
+    planes in both neighbours.  ``d`` is a ``SlabMesh`` (each slab on its
+    device) or a slab count (on the state's device)."""
+    mesh = d if hasattr(d, "place") else None
+    n = mesh.size if mesh is not None else int(d)
+    _slab_geometry(arr.dims, n)
+
+    def slabs(x):
+        out = slab_planes(planes(x), arr.dims, n)
+        return mesh.place(out) if mesh is not None else out
+
+    return slabs(state.pos), slabs(state.vel)
+
+
+def nh_unprepare(slab, arr: NHGridArrays, d: int,
+                 params: PhysicsParams) -> SimState:
+    """Slab state -> SimState: each slab's first lx planes and the last
+    slab's closing plane (the copies are equal at frame ends), prev_pos
+    re-derived as pos - vel * dt and identity quaternions, as the JAX
+    package does."""
+    _slab_geometry(arr.dims, d)
+    pos = unplanes(unslab_planes(slab[0], arr.dims))
+    vel = unplanes(unslab_planes(slab[1], arr.dims))
+    quats = pos.new_zeros((arr.num_tets, 4))
+    quats[:, 3] = 1.0
+    return SimState(pos=pos, prev_pos=pos - vel * params.dt, vel=vel,
+                    quats=quats)
+
+
+def slab_inv_mass(arr: NHGridArrays, d: int):
+    """The global lumped inverse masses sliced into d slabs [(lx+1)*gy*gz]
+    (a shared plane carries the tets of both sides)."""
+    return [r[0] for r in slab_planes(arr.inv_mass.reshape(1, -1), arr.dims,
+                                      d)]
+
+
+def make_nh_sharded_step(mesh, arr: NHGridArrays, axis: str = "x"):
+    """The plain-torch slab frame step over ``mesh``: (slab state, params,
+    controls) -> (slab state, mean vol_err [num_substeps]).  Each substep
+    is ``_substep_blocks`` on every slab at once (stacked on a leading
+    axis, on the mesh's one device) with the exchange hook; the diagnostic
+    is the global mean, the slabs' local means renormalised as JAX's psum
+    does."""
+    del axis
+    d = mesh.size
+    lx, local_dims = _slab_geometry(arr.dims, d)
+    (_, hy, hz), _, _ = _geometry(local_dims)
+    hyz = hy * hz
+    last = (lx // 2) * hyz  # plane x = lx: block row 0..3, block x lx / 2
+    gyz = (arr.dims[1] + 1) * (arr.dims[2] + 1)
+    tets_local = 6 * lx * arr.dims[1] * arr.dims[2]
+    im = torch.stack(slab_inv_mass(arr, d))
+    local = dataclasses.replace(arr, dims=local_dims, inv_mass=im,
+                                inv_mass_blocks=_to_blocks(im, local_dims))
+
+    def exchange(X, Y, Z, to_px):
+        for A in (X, Y, Z):  # [d, 8, LHp]
+            lo = [A[i, 0:4, 0:hyz] for i in range(d)]
+            hi = [A[i, 0:4, last:last + hyz] for i in range(d)]
+            if to_px == 1:
+                mesh.send_left(lo, hi)  # right's plane 0 -> plane lx
+            else:
+                mesh.send_right(hi, lo)  # left's plane lx -> plane 0
+        return X, Y, Z
+
+    def step(slab, params: PhysicsParams, controls: Controls):
+        dev = mesh.device()
+        arr_l = local.to(dev)
+        gid, gpos = common.norm_grabs(controls)
+        gid, gpos = gid.to(dev), gpos.to(dev)
+        carry = tuple(_to_blocks(torch.stack(a)[:, c], local_dims)
+                      for a in slab for c in range(3))
+        x_offset = (torch.arange(d, device=dev) * (lx * gyz))[:, None, None]
+        errs = []
+        for _ in range(params.num_substeps):
+            carry, (_, err) = _substep_blocks(
+                carry, arr_l, params, params.dt, gid, gpos,
+                exchange=exchange, x_offset=x_offset)
+            errs.append(err)
+        diags = ((torch.stack(errs, dim=-1) * np.float32(tets_local)).sum(0)
+                 / np.float32(arr.num_tets) if errs
+                 else torch.zeros((0,), device=dev))
+        pos, vel = (torch.stack([_from_blocks(c, local_dims) for c in part],
+                                dim=1) for part in (carry[:3], carry[3:]))
+        return (mesh.place(pos), mesh.place(vel)), diags
+
+    return step

@@ -244,11 +244,15 @@ def _cube_valid_mask(g: GridArrays, device=None):
     return ok.to(torch.float32)
 
 
-def _solve(fx, fy, fz, quats, g: GridArrays, iters: int = EXTRACT_ITERS):
+def _solve(fx, fy, fz, quats, g: GridArrays, iters: int = EXTRACT_ITERS,
+           halo=None):
     """One Jacobi shape-matching iteration on flat padded components.
 
     fx/fy/fz: [..., Nv + gyz]; quats: [6][4] of [..., Lc]; ``g`` from
-    ``_flat_arrays``.  Returns (fx, fy, fz, new quats)."""
+    ``_flat_arrays``.  ``halo``: an optional callback (numx, numy, numz)
+    -> (numx, numy, numz) run on the numerators before they are applied;
+    the slab stepper completes the boundary planes' partial sums there.
+    Returns (fx, fy, fz, new quats)."""
     _, _, _, _, lc, _, offs = _flat_geometry(g)
     mask = _cube_valid_mask(g, fx.device)
 
@@ -304,6 +308,8 @@ def _solve(fx, fy, fz, quats, g: GridArrays, iters: int = EXTRACT_ITERS):
         return out
 
     numx, numy, numz = combine(accx), combine(accy), combine(accz)
+    if halo is not None:
+        numx, numy, numz = halo(numx, numy, numz)
     d = torch.clamp(g.den, min=EPS)
     movable = g.inv_mass > 0.0
     fx = torch.where(movable, fx + numx / d, fx)
@@ -313,10 +319,13 @@ def _solve(fx, fy, fz, quats, g: GridArrays, iters: int = EXTRACT_ITERS):
 
 
 def _substep(carry, g: GridArrays, params: PhysicsParams, dt, grab_id,
-             grab_pos):
+             grab_pos, halo=None, x_offset=0):
     """One substep on the flat components: predict, solve, collide, grab,
     velocity.  grab_id [..., G] / grab_pos [..., G, 3] address particles by
-    flat id.  Returns (new carry, positions at the substep's start)."""
+    flat id; ``x_offset`` (an int, or a tensor broadcasting against the
+    lanes) shifts the local flat ids to global ones on the slab path, and
+    ``halo`` goes to ``_solve``.  Returns (new carry, positions at the
+    substep's start)."""
     px, py, pz, vx, vy, vz, quats = carry
     movable = g.inv_mass > 0.0
 
@@ -328,7 +337,8 @@ def _substep(carry, g: GridArrays, params: PhysicsParams, dt, grab_id,
     ppx, ppy, ppz = px, py, pz
     px, py, pz = px + vx * dt, py + vy * dt, pz + vz * dt
 
-    px, py, pz, quats = _solve(px, py, pz, quats, g, params.extract_iters)
+    px, py, pz, quats = _solve(px, py, pz, quats, g, params.extract_iters,
+                               halo=halo)
 
     # collide (common.collide)
     lo, hi = params.world_min, params.world_max
@@ -342,7 +352,7 @@ def _substep(carry, g: GridArrays, params: PhysicsParams, dt, grab_id,
     pz = pz + torch.where(below, (ppz - pz) * k, 0.0)
 
     # grab overrides, one slot after another (the last one wins)
-    pid = torch.arange(px.shape[-1], device=px.device)
+    pid = torch.arange(px.shape[-1], device=px.device) + x_offset
     for s in range(grab_id.shape[-1]):
         hit = pid == grab_id[..., s, None]
         px = torch.where(hit, grab_pos[..., s, 0, None], px)
@@ -464,3 +474,171 @@ def step_frame(state: SimState, arr: GridArrays, params: PhysicsParams,
 
     new, _ = polar_stencil.step_frame(state, arr, params, controls)
     return new, state.pos.new_zeros((params.num_substeps,))
+
+
+# -- x-slab decomposition with a halo exchange --------------------------------
+#
+# The box is cut into d slabs of lx = nx / d cube columns (``SlabMesh``):
+# slab i owns cubes [i*lx, (i+1)*lx) and vertex planes [i*lx, i*lx + lx],
+# and the plane shared with each neighbour is stored by both.  Per substep
+# the only exchange is one vertex plane of partial numerators per
+# neighbour direction and component (3 * gy * gz * 4 bytes each way): each
+# owner adds its neighbour's partial sum to its own.  The two copies of a
+# shared plane stay bitwise equal (each adds the same two partial sums, and
+# IEEE addition is commutative); the sum is re-associated against the
+# unsharded engine's slab order, so the trajectories agree to rounding.
+
+
+@dataclasses.dataclass
+class GridSlabState:
+    """Per-slab state, one tensor per slab on its slab's device, in the
+    stencil kernel's layout: pos, prev and vel [3, (lx+1)*gy*gz] over the
+    slab's lx + 1 vertex planes, quats [24, lx*ny*nz] (type t, component c
+    at row 4t + c, the slab's cubes in C order)."""
+
+    pos: list
+    prev: list
+    vel: list
+    quats: list
+
+
+@dataclasses.dataclass
+class GridSlabArrays:
+    """Per-slab constants [(lx+1)*gy*gz]: the global lumped inverse mass
+    and scatter denominator, sliced (a shared plane carries the tets of
+    both sides)."""
+
+    inv_mass: list
+    den: list
+
+
+def slab_width(dims, d: int) -> int:
+    """lx, the cube columns of each of d slabs; raises unless d divides
+    nx."""
+    nx = dims[0]
+    if nx % d != 0:
+        raise ValueError(f"nx={nx} must divide evenly over {d} devices")
+    return nx // d
+
+
+def slab_planes(x, dims, d: int):
+    """[C, gx*gy*gz] (C components) -> d slabs [C, (lx+1)*gy*gz], each
+    shared plane in both neighbours."""
+    lx = slab_width(dims, d)
+    gyz = (dims[1] + 1) * (dims[2] + 1)
+    x = x.reshape(x.shape[0], dims[0] + 1, gyz)
+    return [x[:, i * lx:i * lx + lx + 1].reshape(x.shape[0], -1)
+            for i in range(d)]
+
+
+def unslab_planes(slabs, dims):
+    """Inverse of ``slab_planes``: each slab's first lx planes, and the last
+    slab's closing plane."""
+    d = len(slabs)
+    lx = slab_width(dims, d)
+    gyz = (dims[1] + 1) * (dims[2] + 1)
+    parts = [s.reshape(s.shape[0], lx + 1, gyz)[:, :lx if i < d - 1 else lx + 1]
+             for i, s in enumerate(slabs)]
+    dev = parts[0].device
+    return torch.cat([p.to(dev) for p in parts], dim=1).reshape(
+        parts[0].shape[0], -1)
+
+
+def slab_quats(q, dims, d: int):
+    """[24, nx*ny*nz] -> d slabs [24, lx*ny*nz]."""
+    lx = slab_width(dims, d)
+    q = q.reshape(24, dims[0], dims[1] * dims[2])
+    return [q[:, i * lx:(i + 1) * lx].reshape(24, -1) for i in range(d)]
+
+
+def unslab_quats(slabs):
+    dev = slabs[0].device
+    return torch.cat([s.to(dev) for s in slabs], dim=1)
+
+
+def grid_prepare(state: SimState, garr: GridArrays, mesh, axis: str = "x"):
+    """(SimState, GridArrays) -> (GridSlabState, GridSlabArrays) on
+    ``mesh``'s slabs (``axis`` names the mesh's one axis, as in JAX)."""
+    del axis
+    d, dims = mesh.size, garr.dims
+
+    def slabs(x):
+        return mesh.place(slab_planes(planes(x), dims, d))
+
+    q = quats_to_kernel(state.quats, garr).reshape(24, -1)
+    st = GridSlabState(pos=slabs(state.pos), prev=slabs(state.prev_pos),
+                       vel=slabs(state.vel),
+                       quats=mesh.place(slab_quats(q, dims, d)))
+    return st, grid_slab_arrays(garr, mesh)
+
+
+def grid_slab_arrays(garr: GridArrays, mesh) -> GridSlabArrays:
+    """The box's inverse masses and scatter denominators, sliced into
+    ``mesh``'s slabs on their devices."""
+    def slabs(x):
+        rows = slab_planes(x.reshape(1, -1), garr.dims, mesh.size)
+        return [r[0] for r in mesh.place(rows)]
+
+    return GridSlabArrays(inv_mass=slabs(garr.inv_mass), den=slabs(garr.den))
+
+
+def grid_unprepare(slab: GridSlabState, garr: GridArrays,
+                   n_devices: int) -> SimState:
+    """Slab state -> SimState, exactly (each shared plane from its left
+    owner, whose copy equals the right one's)."""
+    del n_devices  # the slab lists carry their count
+    dims = garr.dims
+    q = unslab_quats(slab.quats).reshape(6, 4, -1)
+    return SimState(pos=unplanes(unslab_planes(slab.pos, dims)),
+                    prev_pos=unplanes(unslab_planes(slab.prev, dims)),
+                    vel=unplanes(unslab_planes(slab.vel, dims)),
+                    quats=quats_from_kernel(q))
+
+
+def make_grid_sharded_step(mesh, garr: GridArrays, axis: str = "x"):
+    """The plain-torch slab frame step over ``mesh``: (GridSlabState,
+    GridSlabArrays, params, controls) -> (GridSlabState, zeros
+    [num_substeps]).  Each substep is ``_substep`` on every slab at once
+    (the slabs stacked on a leading axis, on the mesh's one device) with
+    the halo hook: two boundary-plane adds per component (``SlabMesh``)."""
+    del axis
+    d = mesh.size
+    lx = slab_width(garr.dims, d)
+    _, ny, nz = garr.dims
+    gyz = (ny + 1) * (nz + 1)
+    local = dataclasses.replace(garr, dims=(lx, ny, nz))
+
+    def halo(*nums):
+        for num in nums:  # [d, (lx+2)*gyz]: the tail plane is padding
+            mesh.add_halo([num[i, :gyz] for i in range(d)],
+                          [num[i, lx * gyz:(lx + 1) * gyz] for i in range(d)])
+        return nums
+
+    def step(slab: GridSlabState, arr: GridSlabArrays, params: PhysicsParams,
+             controls: Controls):
+        dev = mesh.device()
+        gid, gpos = common.norm_grabs(controls)
+        gid, gpos = gid.to(dev), gpos.to(dev)
+        pad = slab.pos[0].new_zeros((d, gyz))
+        g = dataclasses.replace(
+            local, inv_mass=torch.cat([torch.stack(arr.inv_mass), pad], -1),
+            den=torch.cat([torch.clamp(torch.stack(arr.den), min=EPS), pad],
+                          -1))
+        x_offset = (torch.arange(d, device=dev) * (lx * gyz))[:, None]
+        carry = to_components(torch.stack(slab.pos), torch.stack(slab.vel),
+                              torch.stack(slab.quats).reshape(d, 6, 4, -1),
+                              local)
+        prev = None
+        for _ in range(params.num_substeps):
+            carry, prev = _substep(carry, g, params, params.dt, gid, gpos,
+                                   halo=halo, x_offset=x_offset)
+        pos, vel, quats = from_components(carry, local)
+        nv = local.num_particles
+        prev = (torch.stack(slab.prev) if prev is None
+                else torch.stack([c[:, :nv] for c in prev], dim=1))
+        new = GridSlabState(pos=mesh.place(pos), prev=mesh.place(prev),
+                            vel=mesh.place(vel),
+                            quats=mesh.place(quats.reshape(d, 24, -1)))
+        return new, pos.new_zeros((params.num_substeps,))
+
+    return step

@@ -9,8 +9,10 @@ never waits for the device: ``positions``, ``surface_mesh``,
 ``diagnostics`` and ``start_grab`` (which returns the grabbed id) are the
 calls that synchronise.  This package carries the Neo-Hookean and polar
 engines: ``Body`` runs either through its solver (one fused-kernel launch
-per frame on CUDA), ``add_body_batch`` runs ``FusedGSBody``,
-``FusedPolarBody`` or the polar ``BatchedBody``.  ``add_grid_body`` runs a
+per frame on CUDA, or a multi-block kernel per level or pass where the
+body outgrows one block's shared memory), ``add_body_batch`` runs
+``FusedGSBody``, ``FusedPolarBody`` or ``BatchedBody``.  ``add_grid_body``
+runs a
 ``grid_mesh`` box through the stencil engines (``Body`` with grid arrays,
 or ``PackedGridBody``, whose state stays in the kernels' layout), and
 ``add_grid_body_batch`` steps B boxes at once (``GridBodyBatch``).  One
@@ -35,8 +37,9 @@ import numpy as np
 import torch
 
 from . import diag
-from .kernels import gs_fused, nh_pieces, polar_fused, polar_pieces
-from .kernels.batch import FusedBatch
+from .kernels import (gs_fused, gs_levels, nh_pieces, polar_fused,
+                      polar_jacobi, polar_pieces)
+from .kernels.batch import SMEM_LIMIT, FusedBatch
 from .kernels.gs_fused import FusedGSBody
 from .kernels.gs_ordered import OrderedGSBody
 from .kernels.polar_fused import FusedPolarBody
@@ -185,7 +188,10 @@ _PIECES_BUILDERS = {"polar_pieces": polar_pieces.build_pieces_arrays,
 class Body:
     """One soft body: mesh constants + simulation state + interaction.  The
     pieces engines build their tables with the pins baked in (default
-    layout, 2,048 tets per piece); pass ``arrays=`` for another."""
+    layout, 2,048 tets per piece); pass ``arrays=`` for another.  A
+    neohookean or polar body runs its frames through ``kernel``: the fused
+    frame kernel (``gs_fused``, ``polar_fused``) where the body fits one
+    block's shared memory, else ``gs_levels`` / ``polar_jacobi``."""
 
     def __init__(
         self,
@@ -222,9 +228,19 @@ class Body:
                 "pinned= has no effect when arrays= is prebuilt — bake the "
                 "pins in (build_arrays/build_grid_arrays take pinned=)"
             )
-        if self.device.type == "cuda" and not (grid or pieces):
-            kernel = polar_fused if engine == "polar" else gs_fused
-            kernel.check_fits(mesh.num_particles)
+        # the kernel module of a neohookean or polar body's frames: the
+        # fused frame kernel where the body fits one block's shared memory,
+        # else the multi-block kernels (on a CPU state all run the same
+        # plain path)
+        self.kernel = None
+        self._step_frame = self.engine_mod.step_frame
+        if not (grid or pieces):
+            fused, large = ((polar_fused, polar_jacobi) if engine == "polar"
+                            else (gs_fused, gs_levels))
+            fits = fused.smem_bytes(mesh.num_particles) <= SMEM_LIMIT
+            self.kernel = fused if fits else large
+            if not fits:
+                self._step_frame = large.step_frame
         self.arrays = (
             arrays.to(self.device) if arrays is not None
             else build_arrays(mesh, density=density, coloring=coloring,
@@ -241,7 +257,7 @@ class Body:
     # -- stepping ---------------------------------------------------------
     def step(self, params: PhysicsParams):
         """One frame; returns its vol_errs [num_substeps] (device tensor)."""
-        self.state, self.last_diag = self.engine_mod.step_frame(
+        self.state, self.last_diag = self._step_frame(
             self.state, self.arrays, params, self.controls
         )
         return self.last_diag
@@ -325,20 +341,23 @@ class Body:
         return self._need_surface().mesh_data(self.state.pos, quats, normals)
 
 
-class BatchedBody(FusedPolarBody):
+class BatchedBody(FusedBatch):
     """N bodies of one mesh as one flattened disjoint mesh, body-major
     (``replicate_mesh``): flat particle ``b * N + i`` is particle i of body
     b, and the surface of all bodies is one concatenated mesh.  Each body
     has one grab slot; ``positions`` is a property, as in the JAX package.
 
-    Only the polar engine is ported.  Its bodies step through the fused
-    polar frame kernel as a [B, N] batch, one block per body, with the
-    single mesh's tables: the flat mesh is disjoint and body-major, so that
-    gives the numbers the flat mesh would (a particle's incident corners
-    keep their order), and a flat mesh of 8 dragons (9,872 particles, 355 KB
-    of particle planes) would not fit one block's shared memory.  So this is
-    a ``FusedPolarBody`` with the flat layout's surface and grab by flat
-    particle id."""
+    The bodies step as a [B, N] batch of one fused frame kernel with the
+    single mesh's tables, one block per body: the polar engine through
+    ``polar_fused.polar_frame`` (a particle's incident corners keep their
+    order), the neohookean engine through ``gs_fused.gs_frame`` on the
+    ordered schedule.  The flat mesh is disjoint and body-major, so its
+    order-preserving levels are each body's own levels, and the batch gives
+    the numbers the flat mesh would; a flat mesh of 8 dragons (9,872
+    particles, 355 KB of particle planes) would not fit one block's shared
+    memory.  So this is a fused batch with the flat layout's surface and
+    grab by flat particle id; ``quats`` is None for the neohookean
+    engine."""
 
     def __init__(
         self,
@@ -350,15 +369,24 @@ class BatchedBody(FusedPolarBody):
         seed: int = 0,
         device="cuda",
     ):
-        if engine != "polar":
+        if engine not in ("polar", "neohookean"):
             raise ValueError(
-                f"BatchedBody(engine={engine!r}): only the polar engine is "
-                "ported for flat batches (see ROADMAP.md); use "
-                "backend='fused' for neohookean"
+                f"BatchedBody(engine={engine!r}): flat batches run the polar "
+                "and neohookean engines"
             )
-        super().__init__(mesh, num_bodies, density=density, jitter=jitter,
-                         seed=seed, device=device)
+        polar = engine == "polar"
+        (polar_fused if polar else gs_fused).check_fits(mesh.num_particles)
+        super().__init__(mesh, num_bodies, jitter, seed, device)
         self.engine = engine
+        self.arrays = build_arrays(mesh, density,
+                                   coloring=None if polar else "ordered",
+                                   device=self.device)
+        self.quats = None
+        if polar:
+            self.quats = torch.zeros((num_bodies, mesh.num_tets, 4),
+                                     dtype=torch.float32, device=self.device)
+            self.quats[..., 3] = 1.0
+        self.last_diag: Optional[torch.Tensor] = None
         self.flat_mesh = replicate_mesh(mesh, num_bodies, jitter=jitter, seed=seed)
         self._surface = (
             _Surface(self.flat_mesh, self.device)
@@ -366,13 +394,36 @@ class BatchedBody(FusedPolarBody):
         )
         self._many_export = None
 
+    def step(self, params: PhysicsParams, frames: int = 1):
+        """Advance every body by ``frames`` frames (no sync); the neohookean
+        engine keeps the last frame's vol_err [num_bodies, num_substeps]."""
+        for _ in range(frames):
+            if self.quats is None:
+                self.pos, self.prev_pos, self.vel, self.last_diag = (
+                    gs_fused.gs_frame(self.pos, self.vel, self.arrays, params,
+                                      self.grab_id, self.grab_pos))
+            else:
+                self.pos, self.prev_pos, self.vel, self.quats = (
+                    polar_fused.polar_frame(
+                        self.pos, self.vel, self.quats, self.arrays, params,
+                        self.grab_id, self.grab_pos))
+        return self.last_diag
+
+    def _flat_quats(self):
+        return None if self.quats is None else self.quats.reshape(-1, 4)
+
+    def quaternions(self) -> np.ndarray:
+        """[num_bodies, M, 4] per-tet quaternions (polar engine)."""
+        if self.quats is None:
+            raise ValueError("the neohookean engine carries no quaternions")
+        return self.quats.cpu().numpy()
+
     def enable_render_export(self):
         """Set up ``step_many_export`` for the whole batch's surface."""
         if self._surface is None:
             raise ValueError("mesh has no embedded render surface")
         self._many_export = _make_many_export(
-            self.step, lambda: self.pos.reshape(-1, 3),
-            lambda: self.quats.reshape(-1, 4))
+            self.step, lambda: self.pos.reshape(-1, 3), self._flat_quats)
 
     def step_many_export(self, params: PhysicsParams, frames: int,
                          normals: str = "smooth"):
@@ -393,7 +444,7 @@ class BatchedBody(FusedPolarBody):
         if self._surface is None:
             raise ValueError("mesh has no embedded render surface")
         return self._surface.mesh_data(self.pos.reshape(-1, 3),
-                                       self.quats.reshape(-1, 4), normals)
+                                       self._flat_quats(), normals)
 
     def grab_particle(self, flat_pid: int, point) -> int:
         """Grab a known flat particle id (a viewer's raycast hit) in its
@@ -800,8 +851,9 @@ class World:
     ):
         """Add a batch of bodies of one mesh, each with its own grab.
 
-        backend="flat"  — ``BatchedBody``, one flattened disjoint mesh (the
-                          polar engine; neohookean is not ported here);
+        backend="flat"  — ``BatchedBody``, one flattened disjoint mesh
+                          (polar or neohookean, the latter on the ordered
+                          schedule);
         backend="fused" — ``FusedGSBody`` (neohookean) or ``FusedPolarBody``
                           (polar): one fused-kernel launch per frame;
         backend="fused_ordered" — ``OrderedGSBody``: the neohookean engine in
