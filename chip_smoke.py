@@ -10,8 +10,12 @@ code is non-zero:
   2. the Neo-Hookean frame kernel (gs_frame) vs its plain-torch twin on the
      card, greedy schedule, 8 jittered dragons, 3 frames, and a mesh wider
      than a block;
-  3. the same for one dragon Body on the ordered schedule, 1 frame, and
-     in contact: dragons resting on the ground after 120 frames (ordered
+  3. the same for one dragon Body on the ordered schedule, 1 frame; the
+     kernel's two level walks (warp 0 with __syncwarp(), which walk()
+     picks for the ordered schedule's 22-slot levels, and every thread
+     with __syncthreads()) bit for bit alike on 8 jittered ordered dragons
+     with a grab, 3 frames (positions, velocities, vol_err); and in
+     contact: dragons resting on the ground after 120 frames (ordered
      B=1 1 frame, greedy B=8 3 frames) and two dragons pushed past the
      side walls of the world at friction k = 0.1, 2 frames, so the clamp,
      friction and bound clip of the kernel are held to the plain twin too;
@@ -21,19 +25,24 @@ code is non-zero:
      engine="neohookean", backend="fused"); the kernel's launch counter
      must rise by exactly the frames stepped, and stepping must not
      synchronise with the host;
-  5. dragon substeps/s of the Neo-Hookean kernel and its plain twin;
+  5. dragon substeps/s of the Neo-Hookean kernel and its plain twin, and
+     the kernel's us per level;
   6. the polar frame kernel (polar_frame) vs its plain twin at 20 substeps,
      after every frame: 8 jittered dragons with 3 pinned particles and a
      grab, 3 frames; 8 dragons resting on the ground, 1 frame; two dragons
      past the walls at friction k = 0.1, 2 frames; each beside the kernel's
-     own spread from positions 1 ulp apart; a bitwise repeat; the
-     shared-memory refusal;
+     own spread from positions 1 ulp apart; a bitwise repeat; in each case
+     the kernel at every cluster size the card runs (1, 2, 4, 8, 16 blocks
+     per body) bit for bit cs = 1 after every frame, and polar_frame bit
+     for bit its own choice of size; the shared-memory refusal;
   7. the polar main path: World(default_gpu_params()) with no device ->
      add_body(dragon, engine="polar"), then add_body_batch(dragon, 8) (the
      JAX default: polar, flat) and add_body_batch(..., backend="fused"),
      each 120 frames with no host sync, a grab, 30 frames, both surface
      shadings and diagnostics; the launch counter equals the frames;
-  8. polar substeps/s of the kernel and its plain twin at B = 1, 8, 132;
+  8. polar substeps/s of the kernel and its plain twin at B = 1, 8, 132,
+     with the cluster size each takes and us per substep, then us per
+     substep of one dragon at every cluster size;
   9. the grid stencil kernels, polar_stencil (K4) and nh_stencil (K3), vs
      their plain twins after every frame at 5 substeps (the scale
      example's): a (4, 3, 2) and a (12, 9, 7) box with 2 pinned particles,
@@ -119,6 +128,7 @@ where CUDA is unavailable.
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -199,6 +209,31 @@ def kernel_vs_plain(tt, gs_fused, dragon, params):
           f"max|dvol_err| {de1:.3e} (tol 1e-5); "
           f"L={one.arrays.slot_valid.shape[0]}", flush=True)
     check(dp1 <= 2e-5 and de1 <= 1e-5, "phase 3 disagrees")
+
+    # the two level walks of the kernel on the ordered schedule (C <= 32,
+    # where walk() picks the warp): 8 jittered dragons with a grab, 3 frames,
+    # bit for bit in positions, velocities and vol_err
+    walks = gs_fused.FusedGSBody(dragon, num_bodies=8, coloring="ordered",
+                                 jitter=0.2)
+    walks.set_grab(2, 100, [0.1, 1.4, 0.0])
+    C = walks.arrays.slot_valid.shape[1]
+    runs = {}
+    for w in ("warp", "block"):
+        pos, vel, out = walks.pos, walks.vel, []
+        for _ in range(3):
+            pos, _, vel, verr = gs_fused._gs_frame_cuda(
+                pos, vel, walks.arrays, params, walks.grab_id,
+                walks.grab_pos, level_walk=w)
+            out += [pos, vel, verr]
+        runs[w] = out
+    sync()
+    same = all(torch.equal(a, b) for a, b in zip(runs["warp"], runs["block"]))
+    print(f"phase 3 ordered B=8 (C={C}, walk() = {gs_fused.walk(C)!r}): warp "
+          f"walk vs block walk, 3 frames, positions, velocities and vol_err "
+          f"bitwise {same}", flush=True)
+    check(gs_fused.walk(C) == "warp", "the ordered schedule is not walked "
+          "by a warp")
+    check(same, "the warp and block walks differ")
 
     # a pinned particle (the predict gate) and two grabs on one body
     box = tt.grid_mesh(3, 3, 3, cell=0.25, origin=(-0.375, 0.5, -0.375))
@@ -411,8 +446,10 @@ def timings(tt, gs_fused, dragon, label):
         k_ms, p_ms = k_ms * 1e3, p_ms * 1e3
         out[name] = (k_ms, p_ms)
         s = params.num_substeps
+        L, C = arrays.slot_valid.shape
         print(f"phase 5 [{label}] dragon {name}: kernel {s / k_ms * 1e3:.1f} "
-              f"substeps/s ({k_ms:.4f} ms/frame), plain torch "
+              f"substeps/s ({k_ms:.4f} ms/frame, {k_ms * 1e3 / (L * s):.4f} "
+              f"us per level of {L}, {gs_fused.walk(C)} walk), plain torch "
               f"{s / p_ms * 1e3:.1f} substeps/s ({p_ms:.4f} ms/frame)",
               flush=True)
     return out
@@ -452,6 +489,22 @@ def polar_case(polar_fused, body, params, frames, tol, label):
 
     got = run(polar_fused.polar_frame, pos)
     want = run(polar_fused.polar_frame_reference, pos)
+    # every cluster size the card runs, each bit for bit cs = 1
+    waves = polar_fused.active_clusters(pos.device, pos.shape[1])
+    sizes = [cs for cs, count in waves.items() if count >= 1]
+    by_cs = {cs: run(functools.partial(polar_fused._polar_frame_cuda, cs=cs),
+                     pos) for cs in sizes}
+    same = {cs: all(torch.equal(a, b) for f, g in zip(by_cs[cs], by_cs[1])
+                    for a, b in zip(f, g)) for cs in sizes}
+    auto = polar_fused.cluster_size(pos.shape[0], polar_fused.MAX_CLUSTER,
+                                    waves)
+    print(f"phase 6 polar {label}: cluster sizes {sizes} (this batch takes "
+          f"{auto}), each vs cs=1 after every frame, bitwise: {same}",
+          flush=True)
+    check(all(same.values()), f"polar {label}: a cluster size differs from 1")
+    check(all(torch.equal(a, b) for f, g in zip(got, by_cs[auto])
+              for a, b in zip(f, g)), f"polar {label}: polar_frame is not "
+          f"its cluster size {auto}")
     moved = run(polar_fused.polar_frame,
                 torch.nextafter(pos, torch.full_like(pos, 10.0)))
     again = run(polar_fused.polar_frame, pos)[-1]
@@ -603,6 +656,8 @@ def polar_timings(tt, polar_fused, dragon, label):
 
     params = tt.default_gpu_params()
     out = {}
+    waves = polar_fused.active_clusters(torch.device("cuda", 0),
+                                        dragon.num_particles)
     for name, b in (("B=1 Body", 1), ("B=8", 8), ("B=132", 132)):
         if b == 1:
             body = Body(dragon, engine="polar")
@@ -630,10 +685,30 @@ def polar_timings(tt, polar_fused, dragon, label):
         k_ms, p_ms = k_ms * 1e3, p_ms * 1e3
         out[name] = (k_ms, p_ms)
         s = params.num_substeps
-        print(f"phase 8 [{label}] polar dragon {name}, {s} substeps/frame: "
-              f"kernel {s / k_ms * 1e3:.1f} substeps/s per body ({k_ms:.4f} "
-              f"ms/frame, {b * s / k_ms * 1e3:.1f} body-substeps/s), plain "
+        cs = polar_fused.cluster_size(b, polar_fused.MAX_CLUSTER, waves)
+        print(f"phase 8 [{label}] polar dragon {name}, {s} substeps/frame, "
+              f"cluster size {cs}: kernel {s / k_ms * 1e3:.1f} substeps/s per "
+              f"body ({k_ms:.4f} ms/frame, {k_ms * 1e3 / s:.3f} us per "
+              f"substep, {b * s / k_ms * 1e3:.1f} body-substeps/s), plain "
               f"torch {s / p_ms * 1e3:.1f} substeps/s ({p_ms:.4f} ms/frame)",
+              flush=True)
+    body = polar_fused.FusedPolarBody(dragon, 1)
+    for cs, count in waves.items():
+        if count < 1:
+            continue
+        state = [body.pos, body.vel, body.quats]
+
+        def step(k, cs=cs):
+            for _ in range(k):
+                p, _, v, q = polar_fused._polar_frame_cuda(
+                    *state, body.arrays, params, body.grab_id, body.grab_pos,
+                    cs=cs)
+                state[:] = p, v, q
+
+        ms = per_frame(step, lambda: state[0].sum(), 20, 120) * 1e3
+        print(f"phase 8 [{label}] polar dragon B=1 at cluster size {cs} "
+              f"({count} such clusters at once): {ms:.4f} ms/frame, "
+              f"{ms * 1e3 / params.num_substeps:.3f} us per substep",
               flush=True)
     return out
 

@@ -49,9 +49,36 @@ case) after 1 and 3 frames, beside the build's own spread from positions
 1 ulp apart, and the largest difference between the two builds.
 The card's name, power limit, SM clock and power draw are printed before
 and after.  It exits non-zero where CUDA is unavailable.
+
+    python3 profile_frame.py --parent DIR
+
+holds the dragon frame kernels against an earlier version of the port
+instead: DIR holds that version's ``tetsim_torch/`` and
+``tetsim_tpu/assets/`` (for example ``git archive <commit> tetsim_torch
+tetsim_tpu/assets`` unpacked into a directory that .gitignore lists), which
+is imported under another name and builds its own kernels into its own
+``_build/``.  For gs_frame ordered B = 1, greedy B = 1 and 8 (5 substeps)
+and polar_frame B = 1, 8 and 132 (20 substeps) it times the earlier
+version (A) and this one (B) in the order A B B A, each through its own
+FusedGSBody / FusedPolarBody, in the columns above, and says whether the
+two give the same bits after 3 frames from the same start.
+
+    python3 profile_frame.py --phases
+
+prints where a substep of polar_frame goes: a build with
+``-DPOLAR_FRAME_PHASES`` has block 0 of each launch count the SM cycles of
+predict, phase A (the tets), the first cluster barrier, phase B (the
+particles and the replica stores) and the second barrier, each phase
+ended by a __syncthreads() that the shipped build does not have; one
+dragon at each cluster size, 8 dragons and 132 dragons at the size they
+take, 20 frames of 20 substeps after 3 to warm up.
 """
+import argparse
 import contextlib
+import importlib
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -297,12 +324,141 @@ def pieces_profile(tt, pending):
     return retimes
 
 
+AB_SHAPES = (("gs ordered B=1", "gs", 1, "ordered", 20, 80),
+             ("gs greedy B=1", "gs", 1, "greedy", 50, 450),
+             ("gs greedy B=8", "gs", 8, "greedy", 50, 450),
+             ("polar B=1", "polar", 1, None, 20, 120),
+             ("polar B=8", "polar", 8, None, 20, 120),
+             ("polar B=132", "polar", 132, None, 20, 120))
+
+
+def load_version(root: str, name: str):
+    """The package ``root/tetsim_torch`` imported as ``name``."""
+    pkg = os.path.join(os.path.abspath(root), "tetsim_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def versions_ab(tt, parent_root: str) -> None:
+    """The dragon frame kernels of an earlier version (A) and of this one
+    (B), A B B A per shape, then their bits after 3 frames."""
+    from tetsim_torch.kernels import gs_fused, polar_fused
+
+    load_version(parent_root, "parent_tetsim_torch")
+    kernels = {"A": {k: importlib.import_module(f"parent_tetsim_torch.kernels."
+                                                f"{m}")
+                     for k, m in (("gs", "gs_fused"), ("polar", "polar_fused"))},
+               "B": {"gs": gs_fused, "polar": polar_fused}}
+    dragon = tt.load_dragon()
+
+    def body(side, kind, b, coloring):
+        mod = kernels[side][kind]
+        if kind == "gs":
+            return mod.FusedGSBody(dragon, num_bodies=b, coloring=coloring,
+                                   jitter=0.2)
+        return mod.FusedPolarBody(dragon, num_bodies=b, jitter=0.2)
+
+    pending = []
+    for name, kind, b, coloring, k1, k2 in AB_SHAPES:
+        mod = kernels["B"][kind]
+        if kind == "gs":
+            params, kernel = tt.default_cpu_params(), "gs_frame_kernel"
+        else:
+            params, kernel = tt.default_gpu_params(), "polar_frame_kernel"
+        for side in "ABBA":
+            bd = body(side, kind, b, coloring)
+            work = ((mod.frame_flops(bd.arrays, params, b),
+                     mod.frame_bytes(bd.arrays, params, b, 1)) if kind == "gs"
+                    else (mod.frame_flops(bd.arrays, params, b),
+                          mod.frame_bytes(bd.arrays, b, 1)))
+            pending.append((f"{name} [{side}]",
+                            measure(bd, params, k1, k2, kernel, *work)[1]))
+    for name, profile in pending:
+        print(name, json.dumps(profile()), flush=True)
+    for name, kind, b, coloring, _, _ in AB_SHAPES:
+        params = (tt.default_cpu_params() if kind == "gs"
+                  else tt.default_gpu_params())
+        out = {}
+        for side in "AB":
+            bd = body(side, kind, b, coloring)
+            bd.step(params, 3)
+            out[side] = [bd.pos, bd.prev_pos, bd.vel] + (
+                [bd.last_diag] if kind == "gs" else [bd.quats])
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(out["A"], out["B"]))
+        worst = max(max_diff(x, y) for x, y in zip(out["A"], out["B"]))
+        print(f"{name}: A vs B after 3 frames, bitwise {same} (largest "
+              f"difference {worst:.3e})", flush=True)
+
+
+PHASES = ("predict", "phase A", "barrier 1", "phase B", "barrier 2")
+
+
+def polar_phases(tt) -> None:
+    """SM cycles per substep of each phase of polar_frame on block 0."""
+    import ctypes
+
+    from tetsim_torch.kernels import polar_fused
+
+    dragon = tt.load_dragon()
+    params = tt.default_gpu_params()
+    with polar_build(polar_fused, ("-DPOLAR_FRAME_PHASES",)):
+        lib = polar_fused.library()
+        lib.polar_frame_phase_cycles.argtypes = [ctypes.c_void_p]
+        waves = polar_fused.active_clusters(torch.device("cuda", 0),
+                                            dragon.num_particles)
+        cases = [(1, cs) for cs, n in waves.items() if n >= 1] + [
+            (b, polar_fused.cluster_size(b, polar_fused.MAX_CLUSTER, waves))
+            for b in (8, 132)]
+        cycles = (ctypes.c_ulonglong * 6)()
+        for b, cs in cases:
+            body = polar_fused.FusedPolarBody(dragon, b)
+            state = [body.pos, body.vel, body.quats]
+
+            def step(k):
+                for _ in range(k):
+                    p, _, v, q = polar_fused._polar_frame_cuda(
+                        *state, body.arrays, params, body.grab_id,
+                        body.grab_pos, cs=cs)
+                    state[:] = p, v, q
+                torch.cuda.synchronize()
+
+            step(3)
+            lib.polar_frame_phase_cycles(cycles)
+            step(20)
+            if lib.polar_frame_phase_cycles(cycles):
+                raise RuntimeError("polar_frame_phase_cycles failed")
+            per = [cycles[k] / cycles[5] for k in range(5)]
+            print(f"polar_frame B={b} cs={cs}: SM cycles per substep on block "
+                  "0: " + ", ".join(f"{n} {c:.0f}" for n, c in zip(PHASES, per))
+                  + f"; total {sum(per):.0f}", flush=True)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", help="an earlier version to time "
+                        "against (see the module docstring)")
+    parser.add_argument("--phases", action="store_true",
+                        help="polar_frame's cycles per phase of a substep")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_frame: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
     import tetsim_torch as tt
+    if args.parent or args.phases:
+        print(card(), flush=True)
+        if args.parent:
+            versions_ab(tt, args.parent)
+        if args.phases:
+            polar_phases(tt)
+        print(card(), flush=True)
+        return 0
     from tetsim_torch.kernels import gs_fused, gs_ordered, polar_fused
     from tetsim_torch.kernels.gs_fused import FusedGSBody
     from tetsim_torch.kernels.polar_fused import FusedPolarBody

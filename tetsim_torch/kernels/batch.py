@@ -1,6 +1,7 @@
 """What the fused frame kernels share: the argument checks of their
-wrappers, and ``FusedBatch``, the state and per-body grab API of B bodies
-of one mesh (the base of ``FusedGSBody`` and ``FusedPolarBody``)."""
+wrappers, the per-launch host work they do once (``cached_params``,
+``prepared``), and ``FusedBatch``, the state and per-body grab API of B
+bodies of one mesh (the base of ``FusedGSBody`` and ``FusedPolarBody``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,6 +11,39 @@ from ..mesh import TetMesh
 from ..state import check_device
 
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (227 KB)
+
+_params_cache: dict = {}  # (build function, parameter values) -> struct
+
+
+def cached_params(params, build):
+    """``build(params)``, a kernel's struct of frame scalars, made once per
+    build function and set of parameter values (``PhysicsParams`` is
+    mutable, so the key is its values, not the object)."""
+    key = (build, params.gravity, params.time_scale, params.time_step,
+           params.friction, params.dev_compliance, params.vol_compliance,
+           params.num_substeps, params.extract_iters,
+           params.world_min.tobytes(), params.world_max.tobytes())
+    hit = _params_cache.get(key)
+    if hit is None:
+        if len(_params_cache) >= 64:
+            _params_cache.clear()
+        hit = _params_cache[key] = build(params)
+    return hit
+
+
+def prepared(lib, name: str, device, n: int) -> int:
+    """Calls ``lib.<name>_prepare(n)``, which sets the kernel's function
+    attributes on the current device for bodies of up to n particles (the
+    largest dynamic shared memory it may take, one value per kernel), once
+    per library and device and again only for a larger n; returns its CUDA
+    error (0 = set, now or before)."""
+    largest = lib.__dict__.setdefault("prepared", {})
+    if largest.get(device.index, -1) >= n:
+        return 0
+    err = getattr(lib, f"{name}_prepare")(n)
+    if err == 0:
+        largest[device.index] = n
+    return err
 
 
 def expect(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -15,21 +15,44 @@
 //
 // Design: one thread block per body.  The body's nine particle planes
 // (pos, prev, vel; x, y, z) live in shared memory (9 * 4 * N bytes, 44 KB
-// for the dragon).  Threads stride over the slots of a level; the tets of a
-// level are vertex-disjoint, so their corner reads and write-backs never
-// collide, and padded slots (slot_valid false, slot_tets 0) are skipped.
-// The slot-major tables of TetArrays stay in global memory and are read in
-// order through L1/L2.  __syncthreads() separates predict, every level and
-// collide.
+// for the dragon).  Predict and collide stride over the particles on all
+// threads (each thread owns the same particles in both, so only the level
+// walk needs block barriers around it).  The tets of a level are
+// vertex-disjoint, so their corner reads and write-backs never collide,
+// and padded slots (slot_valid false) are skipped.  The slot-major tables
+// of TetArrays stay in global memory.
 //
-// What bounds it at the dragon's size: barrier latency, not bytes.  The
-// ordered schedule runs 703 levels of at most 22 tets, so Body.step pays
-// 703 * 5 dependent barrier rounds per frame on one SM while the other
-// SMs idle; the greedy schedule (32 levels of up to 228 tets) pays 160.
-// A later change could prefetch the next level's tables into registers
-// before the barrier, keep a body's tables in shared memory, run several
-// bodies per block with one warp per level slice, or capture many frames
-// in one launch or a CUDA graph to hide the per-frame launch cost.
+// What bounds it on an H100: latency, not bytes or operations.  A frame
+// is L x substeps dependent level rounds on one SM, and each round is the
+// dependent chain of one tet's two projections (a square root, two
+// divides and some 400 dependent multiply-adds) plus the barrier that
+// orders the round's shared-memory writes before the next round's reads.
+// The first design paid, per round, a __syncthreads() of 256 threads and,
+// after it, the loads of the slot's tables from L1/L2 at the head of the
+// chain: 0.80 us per level on the ordered schedule (703 levels of at most
+// 22 tets; 2.8074 ms per frame at 5 substeps) and 1.16 us on the greedy
+// one (32 levels of up to 228 tets; 0.185 ms).  This design does two
+// things about it:
+//   - the warp walk: where a schedule's widest level has at most 32 slots
+//     (the ordered schedule; World.add_body's default), warp 0 walks the
+//     levels, lane l on slot l, with __syncwarp() between levels in place
+//     of a block barrier (a warp barrier also orders the lanes' shared
+//     memory writes before the next level's reads, and assumes no
+//     lockstep); lanes past a level's slots skip the solve but reach the
+//     barrier.  gs_ordered.cu (K7) walks the same order this way;
+//   - the prefetch, in both walks: each thread loads the next level's
+//     tables of its first slot (corner ids, valid flag, the 9 rest-pose
+//     floats, inverse volume, the 4 inverse masses) into registers before
+//     it solves the current level, so the load's latency hides behind the
+//     solve.  The tables do not depend on the state, so this is exact.
+//     Slots past the block's width (C > 256, meshes wider than the dragon)
+//     are loaded where they are solved.
+// Which walk runs is chosen on the host from C (gs_fused.walk) and passed
+// as `walk`.  Thread l sums its slots' det F - 1 in the same order in both
+// walks, so the two give the same bits, vol_err included.  Measured on an
+// H100 at 700 W (profile_frame.py --parent, chip_smoke.py phase 5): 0.61
+// us per ordered level (2.158 ms per frame), 1.01 us per greedy level
+// (0.163 ms); K7 walks the ordered order at 0.55 us per sub-level.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,6 +75,56 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kBlockWalk = 0;  // every thread, __syncthreads() per level
+constexpr int kWarpWalk = 1;   // warp 0, __syncwarp() per level (C <= 32)
+
+// One slot's tables: the state-independent half of a tet's projection.
+struct Slot {
+  int4 t;        // corner ids
+  float ir[9];   // inverse rest pose, row-major
+  float irv;     // inverse rest volume
+  float4 w;      // corner inverse masses
+  int valid;     // slot_valid as loaded: tested only where the slot is
+                 // solved, so the prefetch never waits for its load
+};
+
+// The slot-major tables of a schedule, [L, C] each.
+struct Tables {
+  const int4* tets;      // 4 corner ids
+  const float* irp;      // 9 floats, row-major
+  const float* irv;
+  const float4* imc;     // 4 inverse masses
+  const uint8_t* valid;
+
+  __device__ __forceinline__ void load(int k, Slot& s) const {
+    s.valid = __ldg(valid + k);
+    s.t = __ldg(tets + k);
+    for (int e = 0; e < 9; ++e) s.ir[e] = __ldg(irp + (size_t)k * 9 + e);
+    s.irv = __ldg(irv + k);
+    s.w = __ldg(imc + k);
+  }
+};
+
+// Projects a valid slot's tet in place on the planes; returns det F - 1.
+__device__ __forceinline__ float solve_slot(const Slot& s, float* X, float* Y,
+                                            float* Z, const FrameParams& P) {
+  const int ids[4] = {s.t.x, s.t.y, s.t.z, s.t.w};
+  float p[4][3];
+  for (int c = 0; c < 4; ++c) {
+    p[c][0] = X[ids[c]];
+    p[c][1] = Y[ids[c]];
+    p[c][2] = Z[ids[c]];
+  }
+  const float w[4] = {s.w.x, s.w.y, s.w.z, s.w.w};
+  const float verr = nh::solve_tet(p, s.ir, s.irv, w, P.dev_scale,
+                                   P.vol_scale, P.gamma);
+  for (int c = 0; c < 4; ++c) {
+    X[ids[c]] = p[c][0];
+    Y[ids[c]] = p[c][1];
+    Z[ids[c]] = p[c][2];
+  }
+  return verr;
+}
 
 __global__ void __launch_bounds__(kThreads)
 gs_frame_kernel(const float* __restrict__ pos_in,    // [B,N,3]
@@ -69,7 +142,7 @@ gs_frame_kernel(const float* __restrict__ pos_in,    // [B,N,3]
                 const int* __restrict__ grab_id,     // [B,G], -1 inactive
                 const float* __restrict__ grab_pos,  // [B,G,3]
                 int N, int L, int C, int G, int S, int num_tets,
-                FrameParams P) {
+                int walk, FrameParams P) {
   extern __shared__ float smem[];
   float* X = smem;
   float* Y = X + N;
@@ -88,6 +161,7 @@ gs_frame_kernel(const float* __restrict__ pos_in,    // [B,N,3]
   const float* vin = vel_in + (size_t)b * N * 3;
   const int* gid = grab_id + (size_t)b * G;
   const float* gpos = grab_pos + (size_t)b * G * 3;
+  const Tables tab{slot_tets, slot_irp, slot_irv, slot_imc, slot_valid};
 
   for (int i = tid; i < N; i += kThreads) {
     X[i] = pin[3 * i];
@@ -117,32 +191,36 @@ gs_frame_kernel(const float* __restrict__ pos_in,    // [B,N,3]
     }
     __syncthreads();
 
+    // the level walk; each thread prefetches the next level's tables of
+    // its first slot (slot tid) before it solves the current level
     float verr = 0.0f;
-    for (int l = 0; l < L; ++l) {
-      for (int slot = tid; slot < C; slot += kThreads) {
-        const int k = l * C + slot;
-        if (!slot_valid[k]) continue;
-        const int4 t = slot_tets[k];
-        const int ids[4] = {t.x, t.y, t.z, t.w};
-        float p[4][3];
-        for (int c = 0; c < 4; ++c) {
-          p[c][0] = X[ids[c]];
-          p[c][1] = Y[ids[c]];
-          p[c][2] = Z[ids[c]];
-        }
-        float ir[9];
-        for (int e = 0; e < 9; ++e) ir[e] = slot_irp[(size_t)k * 9 + e];
-        const float4 wm = slot_imc[k];
-        const float w[4] = {wm.x, wm.y, wm.z, wm.w};
-        verr += nh::solve_tet(p, ir, slot_irv[k], w, P.dev_scale, P.vol_scale,
-                              P.gamma);
-        for (int c = 0; c < 4; ++c) {
-          X[ids[c]] = p[c][0];
-          Y[ids[c]] = p[c][1];
-          Z[ids[c]] = p[c][2];
+    const bool has = tid < C;
+    if (walk == kWarpWalk) {
+      if (tid < 32) {
+        Slot next{};
+        if (has) tab.load(tid, next);
+        for (int l = 0; l < L; ++l) {
+          const Slot cur = next;
+          if (has && l + 1 < L) tab.load((l + 1) * C + tid, next);
+          if (has && cur.valid) verr += solve_slot(cur, X, Y, Z, P);
+          __syncwarp();
         }
       }
       __syncthreads();
+    } else {
+      Slot next{};
+      if (has) tab.load(tid, next);
+      for (int l = 0; l < L; ++l) {
+        const Slot cur = next;
+        if (has && l + 1 < L) tab.load((l + 1) * C + tid, next);
+        if (has && cur.valid) verr += solve_slot(cur, X, Y, Z, P);
+        for (int slot = tid + kThreads; slot < C; slot += kThreads) {
+          Slot wide;
+          tab.load(l * C + slot, wide);
+          if (wide.valid) verr += solve_slot(wide, X, Y, Z, P);
+        }
+        __syncthreads();
+      }
     }
 
     // collide, grab, velocity update
@@ -209,6 +287,16 @@ size_t gs_frame_smem_bytes(int n) {
   return (size_t)(9 * n + kWarps) * sizeof(float);
 }
 
+// Lets the kernel take the shared memory of n particles on the current
+// device; returns the CUDA error (0 = set).  The attribute is one value per
+// kernel: the wrapper calls this before the first launch on a device and
+// again before a launch for a larger n.
+int gs_frame_prepare(int n) {
+  return (int)cudaFuncSetAttribute(gs_frame_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)gs_frame_smem_bytes(n));
+}
+
 // Launches one frame on `stream`; returns cudaGetLastError() (0 = launched).
 int gs_frame_launch(const void* pos_in, const void* vel_in, void* pos_out,
                     void* prev_out, void* vel_out, void* vol_err,
@@ -216,20 +304,16 @@ int gs_frame_launch(const void* pos_in, const void* vel_in, void* pos_out,
                     const void* slot_irv, const void* slot_imc,
                     const void* slot_valid, const void* inv_mass,
                     const void* grab_id, const void* grab_pos, int B, int N,
-                    int L, int C, int G, int S, int num_tets, FrameParams P,
-                    void* stream) {
+                    int L, int C, int G, int S, int num_tets, int walk,
+                    FrameParams P, void* stream) {
   const size_t smem = gs_frame_smem_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      gs_frame_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   gs_frame_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)pos_in, (const float*)vel_in, (float*)pos_out,
       (float*)prev_out, (float*)vel_out, (float*)vol_err,
       (const int4*)slot_tets, (const float*)slot_irp, (const float*)slot_irv,
       (const float4*)slot_imc, (const uint8_t*)slot_valid,
       (const float*)inv_mass, (const int*)grab_id, (const float*)grab_pos, N,
-      L, C, G, S, num_tets, P);
+      L, C, G, S, num_tets, walk, P);
   return (int)cudaGetLastError();
 }
 

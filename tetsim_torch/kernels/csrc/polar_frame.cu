@@ -23,37 +23,87 @@
 // this build and for a -fmad=false build, which gives the plain path's
 // bits and is about 5% slower on an H100).
 //
-// Design: one thread block per body, one launch per frame, the substep
-// loop inside.  The body's nine particle planes (pos, prev, vel; x, y, z)
-// live in shared memory (9 * 4 * N bytes, 44 KB for the dragon).  Phase A
-// gives each thread tets t = tid, tid + kThreads, ...; it reads the tet's
-// quaternion from global memory (quat_in in the first substep, quat_out
-// after it) and writes it to quat_out (one owner per tet, so no other thread
-// touches it), and writes the tet's four deltas to a
-// global scratch buffer [B, 4M] of float4 (the dragon's 4 * 3840 corners
-// take 240 KB, more than a block's shared memory; it stays in L2).  Phase B
-// gives each thread particles i = tid, tid + kThreads, ...; a particle adds
-// its incident deltas one at a time, so the sum order is fixed and the
-// kernel is deterministic: no atomics.  Two __syncthreads() per substep:
-// after predict (phase A reads every particle) and after phase A (phase B
-// reads every tet's deltas).
+// Design: one thread-block cluster of cs blocks per body (cs = 1, 2, 4, 8
+// or 16; the host picks it, polar_fused.cluster_size), one launch per
+// frame, the substep loop inside.  Each block keeps a full replica of the
+// body's nine particle planes (pos, prev, vel; x, y, z) in its shared
+// memory (9 * 4 * N bytes, 44 KB for the dragon).  Block r of a cluster
+// owns tets [r * Mt, (r + 1) * Mt) and particles [r * Nt, (r + 1) * Nt),
+// Mt = ceil(M / cs), Nt = ceil(N / cs).  Each substep:
+//   1. every block predicts all N particles on its own replica (the same
+//      arithmetic on the same bits, so the replicas stay identical), then
+//      __syncthreads();
+//   2. phase A: block r solves its tets, a thread per tet: it reads the
+//      tet's quaternion (quat_in in the first substep, quat_out after it;
+//      only block r touches them) and writes it to quat_out, and writes
+//      the tet's four weighted deltas to a global scratch [B, 4M] of
+//      float4, which stays in L2;
+//   3. cluster.sync();
+//   4. phase B: block r's threads take its particles, a thread per
+//      particle: each adds its incident deltas in the column order of
+//      inc_idx, eight loads in flight at a time; the sum order is fixed,
+//      so the kernel is deterministic, with no atomics; then collide, grab
+//      and velocity update;
+//   5. the new x, y, z, vx, vy, vz go to all cs replicas, through
+//      distributed shared memory (cluster.map_shared_rank);
+//   6. cluster.sync(), after which no block reads or writes a peer's
+//      shared memory until step 5 of the next substep.
+// The deltas another SM of the cluster wrote are read with plain loads:
+// cluster.sync() is a release by every thread of the cluster and an
+// acquire by this one (barrier.cluster.arrive.release / wait.acquire), so
+// the loads after it see those writes, L1 included.  They stay in L2 and
+// not in the owning block's shared memory: at cs = 1 (B = 132, one block
+// per SM) the dragon's 4 * 3840 deltas take 240 KB, more than a block has
+// beside its 44 KB of planes, and a probe build that read them from the
+// owners' shared memory over DSMEM where they fit gathered them more
+// slowly than from L2 on an H100.  The per-tet arithmetic and the
+// per-particle sum order do not depend on cs, so every cs gives the bits
+// of cs = 1, which is the first design (a block per body) with its two
+// __syncthreads() per substep as cluster barriers of one block.  At the
+// end, block r writes its own particles of pos, prev and vel.
 //
-// What bounds it: FP32 arithmetic on one SM.  Counted from this code
+// What bounds it: FP32 operations.  Counted from this code
 // (kernels/polar_fused.py frame_flops), a tet costs 391 + 136 * iters flops
-// per substep, 1,615 at the default 9 iterations of extract_rotation, which
-// are most of it; a particle 19 plus 3 per incident corner.  That is 6.3
-// MFLOP per dragon substep and 125 MFLOP per frame at 20 substeps, against
-// 0.63 MB of tables and state read and written once.  One
-// block per body gives a body one of 132 SMs, so B = 1 cannot reach the
-// card's bound, and batches up to 132 bodies fill one wave at the same time
-// per launch.  A later change could spread a body over a cluster of SMs
-// with distributed shared memory, keep the deltas in shared memory, or
-// capture many frames in a CUDA graph.
+// per substep, 1,615 at the default 9 iterations of extract_rotation,
+// which are most of it; a particle 19 plus 3 per incident corner.  That is
+// 6.3 MFLOP per dragon substep and 125 MFLOP per frame at 20 substeps
+// (1.872 us at 67 TFLOP/s), against 0.63 MB of tables and state read and
+// written once.  On one SM a body could not come near that bound: 512
+// threads ran 7.5 tets each in series per substep, each a chain of
+// dependent divides, square roots, sines and cosines, so a B = 1 frame
+// took 1.6665 ms (75 GFLOP/s) while 131 SMs idled.  A cluster of 16 blocks
+// gives one body 16 SMs and each thread about one tet per substep (240 per
+// block), at the price of two cluster barriers per substep and the 6N
+// replica stores of phase B over DSMEM.  What is left is latency: one
+// tet's dependent chain in phase A, the gather of phase B (a particle's
+// ~12 deltas from L2, eight loads in flight) and the two barriers;
+// profile_frame.py --phases measures each (PERF.md).  A batch takes the
+// largest cs at which its B clusters run at once with one block per SM
+// (cudaOccupancyMaxActiveClusters): on an H100, B = 1 takes 16, B = 8
+// takes 8 (the card places 7 clusters of 16 at once), B = 132 takes 1.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "polar_math.cuh"
+
+namespace cg = cooperative_groups;
+
+#ifdef POLAR_FRAME_PHASES
+// A build for profile_frame.py --phases only: block 0 sums the SM cycles
+// of each phase of a substep (predict, phase A, barrier 1, phase B with the
+// replica stores, barrier 2; each phase end after a __syncthreads() that
+// the shipped build does not have) and counts the substeps.
+__device__ unsigned long long phase_cycles[6];
+#define PHASE_MARK(t) \
+  __syncthreads();    \
+  const long long t = clock64()
+#define PHASE_AT(t) const long long t = clock64()
+#else
+#define PHASE_MARK(t)
+#define PHASE_AT(t)
+#endif
 
 // Scalars of one frame, computed in float32 on the host.
 struct PolarParams {
@@ -67,6 +117,10 @@ struct PolarParams {
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kChunk = 8;  // incident deltas a particle loads at once
+
+// Shared memory of a block: the nine particle planes.
+size_t smem_bytes(int n) { return (size_t)9 * n * sizeof(float); }
 
 __global__ void __launch_bounds__(kThreads)
 polar_frame_kernel(const float* __restrict__ pos_in,   // [B,N,3]
@@ -98,8 +152,14 @@ polar_frame_kernel(const float* __restrict__ pos_in,   // [B,N,3]
   float* VY = VX + N;
   float* VZ = VY + N;
 
-  const int b = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int r = (int)cluster.block_rank();
+  const int b = blockIdx.x / cs;
   const int tid = threadIdx.x;
+  const int mt = (M + cs - 1) / cs, nt = (N + cs - 1) / cs;
+  const int t_lo = min(M, r * mt), t_hi = min(M, t_lo + mt);
+  const int i_lo = min(N, r * nt), i_hi = min(N, i_lo + nt);
   const float* pin = pos_in + (size_t)b * N * 3;
   const float* vin = vel_in + (size_t)b * N * 3;
   const float4* qin = quat_in + (size_t)b * M;
@@ -118,8 +178,9 @@ polar_frame_kernel(const float* __restrict__ pos_in,   // [B,N,3]
   }
 
   for (int s = 0; s < S; ++s) {
-    // predict; each thread owns particles tid, tid + kThreads, ... in every
-    // per-particle phase, so phase B and the next predict need no barrier
+    PHASE_AT(t0);
+    // 1. predict on this block's replica; each thread owns particles tid,
+    // tid + kThreads, ... here as in the load, so no barrier before it
     for (int i = tid; i < N; i += kThreads) {
       float vx = VX[i], vy = VY[i] + P.gdt, vz = VZ[i];
       if (!(inv_mass[i] > 0.0f)) vx = vy = vz = 0.0f;
@@ -135,10 +196,11 @@ polar_frame_kernel(const float* __restrict__ pos_in,   // [B,N,3]
       Z[i] = z + vz * P.dt;
     }
     __syncthreads();
+    PHASE_AT(t1);
 
-    // phase A: one tet per thread
+    // 2. phase A: one tet per thread over this block's tets
     const float4* qsrc = s == 0 ? qin : qout;
-    for (int t = tid; t < M; t += kThreads) {
+    for (int t = t_lo + tid; t < t_hi; t += kThreads) {
       const int4 tt = tets[t];
       const int ids[4] = {tt.x, tt.y, tt.z, tt.w};
       float pc[4][3];
@@ -147,9 +209,10 @@ polar_frame_kernel(const float* __restrict__ pos_in,   // [B,N,3]
         pc[k][1] = Y[ids[k]];
         pc[k][2] = Z[ids[k]];
       }
-      for (int r = 0; r < 3; ++r) {
-        const float c = (((pc[0][r] + pc[1][r]) + pc[2][r]) + pc[3][r]) * 0.25f;
-        for (int k = 0; k < 4; ++k) pc[k][r] = pc[k][r] - c;
+      for (int c3 = 0; c3 < 3; ++c3) {
+        const float c =
+            (((pc[0][c3] + pc[1][c3]) + pc[2][c3]) + pc[3][c3]) * 0.25f;
+        for (int k = 0; k < 4; ++k) pc[k][c3] = pc[k][c3] - c;
       }
       float rest[4][3];
       {
@@ -157,16 +220,16 @@ polar_frame_kernel(const float* __restrict__ pos_in,   // [B,N,3]
         const float flat[12] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y,
                                 r1.z, r1.w, r2.x, r2.y, r2.z, r2.w};
         for (int k = 0; k < 4; ++k)
-          for (int r = 0; r < 3; ++r) rest[k][r] = flat[3 * k + r];
+          for (int c3 = 0; c3 < 3; ++c3) rest[k][c3] = flat[3 * k + c3];
       }
       const float4 q = qsrc[t];
       float a[3][3];  // a[r][c] = sum_k pc[k][r] * rot(rest[k])[c]
       for (int k = 0; k < 4; ++k) {
         float rr[3];
         polar::qrot(rest[k], q, rr);
-        for (int r = 0; r < 3; ++r)
+        for (int ro = 0; ro < 3; ++ro)
           for (int c = 0; c < 3; ++c)
-            a[r][c] = k == 0 ? pc[k][r] * rr[c] : a[r][c] + pc[k][r] * rr[c];
+            a[ro][c] = k == 0 ? pc[k][ro] * rr[c] : a[ro][c] + pc[k][ro] * rr[c];
       }
       const float4 inc =
           polar::extract_rotation(a, make_float4(0.0f, 0.0f, 0.0f, 1.0f), iters);
@@ -176,25 +239,41 @@ polar_frame_kernel(const float* __restrict__ pos_in,   // [B,N,3]
       for (int k = 0; k < 4; ++k) {
         float g[3];
         polar::qrot(rest[k], qn, g);
-        dl[4 * t + k] = make_float4((g[0] - pc[k][0]) * w, (g[1] - pc[k][1]) * w,
+        dl[4 * t + k] = make_float4((g[0] - pc[k][0]) * w,
+                                    (g[1] - pc[k][1]) * w,
                                     (g[2] - pc[k][2]) * w, 0.0f);
       }
     }
-    __syncthreads();
+    // 3. every block's deltas are written
+    PHASE_MARK(t2);
+    cluster.sync();
+    PHASE_AT(t3);
 
-    // phase B: one particle per thread: apply, collide, grab, velocity
-    for (int i = tid; i < N; i += kThreads) {
+    // 4. phase B: one particle per thread over this block's particles:
+    // apply, collide, grab, velocity; 5. into every replica
+    for (int i = i_lo + tid; i < i_hi; i += kThreads) {
       float x = X[i], y = Y[i], z = Z[i];
       if (inv_mass[i] > 0.0f) {
         float nx = 0.0f, ny = 0.0f, nz = 0.0f;
         const int* row = inc_idx + (size_t)i * K;
-        for (int j = 0; j < K; ++j) {  // live entries come first, in order
-          const int c = row[j];
-          if (c < 0) break;
-          const float4 d = dl[c];
-          nx += d.x;
-          ny += d.y;
-          nz += d.z;
+        // live entries come first, in order; kChunk of them are loaded
+        // at once (indices, then deltas, each batch independent), then
+        // added in column order
+        for (int j0 = 0; j0 < K; j0 += kChunk) {
+          int c[kChunk];
+          for (int u = 0; u < kChunk; ++u)
+            c[u] = j0 + u < K ? row[j0 + u] : -1;
+          float4 d[kChunk];
+          for (int u = 0; u < kChunk; ++u)
+            d[u] = c[u] >= 0 ? dl[c[u]] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int u = 0; u < kChunk; ++u) {
+            if (c[u] >= 0) {
+              nx += d[u].x;
+              ny += d[u].y;
+              nz += d[u].z;
+            }
+          }
+          if (c[kChunk - 1] < 0) break;
         }
         const float den = fmaxf(inc_den[i], polar::kEps);
         x = x + nx / den;
@@ -217,19 +296,34 @@ polar_frame_kernel(const float* __restrict__ pos_in,   // [B,N,3]
           z = gpos[3 * g + 2];
         }
       }
-      X[i] = x;
-      Y[i] = y;
-      Z[i] = z;
-      VX[i] = (x - px) / P.dt;
-      VY[i] = (y - py) / P.dt;
-      VZ[i] = (z - pz) / P.dt;
+      const float vx = (x - px) / P.dt, vy = (y - py) / P.dt,
+                  vz = (z - pz) / P.dt;
+      for (int q = 0; q < cs; ++q) {
+        float* peer = cluster.map_shared_rank(smem, q);  // replica q's planes
+        peer[i] = x;
+        peer[N + i] = y;
+        peer[2 * N + i] = z;
+        peer[6 * N + i] = vx;
+        peer[7 * N + i] = vy;
+        peer[8 * N + i] = vz;
+      }
     }
+    // 6. every replica is whole again
+    PHASE_MARK(t4);
+    cluster.sync();
+#ifdef POLAR_FRAME_PHASES
+    if (blockIdx.x == 0 && tid == 0) {
+      const long long t5 = clock64(), t[6] = {t0, t1, t2, t3, t4, t5};
+      for (int k = 0; k < 5; ++k) phase_cycles[k] += t[k + 1] - t[k];
+      phase_cycles[5] += 1;
+    }
+#endif
   }
 
   float* pout = pos_out + (size_t)b * N * 3;
   float* qprev = prev_out + (size_t)b * N * 3;
   float* vout = vel_out + (size_t)b * N * 3;
-  for (int i = tid; i < N; i += kThreads) {
+  for (int i = i_lo + tid; i < i_hi; i += kThreads) {
     pout[3 * i] = X[i];
     pout[3 * i + 1] = Y[i];
     pout[3 * i + 2] = Z[i];
@@ -242,38 +336,110 @@ polar_frame_kernel(const float* __restrict__ pos_in,   // [B,N,3]
   }
 }
 
+// The shared memory that leaves room for one block of n particles on an
+// SM of the current device: at least half the SM's.
+cudaError_t one_per_sm(int n, size_t* smem) {
+  int dev = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  const size_t half = (size_t)per_sm / 2 + 1;
+  *smem = smem_bytes(n) > half ? smem_bytes(n) : half;
+  return err;
+}
+
+// The launch shape of B bodies at cluster size cs.
+cudaLaunchConfig_t launch_config(int B, int cs, size_t smem, cudaStream_t st,
+                                 cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
 extern "C" {
 
 int polar_frame_threads() { return kThreads; }
 
-size_t polar_frame_smem_bytes(int n) { return (size_t)9 * n * sizeof(float); }
+size_t polar_frame_smem_bytes(int n) { return smem_bytes(n); }
 
-// Launches one frame on `stream`; returns cudaGetLastError() (0 = launched).
+// Lets the kernel take the shared memory of n particles, and at least half
+// an SM's for the occupancy query, and clusters of up to 16 blocks, on the
+// current device; returns the CUDA error (0 = set).  The shared-memory
+// attribute is one value per kernel: the wrapper calls this before the
+// first launch on a device and again before a launch for a larger n.
+int polar_frame_prepare(int n) {
+  size_t most = 0;
+  cudaError_t err = one_per_sm(n, &most);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
+      polar_frame_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)most);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncSetAttribute(
+      polar_frame_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// How many clusters of cs blocks of n particles the current device runs at
+// once with one block on each SM (cudaOccupancyMaxActiveClusters, asked
+// for at least half an SM's shared memory a block) into *count; returns
+// the CUDA error (0 = answered).  Needs polar_frame_prepare(n) first.
+int polar_frame_active_clusters(int n, int cs, int* count) {
+  size_t smem = 0;
+  const cudaError_t err = one_per_sm(n, &smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(cs, cs, smem, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(count, polar_frame_kernel, &cfg);
+}
+
+// Launches one frame of B bodies, a cluster of cs blocks each, on
+// `stream`; returns the launch's error, then cudaGetLastError() (0 =
+// launched).
 int polar_frame_launch(const void* pos_in, const void* vel_in,
                        const void* quat_in, void* pos_out, void* prev_out,
                        void* vel_out, void* quat_out, void* delta,
                        const void* tets, const void* rc,
                        const void* rest_volume, const void* inv_mass,
                        const void* inc_idx, const void* inc_den,
-                       const void* grab_id, const void* grab_pos, int B, int N,
-                       int M, int K, int G, int S, int iters, PolarParams P,
-                       void* stream) {
-  const size_t smem = polar_frame_smem_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      polar_frame_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                       const void* grab_id, const void* grab_pos, int B,
+                       int cs, int N, int M, int K, int G, int S, int iters,
+                       PolarParams P, void* stream) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      launch_config(B, cs, smem_bytes(N), (cudaStream_t)stream, &attr);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, polar_frame_kernel, (const float*)pos_in, (const float*)vel_in,
+      (const float4*)quat_in, (float*)pos_out, (float*)prev_out,
+      (float*)vel_out, (float4*)quat_out, (float4*)delta, (const int4*)tets,
+      (const float4*)rc, (const float*)rest_volume, (const float*)inv_mass,
+      (const int*)inc_idx, (const float*)inc_den, (const int*)grab_id,
+      (const float*)grab_pos, N, M, K, G, S, iters, P);
   if (err != cudaSuccess) return (int)err;
-  polar_frame_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)pos_in, (const float*)vel_in, (const float4*)quat_in,
-      (float*)pos_out, (float*)prev_out, (float*)vel_out, (float4*)quat_out,
-      (float4*)delta, (const int4*)tets, (const float4*)rc,
-      (const float*)rest_volume, (const float*)inv_mass, (const int*)inc_idx,
-      (const float*)inc_den, (const int*)grab_id, (const float*)grab_pos, N, M,
-      K, G, S, iters, P);
   return (int)cudaGetLastError();
 }
+
+#ifdef POLAR_FRAME_PHASES
+// Copies phase_cycles to out[6] and zeroes it; returns the CUDA error.
+int polar_frame_phase_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
+  const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
+  return (int)err;
+}
+#endif
 
 const char* polar_frame_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

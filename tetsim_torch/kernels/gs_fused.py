@@ -12,7 +12,8 @@ The kernel keeps a body's particle state in one block's shared memory, so
 a mesh fits when its 9 f32 planes do (``check_fits``).  It reads the
 slot-major tables of ``TetArrays`` as they are, for any number of levels:
 the greedy schedule (fewest levels) for ``FusedGSBody`` and the ordered
-one for ``Body``.
+one for ``Body``.  ``walk`` picks how the kernel walks the levels from the
+schedule's width.
 """
 from __future__ import annotations
 
@@ -26,9 +27,11 @@ from ..mesh import TetArrays, TetMesh, build_arrays
 from ..params import PhysicsParams
 from ..solvers import neohookean
 from . import build
-from .batch import SMEM_LIMIT, FusedBatch, expect
+from .batch import SMEM_LIMIT, FusedBatch, cached_params, expect, prepared
 
 THREADS = 256  # threads per block, as kThreads in csrc/gs_frame.cu
+WARP = 32  # the widest level the warp walk takes: a lane per slot
+WALKS = {"block": 0, "warp": 1}  # kBlockWalk, kWarpWalk in csrc/gs_frame.cu
 
 launch_count = 0  # launches of the CUDA kernel since import (or reset)
 
@@ -36,6 +39,14 @@ launch_count = 0  # launches of the CUDA kernel since import (or reset)
 def smem_bytes(num_particles: int) -> int:
     """Shared memory of one block: 9 particle planes + one float per warp."""
     return 4 * (9 * num_particles + THREADS // 32)
+
+
+def walk(num_slots: int) -> str:
+    """How ``csrc/gs_frame.cu`` walks a schedule whose widest level has
+    ``num_slots`` slots: "warp" (warp 0, a lane per slot, a warp barrier
+    between levels) where one warp holds a level, else "block" (every
+    thread, a block barrier between levels)."""
+    return "warp" if num_slots <= WARP else "block"
 
 
 def check_fits(num_particles: int) -> None:
@@ -81,7 +92,12 @@ class _FrameParams(ctypes.Structure):
 
 
 def _frame_params(params: PhysicsParams) -> _FrameParams:
-    """The frame's scalars in f32, with the plain path's operation order."""
+    """The frame's scalars in f32, with the plain path's operation order,
+    built once per set of parameter values."""
+    return cached_params(params, _build_frame_params)
+
+
+def _build_frame_params(params: PhysicsParams) -> _FrameParams:
     dt = params.dt
     dt2 = dt * dt
     return _FrameParams(
@@ -99,10 +115,12 @@ def library() -> ctypes.CDLL:
     lib = build.load("gs_frame")
     if lib.gs_frame_launch.argtypes is None:
         lib.gs_frame_launch.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
             + [_FrameParams, ctypes.c_void_p]
         )
         lib.gs_frame_launch.restype = ctypes.c_int
+        lib.gs_frame_prepare.argtypes = [ctypes.c_int]
+        lib.gs_frame_prepare.restype = ctypes.c_int
         lib.gs_frame_error_string.argtypes = [ctypes.c_int]
         lib.gs_frame_error_string.restype = ctypes.c_char_p
         lib.gs_frame_threads.restype = ctypes.c_int
@@ -112,7 +130,9 @@ def library() -> ctypes.CDLL:
 
 
 def _gs_frame_cuda(pos, vel, arr: TetArrays, params: PhysicsParams,
-                   grab_id, grab_pos):
+                   grab_id, grab_pos, level_walk: Optional[str] = None):
+    """The launch; ``level_walk`` overrides ``walk(C)`` so that a check can
+    hold the two walks to each other on one schedule."""
     global launch_count
     dev = pos.device
     if dev.type != "cuda":
@@ -140,20 +160,24 @@ def _gs_frame_cuda(pos, vel, arr: TetArrays, params: PhysicsParams,
         if t.data_ptr() % 16:
             raise ValueError("slot tables must be 16-byte aligned")
 
+    code = WALKS[level_walk or walk(C)]
+
     lib = library()
     pos_out, prev_out, vel_out = (torch.empty_like(pos) for _ in range(3))
     vol_err = torch.empty((B, S), dtype=f32, device=dev)
     with torch.cuda.device(dev):  # the launch goes to the current device
-        err = lib.gs_frame_launch(
-            pos.data_ptr(), vel.data_ptr(), pos_out.data_ptr(),
-            prev_out.data_ptr(), vel_out.data_ptr(), vol_err.data_ptr(),
-            arr.slot_tets.data_ptr(), arr.slot_inv_rest_pose.data_ptr(),
-            arr.slot_inv_rest_volume.data_ptr(), arr.slot_inv_mass.data_ptr(),
-            arr.slot_valid.data_ptr(), arr.inv_mass.data_ptr(),
-            grab_id.data_ptr(), grab_pos.data_ptr(),
-            B, N, L, C, G, S, arr.num_tets, _frame_params(params),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        err = prepared(lib, "gs_frame", dev, N)
+        if err == 0:
+            err = lib.gs_frame_launch(
+                pos.data_ptr(), vel.data_ptr(), pos_out.data_ptr(),
+                prev_out.data_ptr(), vel_out.data_ptr(), vol_err.data_ptr(),
+                arr.slot_tets.data_ptr(), arr.slot_inv_rest_pose.data_ptr(),
+                arr.slot_inv_rest_volume.data_ptr(), arr.slot_inv_mass.data_ptr(),
+                arr.slot_valid.data_ptr(), arr.inv_mass.data_ptr(),
+                grab_id.data_ptr(), grab_pos.data_ptr(),
+                B, N, L, C, G, S, arr.num_tets, code, _frame_params(params),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
     if err != 0:
         raise RuntimeError(
             f"gs_frame launch failed: {lib.gs_frame_error_string(err).decode()}"

@@ -10,12 +10,16 @@ hand-written kernel ``csrc/polar_frame.cu`` once; on CPU tensors it runs
 
 The kernel reads ``TetArrays``' own tables in the original tet order
 (``tets``, ``rest_centered``, ``rest_volume``, ``inv_mass``, ``inc_idx``,
-``inc_den``) and keeps a body's particle state in one block's shared
-memory, so a mesh fits when its 9 f32 planes do (``check_fits``).
+``inc_den``) and runs a body on a cluster of blocks, each of which keeps
+a replica of the body's particle state in its shared memory, so a mesh
+fits when its 9 f32 planes do (``check_fits``).  ``cluster_size`` picks
+the blocks per body from the batch and from the cluster sizes the card
+schedules; ``split`` gives each block's tets and particles.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -24,9 +28,12 @@ from ..mesh import TetArrays, TetMesh, build_arrays
 from ..params import PhysicsParams
 from ..solvers import polar
 from . import build
-from .batch import SMEM_LIMIT, FusedBatch, expect
+from .batch import SMEM_LIMIT, FusedBatch, cached_params, expect, prepared
 
 THREADS = 512  # threads per block, as kThreads in csrc/polar_frame.cu
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16: Hopper's largest (non-portable)
+MAX_CLUSTER = CLUSTER_SIZES[-1]
+SMS = 132  # SMs of an H100 SXM
 # the kernel's own nvcc flags: none, so nvcc contracts multiply-adds into
 # FMAs (profile_frame.py times it against a -fmad=false build; see the note
 # in csrc/polar_frame.cu)
@@ -38,6 +45,30 @@ launch_count = 0  # launches of the CUDA kernel since import (or reset)
 def smem_bytes(num_particles: int) -> int:
     """Shared memory of one block: the 9 particle planes."""
     return 4 * 9 * num_particles
+
+
+def cluster_size(num_bodies: int, max_cs: int, waves: Optional[dict] = None
+                 ) -> int:
+    """Blocks per body: the largest power of two no larger than ``max_cs``
+    at which the batch's ``num_bodies`` clusters run in one wave; at least
+    1.  ``waves[cs]`` is how many clusters of cs blocks the card runs at
+    once (``active_clusters``); by default ``SMS // cs``, one block per
+    SM."""
+    def wave(cs):
+        return SMS // cs if waves is None else waves[cs]
+
+    cs = 1
+    while cs * 2 <= max_cs and num_bodies <= wave(cs * 2):
+        cs *= 2
+    return cs
+
+
+def split(n: int, cs: int) -> list:
+    """The ranges [lo, hi) of n items over the cs blocks of a cluster, as
+    ``csrc/polar_frame.cu`` cuts tets (phase A) and particles (phase B):
+    ceil(n / cs) each, the last ones short or empty."""
+    span = -(-n // cs)
+    return [(min(n, r * span), min(n, r * span + span)) for r in range(cs)]
 
 
 def check_fits(num_particles: int) -> None:
@@ -84,7 +115,12 @@ class _PolarParams(ctypes.Structure):
 
 
 def _polar_params(params: PhysicsParams) -> _PolarParams:
-    """The frame's scalars in f32, with the plain path's operation order."""
+    """The frame's scalars in f32, with the plain path's operation order,
+    built once per set of parameter values."""
+    return cached_params(params, _build_polar_params)
+
+
+def _build_polar_params(params: PhysicsParams) -> _PolarParams:
     dt = params.dt
     return _PolarParams(
         dt, params.gravity * dt,
@@ -99,10 +135,15 @@ def library() -> ctypes.CDLL:
     lib = build.load("polar_frame", NVCC_FLAGS)
     if lib.polar_frame_launch.argtypes is None:
         lib.polar_frame_launch.argtypes = (
-            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
             + [_PolarParams, ctypes.c_void_p]
         )
         lib.polar_frame_launch.restype = ctypes.c_int
+        lib.polar_frame_prepare.argtypes = [ctypes.c_int]
+        lib.polar_frame_prepare.restype = ctypes.c_int
+        lib.polar_frame_active_clusters.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.polar_frame_active_clusters.restype = ctypes.c_int
         lib.polar_frame_error_string.argtypes = [ctypes.c_int]
         lib.polar_frame_error_string.restype = ctypes.c_char_p
         lib.polar_frame_threads.restype = ctypes.c_int
@@ -111,8 +152,45 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"polar_frame {what} failed: "
+            f"{lib.polar_frame_error_string(err).decode()}")
+
+
+def active_clusters(device, num_particles: int) -> dict:
+    """{cs: clusters of cs blocks the card runs at once with one block on
+    each SM} for each cluster size, each block with the shared memory of
+    ``num_particles`` (cudaOccupancyMaxActiveClusters on ``device``; 0
+    where it runs none).  Raises on a CUDA error."""
+    lib = library()
+    out = {}
+    with torch.cuda.device(device):
+        _check(lib, prepared(lib, "polar_frame", device, num_particles),
+               "prepare")
+        for cs in CLUSTER_SIZES:
+            count = ctypes.c_int(0)
+            _check(lib, lib.polar_frame_active_clusters(
+                num_particles, cs, ctypes.byref(count)),
+                f"occupancy query at cs={cs}")
+            out[cs] = count.value
+    return out
+
+
+def _waves(lib, device, num_particles: int) -> dict:
+    """``active_clusters``, asked once per library, device and size."""
+    waves = lib.__dict__.setdefault("waves", {})
+    key = (device.index, num_particles)
+    if key not in waves:
+        waves[key] = active_clusters(device, num_particles)
+    return waves[key]
+
+
 def _polar_frame_cuda(pos, vel, quats, arr: TetArrays, params: PhysicsParams,
-                      grab_id, grab_pos):
+                      grab_id, grab_pos, cs: Optional[int] = None):
+    """The launch; ``cs`` overrides ``cluster_size`` so that a check can run
+    every cluster size the card schedules."""
     global launch_count
     dev = pos.device
     if dev.type != "cuda":
@@ -145,6 +223,12 @@ def _polar_frame_cuda(pos, vel, quats, arr: TetArrays, params: PhysicsParams,
                              "aligned")
 
     lib = library()
+    waves = _waves(lib, dev, N)
+    if cs is None:
+        cs = cluster_size(B, MAX_CLUSTER, waves)
+    elif waves.get(cs, 0) < 1:
+        raise ValueError(f"cluster size {cs}: the card runs clusters of "
+                         f"{[c for c, n in waves.items() if n >= 1]} blocks")
     pos_out, prev_out, vel_out = (torch.empty_like(pos) for _ in range(3))
     quat_out = torch.empty_like(quats)
     delta = torch.empty((B, 4 * M, 4), dtype=f32, device=dev)
@@ -156,14 +240,10 @@ def _polar_frame_cuda(pos, vel, quats, arr: TetArrays, params: PhysicsParams,
             arr.rest_centered.data_ptr(), arr.rest_volume.data_ptr(),
             arr.inv_mass.data_ptr(), arr.inc_idx.data_ptr(),
             arr.inc_den.data_ptr(), grab_id.data_ptr(), grab_pos.data_ptr(),
-            B, N, M, K, G, S, params.extract_iters, _polar_params(params),
+            B, cs, N, M, K, G, S, params.extract_iters, _polar_params(params),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            "polar_frame launch failed: "
-            f"{lib.polar_frame_error_string(err).decode()}"
-        )
+    _check(lib, err, f"launch (B={B}, cs={cs})")
     launch_count += 1
     return pos_out, prev_out, vel_out, quat_out
 
