@@ -55,9 +55,12 @@ code is non-zero:
      cell=0.02, origin=(-0.56, 0.5, -0.56)) for all four engine names,
      packed and not where allowed, then add_grid_body_batch of two boxes,
      each 60 frames with no host sync, a grab, 20 frames, positions and
-     diagnostics; each launch counter equals frames x substeps x launches
-     per substep;
- 11. ms per substep at 56^3 of each grid kernel and its plain twin;
+     diagnostics; each launch counter equals frames x that kernel's own
+     launches per frame (K4: 2 per substep; K3: one cooperative launch per
+     frame);
+ 11. ms per substep at 56^3 of each grid kernel and its plain twin, and K3's
+     us per phase (a substep is 48 colour phases and a particle phase, each
+     ended by a grid barrier);
  12. the pieces kernels, polar_pieces (K6) and nh_pieces (K5), the substep
      with the kernel vs the same substep with the plain twin of the solve,
      after every frame at 5 substeps: tests_tpu's blob at 512 tets per
@@ -89,7 +92,8 @@ code is non-zero:
      engine="neohookean", backend="fused_ordered", jitter=0.5) for 150
      frames with a grab, no host sync while stepping, one launch per frame,
      finite diagnostics; then world.save -> World.load(device="cuda") and
-     one more frame in each world, bitwise equal;
+     one more frame in each world, bitwise equal; K7's ms per frame and us
+     per sub-level of its level walk;
  17. the viewer on the card: a ViewerServer over a polar dragon Body (20
      substeps, K2) and the fused_ordered batch for about 5 s: /mesh,
      /state with the frame advancing, grabs on both bodies that hold their
@@ -886,6 +890,11 @@ def grid_main_path(tt, kernels):
     n = (GRID[0] + 1) * (GRID[1] + 1) * (GRID[2] + 1)
     frames = (60, 20)
     launches = {polar_stencil: 0, nh_stencil: 0}
+    # each kernel's launches per frame from its own constant: K4 2 per
+    # substep, K3 one cooperative launch per frame
+    per_frame = {
+        polar_stencil: GRID_SUBSTEPS * polar_stencil.LAUNCHES_PER_SUBSTEP,
+        nh_stencil: nh_stencil.LAUNCHES_PER_FRAME}
     scenes = [(e, p) for e in ("polar_grid", "polar_grid_pallas",
                                "neohookean_grid", "neohookean_grid_pallas")
               for p in ((False, True) if e.endswith("_pallas") else (False,))]
@@ -916,7 +925,7 @@ def grid_main_path(tt, kernels):
         diag = world.diagnostics()["body0"]
         seconds = time.perf_counter() - t0
         mod = polar_stencil if engine.startswith("polar") else nh_stencil
-        want = sum(frames) * GRID_SUBSTEPS * mod.LAUNCHES_PER_SUBSTEP
+        want = sum(frames) * per_frame[mod]
         label = f"{engine} {'batch of 2' if batched else f'packed={packed}'}"
         check(mod.launch_count == want,
               f"{label}: {mod.launch_count} launches, expected {want}")
@@ -964,9 +973,13 @@ def grid_timings(tt, mod, label):
         out[name] = per_frame(step, lambda: st["s"][0].sum(), k1, k2) \
             * 1e3 / GRID_SUBSTEPS
     kname = mod.__name__.split(".")[-1]
+    per_phase = ("" if polar else
+                 f", {out['kernel'] * 1e3 / (mod.COLORS + 1):.3f} us per "
+                 f"phase (48 colour phases and a particle phase, each ended "
+                 f"by a grid barrier, on {mod.frame_grid(pos.device)} blocks)")
     print(f"phase 11 [{label}] {kname} at {GRID} ({arr.num_tets} tets): "
           f"kernel {out['kernel']:.4f} ms/substep "
-          f"({1e3 / out['kernel']:.1f} substeps/s), plain torch "
+          f"({1e3 / out['kernel']:.1f} substeps/s){per_phase}, plain torch "
           f"{out['plain']:.4f} ms/substep", flush=True)
     one = dataclasses.replace(params, num_substeps=1)
     if polar:
@@ -1489,6 +1502,10 @@ def ordered_main_path(tt, go, gs_fused, dragon):
           f"bitwise equal {same}", flush=True)
     check(same, "the loaded world steps differently")
     k_ms = event_ms(lambda: batch.step(params), 50)
+    levels = batch.tables.sub_ids.shape[0]
+    print(f"phase 16 K7 {k_ms:.4f} ms per frame of 8 dragons: "
+          f"{k_ms * 1e3 / (levels * params.num_substeps):.4f} us per "
+          f"sub-level ({levels} per substep, a lane per tet)", flush=True)
     return launches, k_ms
 
 
@@ -1980,13 +1997,15 @@ def slab_timings(tt, polar_stencil, nh_stencil, label):
         twin_ms = per_frame(trun, lambda: (tstate["p"].pos if polar
                                            else tstate["p"][0])[0].sum(),
                             1, 2) * 1e3 / GRID_SUBSTEPS
+        unsharded = (f"{mod.LAUNCHES_PER_SUBSTEP} launches" if polar
+                     else f"{mod.LAUNCHES_PER_FRAME} launch per frame")
         print(f"phase 23 [{label}] {name} slab form at {GRID}: "
               + ", ".join(f"{d} slab{'s' if d > 1 else ''} {times[d]:.4f} "
                           f"ms/substep ({times[f'launches {d}']:.0f} launches)"
                           for d in (1, 2, 4))
               + f"; unsharded {times['unsharded']:.4f} ms/substep "
-              f"({mod.LAUNCHES_PER_SUBSTEP} launches); sharded twin at 4 "
-              f"slabs {twin_ms:.3f} ms/substep", flush=True)
+              f"({unsharded}); sharded twin at 4 slabs {twin_ms:.3f} "
+              "ms/substep", flush=True)
         out[mod] = (times[4], twin_ms, bound(*work))
     return out
 

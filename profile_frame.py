@@ -13,11 +13,11 @@ then the polar kernel (polar_frame, 20 substeps) through ``FusedPolarBody`` at
 B = 1, 8 and 132, then the grid stencil kernels on the 56^3 box of the scale
 workload (1,053,696 tets, 5 substeps, as examples/scale_grid.py) through
 ``World.add_grid_body(..., packed=True)``: polar_stencil (2 launches per
-substep) and nh_stencil (50), then the pieces kernels on the 987,090-tet
-blob of the unstructured scale workload (bench.py: ellipsoid_mesh(68),
-2,048 tets per piece, banded lanes, 5 substeps) through their packed
-steppers: polar_pieces (2 launches per substep) and nh_pieces (1), each
-between the torch phases of the substep:
+substep) and nh_stencil (1 per frame), then the pieces kernels on the
+987,090-tet blob of the unstructured scale workload (bench.py:
+ellipsoid_mesh(68), 2,048 tets per piece, banded lanes, 5 substeps) through
+their packed steppers: polar_pieces (2 launches per substep) and nh_pieces
+(1), each between the torch phases of the substep:
   host_ms     synced host time per frame: a two-point fit over k1 and k2
               frames, each run ending in a data-dependent sync;
   enqueue_ms  host time per frame to enqueue k2 frames, with no sync;
@@ -57,11 +57,15 @@ instead: DIR holds that version's ``tetsim_torch/`` and
 ``tetsim_tpu/assets/`` (for example ``git archive <commit> tetsim_torch
 tetsim_tpu/assets`` unpacked into a directory that .gitignore lists), which
 is imported under another name and builds its own kernels into its own
-``_build/``.  For gs_frame ordered B = 1, greedy B = 1 and 8 (5 substeps)
-and polar_frame B = 1, 8 and 132 (20 substeps) it times the earlier
+``_build/``.  For gs_frame ordered B = 1, greedy B = 1 and 8 (5 substeps),
+polar_frame B = 1, 8 and 132 (20 substeps), gs_ordered B = 8 and
+nh_stencil on the packed 56^3 box (5 substeps) it times the earlier
 version (A) and this one (B) in the order A B B A, each through its own
-FusedGSBody / FusedPolarBody, in the columns above, and says whether the
-two give the same bits after 3 frames from the same start.
+FusedGSBody / FusedPolarBody / OrderedGSBody / make_frame_stepper (not
+through World, whose engine names resolve to this version's modules), in
+the columns above, and says whether the two give the same bits after 3
+frames from the same start.  nh_stencil's kernel_us is per launch: 50 per
+substep in the first design, one per frame since.
 
     python3 profile_frame.py --phases
 
@@ -71,7 +75,14 @@ predict, phase A (the tets), the first cluster barrier, phase B (the
 particles and the replica stores) and the second barrier, each phase
 ended by a __syncthreads() that the shipped build does not have; one
 dragon at each cluster size, 8 dragons and 132 dragons at the size they
-take, 20 frames of 20 substeps after 3 to warm up.
+take, 20 frames of 20 substeps after 3 to warm up.  Then gs_ordered's
+level walk: SM cycles per sub-level on block 0 (``-DGS_ORDERED_PHASES``, 8
+dragons, 20 frames after 3) and the SASS instructions (cuobjdump) of the
+kernel and of one solve per lane (and of the earlier version's kernel with
+--parent); then nh_stencil on the 56^3 box at its grid of one block per SM
+and at two per SM: SM cycles per substep on block 0 of its particle
+phases, its 48 colour phases and its 49 grid barriers
+(``-DNH_STENCIL_PHASES``), and the us of one grid barrier alone.
 """
 import argparse
 import contextlib
@@ -90,6 +101,8 @@ from chip_smoke import bound, max_diff
 
 PIECES_SHAPES = (("pieces polar 987k", "polar_pieces", "polar_pieces_", 4, 24),
                  ("pieces nh 987k", "nh_pieces", "nh_pieces_kernel", 4, 24))
+GRID_DIMS = (56, 56, 56)  # the scale box: 1,053,696 tets
+GRID_BOX = dict(cell=0.02, origin=(-0.56, 0.5, -0.56))
 GRID_SHAPES = (("grid polar 56^3", "polar_grid_pallas", "polar_grid_", 20, 120),
                ("grid nh 56^3", "neohookean_grid_pallas", "nh_grid_", 20, 120))
 SHAPES = (("B=1 greedy", 1, "greedy", 50, 450),
@@ -190,14 +203,15 @@ def measure(body, params, k1, k2, kernel, flops, nbytes, state_sum=None,
 
 
 @contextlib.contextmanager
-def polar_build(polar_fused, flags):
-    """polar_frame launches the build with these nvcc flags inside."""
-    shipped = polar_fused.NVCC_FLAGS
-    polar_fused.NVCC_FLAGS = flags
+def flags_build(mod, flags):
+    """Inside, the kernel module ``mod`` (its ``NVCC_FLAGS``) launches the
+    build with these nvcc flags, which it yields built."""
+    shipped = mod.NVCC_FLAGS
+    mod.NVCC_FLAGS = flags
     try:
-        yield
+        yield mod.library()
     finally:
-        polar_fused.NVCC_FLAGS = shipped
+        mod.NVCC_FLAGS = shipped
 
 
 def build_name(flags) -> str:
@@ -226,7 +240,7 @@ def polar_agreement(tt, polar_fused, dragon, builds):
     ulp = torch.nextafter(body.pos, torch.full_like(body.pos, 10.0))
     last = {}
     for flags in builds:
-        with polar_build(polar_fused, flags):
+        with flags_build(polar_fused, flags):
             got = run(polar_fused.polar_frame, body.pos)
             moved = run(polar_fused.polar_frame, ulp)
         last[flags] = got[1][0]
@@ -329,7 +343,13 @@ AB_SHAPES = (("gs ordered B=1", "gs", 1, "ordered", 20, 80),
              ("gs greedy B=8", "gs", 8, "greedy", 50, 450),
              ("polar B=1", "polar", 1, None, 20, 120),
              ("polar B=8", "polar", 8, None, 20, 120),
-             ("polar B=132", "polar", 132, None, 20, 120))
+             ("polar B=132", "polar", 132, None, 20, 120),
+             ("gs_ordered B=8", "ordered", 8, None, 20, 80),
+             ("grid nh 56^3", "grid", 1, None, 20, 120))
+AB_KERNELS = {"gs": ("gs_fused", "gs_frame_kernel"),
+              "polar": ("polar_fused", "polar_frame_kernel"),
+              "ordered": ("gs_ordered", "gs_ordered_kernel"),
+              "grid": ("nh_stencil", "nh_grid_")}
 
 
 def load_version(root: str, name: str):
@@ -345,50 +365,84 @@ def load_version(root: str, name: str):
 
 
 def versions_ab(tt, parent_root: str) -> None:
-    """The dragon frame kernels of an earlier version (A) and of this one
-    (B), A B B A per shape, then their bits after 3 frames."""
-    from tetsim_torch.kernels import gs_fused, polar_fused
-
-    load_version(parent_root, "parent_tetsim_torch")
-    kernels = {"A": {k: importlib.import_module(f"parent_tetsim_torch.kernels."
-                                                f"{m}")
-                     for k, m in (("gs", "gs_fused"), ("polar", "polar_fused"))},
-               "B": {"gs": gs_fused, "polar": polar_fused}}
+    """The dragon frame kernels, K7 and K3 of an earlier version (A) and of
+    this one (B), A B B A per shape, then their bits after 3 frames."""
+    packages = {"A": load_version(parent_root, "parent_tetsim_torch"),
+                "B": tt}
+    kernels = {side: {k: importlib.import_module(
+        f"{pkg.__name__}.kernels.{m}") for k, (m, _) in AB_KERNELS.items()}
+        for side, pkg in packages.items()}
     dragon = tt.load_dragon()
+    grid_mesh = tt.grid_mesh(*GRID_DIMS, **GRID_BOX)
+    grids = {}  # each side's arrays of the 56^3 box
+
+    def params_of(kind):
+        if kind == "polar":
+            return tt.default_gpu_params()
+        if kind == "grid":
+            return tt.PhysicsParams(num_substeps=5)
+        return tt.default_cpu_params()
 
     def body(side, kind, b, coloring):
         mod = kernels[side][kind]
         if kind == "gs":
             return mod.FusedGSBody(dragon, num_bodies=b, coloring=coloring,
                                    jitter=0.2)
+        if kind == "ordered":
+            return mod.OrderedGSBody(dragon, jitter=0.2)
+        if kind == "grid":  # each side's own stepper (World's registry
+            # names this version's modules)
+            if side not in grids:
+                solver = importlib.import_module(
+                    f"{packages[side].__name__}.solvers.neohookean_grid")
+                grids[side] = solver.build_nh_grid_arrays(
+                    grid_mesh, GRID_DIMS, device="cuda")
+            bd = _Packed(tt, mod.make_frame_stepper(grids[side]),
+                         tt.init_state(grid_mesh, "cuda"), params_of(kind))
+            bd.arrays = grids[side]
+            return bd
         return mod.FusedPolarBody(dragon, num_bodies=b, jitter=0.2)
+
+    def work(mod, kind, bd, params, b):
+        if kind == "gs":
+            return (mod.frame_flops(bd.arrays, params, b),
+                    mod.frame_bytes(bd.arrays, params, b, 1))
+        if kind == "ordered":
+            return (mod.frame_flops(bd.sched, params, b),
+                    mod.frame_bytes(bd.sched, b, 1))
+        if kind == "grid":
+            return (mod.frame_flops(bd.arrays, params, 1),
+                    mod.frame_bytes(bd.arrays, params, 1, 1))
+        return (mod.frame_flops(bd.arrays, params, b),
+                mod.frame_bytes(bd.arrays, b, 1))
+
+    def state(kind, bd):
+        if kind == "grid":
+            return list(bd.packed)
+        return [bd.pos, bd.prev_pos, bd.vel] + (
+            [bd.last_diag] if kind == "gs" else
+            [bd.quats] if kind == "polar" else [])
 
     pending = []
     for name, kind, b, coloring, k1, k2 in AB_SHAPES:
         mod = kernels["B"][kind]
-        if kind == "gs":
-            params, kernel = tt.default_cpu_params(), "gs_frame_kernel"
-        else:
-            params, kernel = tt.default_gpu_params(), "polar_frame_kernel"
+        params = params_of(kind)
         for side in "ABBA":
             bd = body(side, kind, b, coloring)
-            work = ((mod.frame_flops(bd.arrays, params, b),
-                     mod.frame_bytes(bd.arrays, params, b, 1)) if kind == "gs"
-                    else (mod.frame_flops(bd.arrays, params, b),
-                          mod.frame_bytes(bd.arrays, b, 1)))
-            pending.append((f"{name} [{side}]",
-                            measure(bd, params, k1, k2, kernel, *work)[1]))
+            pos_sum = ((lambda bd=bd: bd.packed[0].sum())
+                       if kind == "grid" else None)
+            pending.append((f"{name} [{side}]", measure(
+                bd, params, k1, k2, AB_KERNELS[kind][1],
+                *work(mod, kind, bd, params, b), state_sum=pos_sum)[1]))
     for name, profile in pending:
         print(name, json.dumps(profile()), flush=True)
     for name, kind, b, coloring, _, _ in AB_SHAPES:
-        params = (tt.default_cpu_params() if kind == "gs"
-                  else tt.default_gpu_params())
+        params = params_of(kind)
         out = {}
         for side in "AB":
             bd = body(side, kind, b, coloring)
             bd.step(params, 3)
-            out[side] = [bd.pos, bd.prev_pos, bd.vel] + (
-                [bd.last_diag] if kind == "gs" else [bd.quats])
+            out[side] = state(kind, bd)
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for x, y in zip(out["A"], out["B"]))
         worst = max(max_diff(x, y) for x, y in zip(out["A"], out["B"]))
@@ -407,8 +461,7 @@ def polar_phases(tt) -> None:
 
     dragon = tt.load_dragon()
     params = tt.default_gpu_params()
-    with polar_build(polar_fused, ("-DPOLAR_FRAME_PHASES",)):
-        lib = polar_fused.library()
+    with flags_build(polar_fused, ("-DPOLAR_FRAME_PHASES",)) as lib:
         lib.polar_frame_phase_cycles.argtypes = [ctypes.c_void_p]
         waves = polar_fused.active_clusters(torch.device("cuda", 0),
                                             dragon.num_particles)
@@ -439,6 +492,141 @@ def polar_phases(tt) -> None:
                   + f"; total {sum(per):.0f}", flush=True)
 
 
+SASS_OPS = ("FFMA", "FMUL", "FADD", "MUFU", "SHFL", "LDS", "STS", "LDG")
+
+
+def sass_counts(lib, kernel: str) -> dict:
+    """SASS instructions of the function whose name holds ``kernel`` in the
+    library ``lib`` (cuobjdump -sass beside nvcc): the total and a few
+    opcodes."""
+    import re
+
+    from tetsim_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    ops, inside = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                          line)
+            if m:
+                ops.append(m.group(1))
+    out = {"total": len(ops)}
+    out.update({op: ops.count(op) for op in SASS_OPS})
+    return out
+
+
+def ordered_phases(tt, parent=None) -> None:
+    """K7's level walk: SM cycles per sub-level on block 0 (an instrumented
+    build, 8 dragons, 20 frames after 3), and the SASS instructions of the
+    shipped kernel, of one tet's solve, and of the earlier version's kernel
+    (``parent``)."""
+    import ctypes
+
+    from tetsim_torch.kernels import gs_ordered as go
+
+    dragon = tt.load_dragon()
+    params = tt.default_cpu_params()
+    levels = go.build_ordered_schedule(dragon).num_levels
+    print("gs_ordered: SASS of gs_ordered_kernel "
+          f"{sass_counts(go.library(), 'gs_ordered_kernel')}", flush=True)
+    with flags_build(go, ("-DGS_ORDERED_PHASES",)) as lib:
+        print("gs_ordered: SASS of one solve "
+              f"{sass_counts(lib, 'gs_ordered_solve_probe')}", flush=True)
+        lib.gs_ordered_phase_cycles.argtypes = [ctypes.c_void_p]
+        cycles = (ctypes.c_ulonglong * 2)()
+        body = go.OrderedGSBody(dragon)
+        body.step(params, 3)
+        torch.cuda.synchronize()
+        lib.gs_ordered_phase_cycles(cycles)
+        body.step(params, 20)
+        torch.cuda.synchronize()
+        if lib.gs_ordered_phase_cycles(cycles):
+            raise RuntimeError("gs_ordered_phase_cycles failed")
+        walk = cycles[0] / cycles[1]
+        print(f"gs_ordered B=8: SM cycles per substep's walk on block 0 "
+              f"{walk:.0f}: {walk / levels:.1f} per sub-level ({levels})",
+              flush=True)
+    if parent is not None:
+        plib = importlib.import_module(
+            "parent_tetsim_torch.kernels.gs_ordered").library()
+        print("gs_ordered earlier version: SASS of gs_ordered_kernel "
+              f"{sass_counts(plib, 'gs_ordered_kernel')}", flush=True)
+
+
+def grid_phases(tt) -> None:
+    """K3 on the packed 56^3 box at 1 and 2 blocks per SM: SM cycles on
+    block 0 per substep of its particle phases, per colour phase and per
+    grid barrier (an instrumented build, 20 frames after 3), and the us of
+    one barrier alone (1,000 barriers in one launch, CUDA events)."""
+    import ctypes
+
+    from tetsim_torch.kernels import nh_stencil as nh
+    from chip_smoke import grid_box, no_grab
+
+    params = tt.PhysicsParams(num_substeps=5)
+    arr, pos, vel, _ = grid_box(tt, False, GRID_DIMS, **GRID_BOX)
+    gid, gpos = no_grab(1)
+    dev = pos.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with flags_build(nh, ("-DNH_STENCIL_PHASES",)) as lib:
+        lib.nh_stencil_phase_cycles.argtypes = [ctypes.c_void_p]
+        lib.nh_stencil_sync_probe.argtypes = [ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p]
+        per_sm, sms = nh.occupancy(dev)
+        struct = nh._frame_params(arr, params)
+        for bps in (1, 2):
+            # nh_stencil.frame_grid's one block per SM, or two: the launch
+            # of nh_stencil._grid_frame_cuda on a grid of this size
+            grid = min(bps, per_sm) * sms
+            state = [pos, vel]
+
+            def step(k, grid=grid):
+                for _ in range(k):
+                    out = [torch.empty_like(pos) for _ in range(3)]
+                    err = lib.nh_stencil_launch(
+                        *(x.data_ptr() for x in state + out), None, None,
+                        arr.inv_mass.data_ptr(), gid.data_ptr(),
+                        gpos.data_ptr(), 1, gid.shape[-1],
+                        params.num_substeps, grid, struct, stream)
+                    if err:
+                        raise RuntimeError(
+                            "nh_stencil launch failed: "
+                            f"{lib.nh_stencil_error_string(err).decode()}")
+                    state[:] = out[0], out[2]
+                torch.cuda.synchronize()
+
+            cycles = (ctypes.c_ulonglong * 4)()
+            step(3)
+            lib.nh_stencil_phase_cycles(cycles)
+            step(20)
+            if lib.nh_stencil_phase_cycles(cycles):
+                raise RuntimeError("nh_stencil_phase_cycles failed")
+            per = [cycles[k] / cycles[3] for k in range(3)]
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            for iters in (10, 1010):
+                start.record()
+                if lib.nh_stencil_sync_probe(grid, iters, stream):
+                    raise RuntimeError("nh_stencil_sync_probe failed")
+                end.record()
+                end.synchronize()
+                if iters == 10:
+                    t10 = start.elapsed_time(end)
+            probe_us = (start.elapsed_time(end) - t10) * 1e3 / 1000
+            print(f"nh_stencil {bps} block(s) per SM ({grid} "
+                  "blocks), 56^3: SM cycles per substep on block 0: "
+                  f"particle phases {per[0]:.0f}, colour phases "
+                  f"{per[1]:.0f} ({per[1] / nh.COLORS:.0f} per colour), "
+                  f"barriers {per[2]:.0f} ({per[2] / (nh.COLORS + 1):.0f} "
+                  f"per barrier); one barrier alone {probe_us:.3f} us",
+                  flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="an earlier version to time "
@@ -457,6 +645,8 @@ def main() -> int:
             versions_ab(tt, args.parent)
         if args.phases:
             polar_phases(tt)
+            ordered_phases(tt, args.parent)
+            grid_phases(tt)
         print(card(), flush=True)
         return 0
     from tetsim_torch.kernels import gs_fused, gs_ordered, polar_fused
@@ -467,8 +657,8 @@ def main() -> int:
     dragon = tt.load_dragon()
     builds = (polar_fused.NVCC_FLAGS, UNCONTRACTED)
     for flags in builds:
-        with polar_build(polar_fused, flags):
-            polar_fused.library()
+        with flags_build(polar_fused, flags):
+            pass
     pending = []  # (name, profile): every shape is timed before any profiling
     for name, b, coloring, k1, k2 in SHAPES:
         if coloring is None:
@@ -479,7 +669,7 @@ def main() -> int:
                         polar_fused.frame_bytes(body.arrays, b, 1))
 
                 def build(flags=flags):
-                    return polar_build(polar_fused, flags)
+                    return flags_build(polar_fused, flags)
 
                 with build():
                     _, profile = measure(body, params, k1, k2, kernel, *work,

@@ -1,0 +1,159 @@
+"""How the grid kernel K3 and the exact-order kernel K7 lay a frame out on
+the card, checked on the CPU.
+
+K3 (``csrc/nh_stencil.cu``) runs a whole frame in one cooperative launch:
+its blocks walk each colour phase's (body, virtual block of 256 tet lanes)
+pairs grid-stride, with a grid barrier between phases.  The tests hold the
+phase plan to the mesh (every tet of every colour exactly once) and show,
+in plain torch, that the order in which a colour's tets are solved changes
+no bit of the plain sweep.
+
+K7 (``csrc/gs_ordered.cu``) walks a sub-level of the dragon's ordered
+schedule with warp 0, a lane per tet and no barrier inside it; the tests
+hold its tables to that (at most 32 tets per sub-level, no particle twice
+in one)."""
+import numpy as np
+import pytest
+import torch
+
+import tetsim_torch as tt
+from tetsim_torch.kernels import gs_ordered as go
+from tetsim_torch.kernels import nh_stencil as nh
+from tetsim_torch.solvers import common, neohookean_grid
+
+SMALL = dict(cell=0.25, origin=(-0.375, 0.5, -0.375))  # conftest's small_mesh
+SMS = (132, 7)  # an H100's SMs and a stand-in small card
+
+
+def _sorted_rows(a):
+    a = np.sort(np.asarray(a, np.int64), axis=1)
+    return a[np.lexsort(a.T[::-1])]
+
+
+@pytest.mark.parametrize("dims", [(3, 3, 3), (4, 3, 2), (12, 9, 7),
+                                  (56, 56, 56)])
+def test_phase_plan_covers_each_tet_once(dims):
+    """Every block's colour-phase items, at B = 1 and 2 and grids of 1 and 2
+    blocks per SM, cover each (body, virtual block) once; the virtual
+    blocks' 256 lanes give each colour's tets of the mesh exactly once."""
+    nblk = nh.partial_blocks(dims)
+    for b in (1, 2):
+        want = [(k, v) for k in range(b) for v in range(nblk)]
+        for sms in SMS:
+            for per_sm in (1, 2):
+                items = nh.phase_items(b, dims, per_sm * sms)
+                assert len(items) == per_sm * sms
+                got = sorted(x for block in items for x in block)
+                assert got == want
+    mesh = tt.grid_mesh(*dims)
+    arr = neohookean_grid.build_nh_grid_arrays(mesh, dims, device="cpu")
+    colors = neohookean_grid.grid_coloring(dims)
+    lanes = np.arange(nblk * nh.THREADS)
+    for color in range(nh.COLORS):
+        corners = nh.color_corners(dims, arr.corner_slab, color, lanes)
+        live = corners[:, 0] >= 0
+        assert live.sum() <= nblk * nh.THREADS
+        np.testing.assert_array_equal(
+            _sorted_rows(corners[live]),
+            _sorted_rows(mesh.tets[colors == color]), err_msg=f"{color}")
+    # the largest colour needs every virtual block
+    most = ((dims[0] + 1) // 2) * ((dims[1] + 1) // 2) * ((dims[2] + 1) // 2)
+    assert (nblk - 1) * nh.THREADS < most <= nblk * nh.THREADS
+
+
+def _permuted_frame(pos, vel, arr, params, gid, gpos, rng):
+    """The plain sweep's frame on flat planes, each colour's tets solved in
+    a random order, a few at a time (as blocks may take them), with the
+    plain engine's arithmetic: pos/vel [B, 3, N].  Returns (pos, prev,
+    vel)."""
+    dt = params.dt
+    X, Y, Z = pos.unbind(1)
+    VX, VY, VZ = vel.unbind(1)
+    pid = torch.arange(arr.num_particles)
+    for _ in range(params.num_substeps):
+        PX, PY, PZ = X, Y, Z
+        X, Y, Z, VX, VY, VZ = neohookean_grid.predict_phase(
+            arr.inv_mass, X, Y, Z, VX, VY, VZ, params, dt)
+        X, Y, Z = X.clone(), Y.clone(), Z.clone()
+        for color in range(nh.COLORS):
+            t = color >> 3
+            lanes = rng.permutation(nh.partial_blocks(arr.dims) * nh.THREADS)
+            corners = nh.color_corners(arr.dims, arr.corner_slab, color, lanes)
+            corners = corners[corners[:, 0] >= 0]
+            for chunk in np.array_split(corners, 3):
+                if not len(chunk):
+                    continue
+                ids = torch.as_tensor(chunk.T)  # [4, k]
+                pc = [[comp[:, i] for comp in (X, Y, Z)] for i in ids]
+                imc = [arr.inv_mass[i] for i in ids]
+                newp, _ = neohookean_grid._solve_color(
+                    pc, imc, arr.inv_rest_pose[t], arr.inv_rest_volume, dt,
+                    params.dev_compliance, params.vol_compliance)
+                for k, i in enumerate(ids):
+                    for c, comp in enumerate((X, Y, Z)):
+                        comp[:, i] += newp[k][c] - pc[k][c]
+        X, Y, Z, VX, VY, VZ = neohookean_grid.collide_grab_phase(
+            X, Y, Z, PX, PY, PZ, pid, params, dt, gid, gpos)
+    stack = lambda *a: torch.stack(a, dim=1)  # noqa: E731
+    return stack(X, Y, Z), stack(PX, PY, PZ), stack(VX, VY, VZ)
+
+
+def test_colour_order_changes_no_bit():
+    """The plain sweep with each colour's tets permuted and taken a few at
+    a time is bitwise ``grid_frame_reference`` on a 3x3x3 box with 2 bodies,
+    a pin and a grab: the property K3's grid-stride colour phases rely
+    on."""
+    dims = (3, 3, 3)
+    mesh = tt.grid_mesh(*dims, **SMALL)
+    arr = neohookean_grid.build_nh_grid_arrays(mesh, dims, pinned=[0],
+                                               device="cpu")
+    params = tt.PhysicsParams(num_substeps=5)
+    rng = np.random.RandomState(0)
+    pos = torch.tensor(mesh.verts).T.contiguous()[None].repeat(2, 1, 1)
+    vel = torch.tensor(rng.uniform(-0.5, 0.5, pos.shape).astype(np.float32))
+    gid = torch.tensor([[9], [-1]], dtype=torch.int32)
+    gpos = pos[:, :, 9][:, None] + torch.tensor([0.0, 0.05, 0.02])
+    want = nh.grid_frame_reference(pos, vel, arr, params, gid, gpos)
+    got = _permuted_frame(pos, vel, arr, params, gid, gpos, rng)
+    for name, g, w in zip(("pos", "prev", "vel"), got, want):
+        assert torch.equal(g, w), name
+    assert not torch.equal(want[0], pos)
+
+
+def test_launch_counts():
+    """K3 is one launch per frame, K3s 50 per substep (predict, 48 colours,
+    collide); the plain paths count none."""
+    assert nh.LAUNCHES_PER_FRAME == 1
+    assert nh.SLAB_LAUNCHES_PER_SUBSTEP == 50
+    dims = (2, 2, 2)
+    mesh = tt.grid_mesh(*dims, **SMALL)
+    arr = neohookean_grid.build_nh_grid_arrays(mesh, dims, device="cpu")
+    gid, gpos = common.norm_grabs(tt.Controls.none("cpu"))
+    pos = torch.tensor(mesh.verts).T.contiguous()[None]
+    before = nh.launch_count
+    nh.grid_frame(pos, torch.zeros_like(pos), arr, tt.PhysicsParams(),
+                  gid[None], gpos[None])
+    assert nh.launch_count == before
+
+
+@pytest.fixture(scope="module")
+def dragon_tables():
+    return go.ordered_tables(go.build_ordered_schedule(tt.load_dragon()),
+                             "cpu")
+
+
+def test_dragon_sub_levels(dragon_tables):
+    """The dragon's sub-levels as K7 walks them: 703 of them over 3,840
+    tets, each of at most 32 tets (a lane each) in its first columns, and
+    none touching a particle twice, so its lanes need no barrier between
+    them."""
+    ids = dragon_tables.sub_ids.numpy()
+    assert ids.shape == (703, 4, 32)
+    live = ids[:, 0] >= 0
+    count = live.sum(axis=1)
+    assert count.sum() == 3840 and count.min() >= 1
+    for l, w in enumerate(count):
+        assert live[l, :w].all(), l
+        corners = ids[l, :, :w].reshape(-1)
+        assert (corners >= 0).all() and len(set(corners)) == 4 * w, l
+        assert (ids[l, :, w:] == -1).all(), l

@@ -13,9 +13,17 @@
 //
 // What bounds it: not bytes.  The dragon's schedule has 703 sub-levels, and
 // each depends on the one before it, so a frame is 703 x substeps rounds of
-// one tet's serial projection chain (a square root, two divides and some
-// 400 dependent multiply-adds), about a microsecond each, on one SM per
-// body.  The windows and the W-lane working set of the TPU kernel exist
+// one tet's projection chain on one SM per body.  Measured (profile_frame.py
+// --phases, PERF.md): a sub-level takes about 1,100 SM cycles of warp 0,
+// and one solve is about 580 SASS instructions per lane, so a lane issues
+// one instruction every two cycles; the rest is the dependent chain (the
+// deviatoric step's nine-term norm, an IEEE square root, reciprocal and
+// divide, the hydrostatic step on its result, the next sub-level's gather),
+// which the idle lanes cannot shorten.  Splitting a tet over three lanes
+// (each lane one coordinate, the cross-lane rows by __shfl_sync) cut the
+// instructions per lane by 14% but put four rounds of shuffles on the chain
+// and measured about 1,530 cycles per sub-level, so it was not kept.  The
+// windows and the W-lane working set of the TPU kernel exist
 // only because Mosaic gathers from one 384-lane VMEM set; here a body's
 // nine particle planes sit in one block's shared memory (44 KB for the
 // dragon), so the schedule is one flat list of sub-levels.
@@ -56,6 +64,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kLanes = 32;  // tets per sub-level, one lane each
 constexpr int kCons = 14;   // rows 0-8 rest pose, 9 inverse volume, 10-13 w
+
+#ifdef GS_ORDERED_PHASES
+// A build for profile_frame.py --phases only: lane 0 of block 0 sums the SM
+// cycles of the level walk (from the barrier before it to its last
+// __syncwarp()) and counts the substeps.
+__device__ unsigned long long phase_cycles[2];
+#endif
 
 struct SubLevel {
   int ids[4];      // global corner ids, -1 on a padded lane
@@ -133,6 +148,9 @@ gs_ordered_kernel(const float* __restrict__ pos_in,   // [B,N,3]
 
     // the level walk: warp 0, a lane per tet, a warp barrier per sub-level
     if (tid < kLanes) {
+#ifdef GS_ORDERED_PHASES
+      const long long t0 = clock64();
+#endif
       SubLevel next;
       load_sub(sub_ids, sub_cons, 0, tid, next);
       for (int l = 0; l < S; ++l) {
@@ -156,6 +174,12 @@ gs_ordered_kernel(const float* __restrict__ pos_in,   // [B,N,3]
         }
         __syncwarp();
       }
+#ifdef GS_ORDERED_PHASES
+      if (b == 0 && tid == 0) {
+        phase_cycles[0] += clock64() - t0;
+        phase_cycles[1] += 1;
+      }
+#endif
     }
     __syncthreads();
 
@@ -202,6 +226,26 @@ gs_ordered_kernel(const float* __restrict__ pos_in,   // [B,N,3]
   }
 }
 
+#ifdef GS_ORDERED_PHASES
+// One tet's solve per lane on values from global memory and nothing else,
+// never launched: profile_frame.py --phases counts its SASS instructions,
+// the instructions a lane issues per sub-level (beside the loads and
+// stores).
+__global__ void gs_ordered_solve_probe(float* p, const float* c,
+                                       OrderedParams P) {
+  const int tid = threadIdx.x;
+  float cons[kCons];
+  for (int k = 0; k < kCons; ++k) cons[k] = c[k * kLanes + tid];
+  const float w[4] = {cons[10], cons[11], cons[12], cons[13]};
+  float pc[4][3];
+  for (int i = 0; i < 4; ++i)
+    for (int r = 0; r < 3; ++r) pc[i][r] = p[(3 * i + r) * kLanes + tid];
+  nh::solve_tet(pc, cons, cons[9], w, P.dev_scale, P.vol_scale, P.gamma);
+  for (int i = 0; i < 4; ++i)
+    for (int r = 0; r < 3; ++r) p[(3 * i + r) * kLanes + tid] = pc[i][r];
+}
+#endif
+
 }  // namespace
 
 extern "C" {
@@ -229,6 +273,19 @@ int gs_ordered_launch(const void* pos_in, const void* vel_in, void* pos_out,
       (const float*)grab_pos, N, S, G, num_substeps, P);
   return (int)cudaGetLastError();
 }
+
+#ifdef GS_ORDERED_PHASES
+// Copies phase_cycles to out[2] (walk cycles, substeps) and zeroes it;
+// returns the CUDA error.
+int gs_ordered_phase_cycles(unsigned long long* out) {
+  cudaError_t err =
+      cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
+  const unsigned long long zero[2] = {0, 0};
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
+  return (int)err;
+}
+#endif
 
 const char* gs_ordered_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -33,6 +33,7 @@ from .batch import SMEM_LIMIT, FusedBatch, expect
 
 CW = 32  # tets per sub-level (4 corners x 32 = one 128-slot corner block)
 THREADS = 256  # threads per block, as kThreads in csrc/gs_ordered.cu
+NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 NUM_BODIES = 8  # the batch of OrderedGSBody, as in the JAX package
 
 launch_count = 0  # launches of the CUDA kernel since import (or reset)
@@ -237,7 +238,7 @@ def _ordered_params(params: PhysicsParams) -> _OrderedParams:
 
 def library() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its arguments declared."""
-    lib = build.load("gs_ordered")
+    lib = build.load("gs_ordered", NVCC_FLAGS)
     if lib.gs_ordered_launch.argtypes is None:
         lib.gs_ordered_launch.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5

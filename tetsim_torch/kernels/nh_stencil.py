@@ -4,10 +4,13 @@ engine.
 
 ``grid_frame`` runs one frame (every substep: predict, the 48 colours in
 order, collide, grab, velocity) for B boxes of one size.  On CUDA tensors
-it launches the hand-written kernels of ``csrc/nh_stencil.cu``, 50 per
-substep; on CPU tensors it runs ``grid_frame_reference``, the same frame in
-plain torch from ``solvers/neohookean_grid.py``.  ``launch_count`` counts
-the kernel launches.  ``vol_err=True`` also returns the per-substep volume
+it launches the hand-written kernel of ``csrc/nh_stencil.cu`` once per
+frame, a cooperative launch whose grid (``frame_grid``, one block per SM)
+walks the frame's phases with a grid barrier between them (``phase_items``
+says which block takes which work); on CPU tensors it runs
+``grid_frame_reference``, the same frame in plain torch from
+``solvers/neohookean_grid.py``.  ``launch_count`` counts the kernel
+launches.  ``vol_err=True`` also returns the per-substep volume
 error of the XLA engine (mean det F - 1, summed in a fixed order); the
 ``neohookean_grid`` engine asks for it, this module's ``step_frame``
 reports NaN as K3 does.
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -30,13 +34,17 @@ from ..solvers.neohookean_grid import NHGridArrays
 from ..solvers.polar_grid import planes, unplanes
 from ..parallel.slabs import device_groups, plane, ungroup
 from . import build
-from .batch import expect
+from .batch import cached_params, expect
 
 COLORS = 48
-LAUNCHES_PER_SUBSTEP = COLORS + 2  # as nh_stencil_launches_per_substep()
+THREADS = 256  # threads per block and tet lanes per virtual block (kThreads)
+LAUNCHES_PER_FRAME = 1  # K3, as nh_stencil_launches_per_frame()
+NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # kernel launches since import (or reset)
 SEGMENTS = 12  # colour groups of the slab form: one per (type, px) pair
+# K3s: predict, 48 colours, collide (nh_stencil_slab_launches_per_substep())
+SLAB_LAUNCHES_PER_SUBSTEP = COLORS + 2
 segment_launch_count = 0  # launches of the slab form (K3s) since import
 
 
@@ -89,24 +97,83 @@ def _grid_params(arr: NHGridArrays, params: PhysicsParams) -> _GridNHParams:
     )
 
 
+_struct_makers: dict = {}  # box geometry -> maker of its frame struct
+
+
+def _frame_params(arr: NHGridArrays, params: PhysicsParams) -> _GridNHParams:
+    """``_grid_params``, built once per box geometry and set of parameter
+    values (``batch.cached_params``): a launch's host work."""
+    key = (arr.dims, arr.corner_slab, arr.inv_rest_pose, arr.inv_rest_volume)
+    build = _struct_makers.get(key)
+    if build is None:
+        if len(_struct_makers) >= 64:
+            _struct_makers.clear()
+        build = _struct_makers[key] = functools.partial(_grid_params, arr)
+    return cached_params(params, build)
+
+
+def partial_blocks(dims) -> int:
+    """Virtual blocks of THREADS tet lanes that cover the largest colour
+    (``partial_blocks`` of ``csrc/nh_stencil.cu``): a colour phase's work
+    per body."""
+    nx, ny, nz = dims
+    most = ((nx + 1) // 2) * ((ny + 1) // 2) * ((nz + 1) // 2)
+    return -(-most // THREADS)
+
+
+def phase_items(num_bodies: int, dims, grid: int) -> list:
+    """K3's colour phase over a grid of ``grid`` blocks: for each block, the
+    (body, virtual block) pairs it takes, grid-stride over items = body *
+    nblk + virtual block, as ``nh_grid_frame_kernel`` walks them.  Thread j
+    of a block solves tet lane vb * THREADS + j of the colour
+    (``color_corners``).  The particle phases walk (body, vertex) pairs the
+    same way, a thread at a time."""
+    nblk = partial_blocks(dims)
+    return [[divmod(item, nblk)
+             for item in range(k, num_bodies * nblk, grid)]
+            for k in range(grid)]
+
+
+def color_corners(dims, corner_slab, color: int, lanes) -> np.ndarray:
+    """Corner vertex ids int64 [len(lanes), 4] of colour ``color``'s tets at
+    tet lanes ``lanes``, as the kernel computes them (``solve_lane``): the
+    colour's cubes are (px + 2 ax, py + 2 ay, pz + 2 az), lanes in C order
+    over (ax, ay, az); -1 rows for lanes past the colour."""
+    nx, ny, nz = dims
+    t, px, py, pz = color >> 3, (color >> 2) & 1, (color >> 1) & 1, color & 1
+    cwx, cwy, cwz = (nx - px + 1) // 2, (ny - py + 1) // 2, (nz - pz + 1) // 2
+    lanes = np.asarray(lanes, np.int64)
+    ci = px + 2 * (lanes // (cwy * cwz))
+    cj = py + 2 * ((lanes // cwz) % cwy)
+    ck = pz + 2 * (lanes % cwz)
+    gy, gz = ny + 1, nz + 1
+    out = np.stack([((ci + ((s >> 2) & 1)) * gy + (cj + ((s >> 1) & 1))) * gz
+                    + (ck + (s & 1)) for s in corner_slab[t]], axis=-1)
+    return np.where((lanes < cwx * cwy * cwz)[:, None], out, -1)
+
+
 def library() -> ctypes.CDLL:
     """The kernels' library, built at first use, with its arguments
     declared."""
-    lib = build.load("nh_stencil")
+    lib = build.load("nh_stencil", NVCC_FLAGS)
     if lib.nh_stencil_launch.argtypes is None:
         lib.nh_stencil_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
             + [_GridNHParams, ctypes.c_void_p]
         )
         lib.nh_stencil_launch.restype = ctypes.c_int
         lib.nh_stencil_error_string.argtypes = [ctypes.c_int]
         lib.nh_stencil_error_string.restype = ctypes.c_char_p
-        lib.nh_stencil_partial_blocks.argtypes = [ctypes.c_int] * 3
-        lib.nh_stencil_partial_blocks.restype = ctypes.c_int
-        lib.nh_stencil_launches_per_substep.restype = ctypes.c_int
-        if lib.nh_stencil_launches_per_substep() != LAUNCHES_PER_SUBSTEP:
-            raise RuntimeError("csrc/nh_stencil.cu launches per substep != "
-                               "nh_stencil.LAUNCHES_PER_SUBSTEP")
+        lib.nh_stencil_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.nh_stencil_occupancy.restype = ctypes.c_int
+        lib.nh_stencil_launches_per_frame.restype = ctypes.c_int
+        lib.nh_stencil_slab_launches_per_substep.restype = ctypes.c_int
+        if (lib.nh_stencil_launches_per_frame() != LAUNCHES_PER_FRAME
+                or lib.nh_stencil_slab_launches_per_substep()
+                != SLAB_LAUNCHES_PER_SUBSTEP):
+            raise RuntimeError("csrc/nh_stencil.cu launch counts != "
+                               "nh_stencil.LAUNCHES_PER_FRAME / "
+                               "SLAB_LAUNCHES_PER_SUBSTEP")
         tail = [_GridNHParams, ctypes.c_void_p]
         lib.nh_stencil_slab_predict.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] + tail)
@@ -120,6 +187,37 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"nh_stencil {what} failed: "
+                           f"{lib.nh_stencil_error_string(err).decode()}")
+
+
+def occupancy(device) -> tuple:
+    """(blocks of K3 one SM holds at once, SMs) on ``device``
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once per
+    device."""
+    lib = library()
+    known = lib.__dict__.setdefault("occupancy", {})
+    if device.index not in known:
+        per_sm, sms = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(device):
+            _check(lib, lib.nh_stencil_occupancy(ctypes.byref(per_sm),
+                                                 ctypes.byref(sms)),
+                   "occupancy query")
+        known[device.index] = (per_sm.value, sms.value)
+    return known[device.index]
+
+
+def frame_grid(device) -> int:
+    """Blocks of K3's cooperative grid on ``device``: one per SM, all
+    resident at once.  Raises where an SM holds none."""
+    per_sm, sms = occupancy(device)
+    if per_sm < 1:
+        raise RuntimeError(f"an SM of {device} holds no block of K3")
+    return sms
+
+
 def _grid_frame_cuda(pos, vel, arr: NHGridArrays, params: PhysicsParams,
                      grab_id, grab_pos, vol_err: bool):
     global launch_count
@@ -130,6 +228,8 @@ def _grid_frame_cuda(pos, vel, arr: NHGridArrays, params: PhysicsParams,
     if S < 1:
         raise ValueError(f"num_substeps must be at least 1, got {S}")
     B, N = pos.shape[0], arr.num_particles
+    if 3 * B * N >= 2**31:
+        raise ValueError(f"{B} boxes of {N} particles overflow K3's indices")
     G = grab_id.shape[-1]
     f32 = torch.float32
     expect(pos, "pos", f32, (B, 3, N), dev)
@@ -139,26 +239,25 @@ def _grid_frame_cuda(pos, vel, arr: NHGridArrays, params: PhysicsParams,
     expect(arr.inv_mass, "inv_mass", f32, (N,), dev)
 
     lib = library()
+    grid = frame_grid(dev)
     pos_out, prev_out, vel_out = (torch.empty_like(pos) for _ in range(3))
     err_out = partial = None
     if vol_err:
         err_out = torch.empty((B, S), dtype=f32, device=dev)
-        nblk = lib.nh_stencil_partial_blocks(*arr.dims)
-        partial = torch.empty((B, COLORS, nblk), dtype=f32, device=dev)
-    with torch.cuda.device(dev):  # the launches go to the current device
+        partial = torch.empty((B, COLORS, partial_blocks(arr.dims)),
+                              dtype=f32, device=dev)
+    with torch.cuda.device(dev):  # the launch goes to the current device
         err = lib.nh_stencil_launch(
             pos.data_ptr(), vel.data_ptr(), pos_out.data_ptr(),
             prev_out.data_ptr(), vel_out.data_ptr(),
             None if err_out is None else err_out.data_ptr(),
             None if partial is None else partial.data_ptr(),
             arr.inv_mass.data_ptr(), grab_id.data_ptr(), grab_pos.data_ptr(),
-            B, G, S, _grid_params(arr, params),
+            B, G, S, grid, _frame_params(arr, params),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError("nh_stencil launch failed: "
-                           f"{lib.nh_stencil_error_string(err).decode()}")
-    launch_count += LAUNCHES_PER_SUBSTEP * S
+    _check(lib, err, f"cooperative launch of {grid} blocks")
+    launch_count += LAUNCHES_PER_FRAME
     return pos_out, prev_out, vel_out, err_out
 
 
@@ -282,7 +381,7 @@ def _slab_frame_cuda(packed, inv_mass, mesh, local: NHGridArrays, lx: int,
     if S < 1:
         raise ValueError(f"num_substeps must be at least 1, got {S}")
     lib = library()
-    par = _grid_params(local, params)
+    par = _frame_params(local, params)
     n = local.num_particles
     gyz = (local.dims[1] + 1) * (local.dims[2] + 1)
     gid, gpos = common.norm_grabs(controls)
@@ -302,10 +401,7 @@ def _slab_frame_cuda(packed, inv_mass, mesh, local: NHGridArrays, lx: int,
 
     def launch(fn, g, *args):
         with torch.cuda.device(g["dev"]):
-            err = fn(*args, par, g["stream"])
-        if err != 0:
-            raise RuntimeError("nh_stencil slab launch failed: "
-                               f"{lib.nh_stencil_error_string(err).decode()}")
+            _check(lib, fn(*args, par, g["stream"]), "slab launch")
 
     for s in range(S):
         for g in groups:
@@ -329,6 +425,6 @@ def _slab_frame_cuda(packed, inv_mass, mesh, local: NHGridArrays, lx: int,
                    g["prev_out"].data_ptr(), g["vel_out"].data_ptr(),
                    g["gid"].data_ptr(), g["gpos"].data_ptr(), g["k"],
                    g["gid"].shape[0], g["first"] * lx * gyz, lx * gyz)
-    segment_launch_count += LAUNCHES_PER_SUBSTEP * S * len(groups)
+    segment_launch_count += SLAB_LAUNCHES_PER_SUBSTEP * S * len(groups)
     return ([x for g in groups for x in ungroup(g["pos_out"])],
             [x for g in groups for x in ungroup(g["vel_out"])])
