@@ -69,7 +69,10 @@ code is non-zero:
      and past -z and the ground at friction k = 0.1, 2 frames; the
      62,370-tet blob at cell 0.05 and bench.py's 987,090-tet blob at cell
      0.02 (2,048 tets per piece, banded), 2 frames; each beside the
-     kernel's own spread from positions 1 ulp apart.  The Neo-Hookean
+     kernel's own spread from positions 1 ulp apart; and, for polar_pieces,
+     whose kernel holds a whole piece in one block's shared memory, the
+     62,370-tet blob at 8,192 tets per piece refused by name before any
+     launch.  The Neo-Hookean
      engine collapses the 987k blob, so its whole frames there are held
      by their spread alone, and one sweep at that width, on the first
      substep's predicted planes from rest with a 10x softer deviatoric
@@ -1214,6 +1217,27 @@ def pieces_vs_plain(tt, e, big_mesh, big_arr):
     return max(errs)
 
 
+def pieces_refusal(tt, e):
+    """A piece over one block's shared memory (the 62,370-tet blob at 8,192
+    tets per piece) is refused with polar_pieces' ValueError, before any
+    launch."""
+    mid = tt.ellipsoid_mesh(**BLOB_MID)
+    arr = e.build(mid, tets_per_piece=8192, device="cuda")
+    params = tt.PhysicsParams(num_substeps=PIECES_SUBSTEPS)
+    pack, step, _, _ = e.make(arr)
+    packed = pack(tt.init_state(mid, "cuda"), params)
+    before = e.mod.launch_count
+    try:
+        step(packed, params, tt.Controls.none("cuda"))
+    except ValueError as err:
+        print(f"phase 12 {e.name} shared-memory refusal (rp {arr.rp}, rt "
+              f"{arr.rt}: {e.mod.smem_bytes(arr.rp, arr.rt)} bytes): {err}",
+              flush=True)
+    else:
+        raise AssertionError("a piece over the shared memory was accepted")
+    check(e.mod.launch_count == before, "the refused piece launched")
+
+
 def full_width_pieces(tt, engines):
     """bench.py's 987,090-tet blob with its boundary surface, and each
     engine's banded schedule at 2,048 tets per piece, built once and shared
@@ -2088,6 +2112,11 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def stamp() -> str:
+    """The UTC date and time, as ``date -u +%FT%TZ`` prints it."""
+    return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+
+
 def phase(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2122,6 +2151,7 @@ def main() -> int:
                                       polar_stencil)
 
     t_start = time.perf_counter()
+    print(f"chip_smoke started {stamp()}", flush=True)
     label = card()
     print(label, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -2169,6 +2199,7 @@ def main() -> int:
     pieces_err = {e: phase(f"phase 12 {e.name} done", pieces_vs_plain, tt, e,
                            blob, big[e.name])
                   for e in engines}
+    phase("phase 12 refusal done", pieces_refusal, tt, engines[0])
     pieces_launches = {e: phase(f"phase 13 {e.name} done", pieces_main_path,
                                 tt, e, blob, big[e.name], kernels)
                        for e in engines}
@@ -2288,6 +2319,9 @@ def main() -> int:
          "ms": er_ms, "plain_ms": er_plain_ms,
          "bound_ms": er_bound, "bound_by": er_by, "library_ms": None},
     ] + slab_lines + large_lines}), flush=True)
+    print(f"chip_smoke finished {stamp()}, "
+          f"{time.perf_counter() - t_start:.1f} s after it started",
+          flush=True)
     print(label, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

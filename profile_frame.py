@@ -58,14 +58,32 @@ instead: DIR holds that version's ``tetsim_torch/`` and
 tetsim_tpu/assets`` unpacked into a directory that .gitignore lists), which
 is imported under another name and builds its own kernels into its own
 ``_build/``.  For gs_frame ordered B = 1, greedy B = 1 and 8 (5 substeps),
-polar_frame B = 1, 8 and 132 (20 substeps), gs_ordered B = 8 and
-nh_stencil on the packed 56^3 box (5 substeps) it times the earlier
-version (A) and this one (B) in the order A B B A, each through its own
-FusedGSBody / FusedPolarBody / OrderedGSBody / make_frame_stepper (not
-through World, whose engine names resolve to this version's modules), in
-the columns above, and says whether the two give the same bits after 3
-frames from the same start.  nh_stencil's kernel_us is per launch: 50 per
-substep in the first design, one per frame since.
+polar_frame B = 1, 8 and 132 (20 substeps), gs_ordered B = 8, nh_stencil
+and polar_stencil on the packed 56^3 box (5 substeps) and polar_pieces on
+the packed 987k blob (5 substeps) it times the earlier version (A) and
+this one (B) in the order A B B A, each through its own FusedGSBody /
+FusedPolarBody / OrderedGSBody / make_frame_stepper / make_pieces_stepper
+(not through World, whose engine names resolve to this version's modules),
+in the columns above, and says whether the two give the same bits after 3
+frames from the same start.  kernel_us is per launch (nh_stencil: 50 per
+substep in the first design, one per frame since; polar_pieces: 2 per
+substep in the first design, one since); where a shape runs several
+kernels, per_kernel gives each one's launches per frame and device us per
+launch; the polar_pieces rows add solve_event_ms, the solve alone by CUDA
+events on the packed state's predicted planes.  Before the timings it
+prints, for each side's polar_stencil and polar_pieces library, each
+kernel's registers, static shared and local (spill) bytes per thread
+(cuobjdump -res-usage) and the threads an SM holds at its launch's block
+size.  ``--only NAME ...`` times only the shapes of those names.
+
+    python3 profile_frame.py --variants
+
+times the build-time sizes of the two polar tet-pass kernels in the same
+columns: polar_stencil at strips of 32 and 64 cubes per pass-A block
+(``-DPOLAR_STENCIL_STRIP``) on the packed 56^3 box, A B B A, and
+polar_pieces at 256, 384 and 512 threads per block
+(``-DPOLAR_PIECES_THREADS``) on the packed 987k blob, A B C C B A, with
+each build's resource usage.
 
     python3 profile_frame.py --phases
 
@@ -90,6 +108,7 @@ import importlib
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -116,6 +135,12 @@ SHAPES = (("B=1 greedy", 1, "greedy", 50, 450),
           ("polar B=8", 8, None, 20, 120),
           ("polar B=132", 132, None, 20, 120))
 PROFILED_FRAMES = 20
+PIECES_LANES = (1152, 2048)  # rp, rt of the 987k blob at 2,048 tets per piece
+# the builds --variants compares, in the order A B B A (A B C C B A)
+STRIPS = (("-DPOLAR_STENCIL_STRIP=32",), ("-DPOLAR_STENCIL_STRIP=64",))
+PIECES_THREADS = (("-DPOLAR_PIECES_THREADS=256",),
+                  ("-DPOLAR_PIECES_THREADS=384",),
+                  ("-DPOLAR_PIECES_THREADS=512",))
 UNCONTRACTED = ("-fmad=false",)  # every product rounded before it is added
 
 
@@ -136,9 +161,10 @@ def synced_run(step, state_sum, k) -> float:
 
 
 def kernel_device_time(step, kernel):
-    """(device us per launch, device ms per frame) of the kernels whose
-    names contain ``kernel``, torch.profiler over PROFILED_FRAMES frames;
-    (None, None) where it records no device time."""
+    """(device us per launch, device ms per frame, {kernel: [launches per
+    frame, device us per launch]}) of the kernels whose names contain
+    ``kernel``, torch.profiler over PROFILED_FRAMES frames; (None, None, {})
+    where it records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -149,8 +175,11 @@ def kernel_device_time(step, kernel):
     launches = sum(e.count for e in events)
     device_us = sum(e.self_device_time_total for e in events)
     if not (launches and device_us):
-        return None, None
-    return device_us / launches, device_us / PROFILED_FRAMES / 1e3
+        return None, None, {}
+    each = {re.search(rf"\w*{kernel}\w*", e.key).group(0): [
+        e.count / PROFILED_FRAMES, e.self_device_time_total / e.count]
+        for e in events} if kernel else {}
+    return device_us / launches, device_us / PROFILED_FRAMES / 1e3, each
 
 
 def host_fit(step, state_sum, k1, k2) -> float:
@@ -194,9 +223,11 @@ def measure(body, params, k1, k2, kernel, flops, nbytes, state_sum=None,
 
     def profile():
         with build():
-            kernel_us, device_ms = kernel_device_time(step, kernel)
+            kernel_us, device_ms, each = kernel_device_time(step, kernel)
         row.update(kernel_us=kernel_us, device_ms=device_ms,
                    busy_share=device_ms / event_ms if device_ms else None)
+        if len(each) > 1:
+            row["per_kernel"] = each
         return row
 
     return row, profile
@@ -326,7 +357,8 @@ def pieces_profile(tt, pending):
 
         def glue(profile=profile, body=body):
             row = profile()
-            _, all_ms = kernel_device_time(lambda k: body.step(params, k), "")
+            _, all_ms, _ = kernel_device_time(
+                lambda k: body.step(params, k), "")
             row["glue_device_ms"] = all_ms - row["device_ms"]
             row["idle_ms"] = row["event_ms"] - all_ms
             return row
@@ -345,11 +377,15 @@ AB_SHAPES = (("gs ordered B=1", "gs", 1, "ordered", 20, 80),
              ("polar B=8", "polar", 8, None, 20, 120),
              ("polar B=132", "polar", 132, None, 20, 120),
              ("gs_ordered B=8", "ordered", 8, None, 20, 80),
-             ("grid nh 56^3", "grid", 1, None, 20, 120))
+             ("grid nh 56^3", "grid", 1, None, 20, 120),
+             ("grid polar 56^3", "gridpolar", 1, None, 20, 120),
+             ("pieces polar 987k", "pieces", 1, None, 4, 24))
 AB_KERNELS = {"gs": ("gs_fused", "gs_frame_kernel"),
               "polar": ("polar_fused", "polar_frame_kernel"),
               "ordered": ("gs_ordered", "gs_ordered_kernel"),
-              "grid": ("nh_stencil", "nh_grid_")}
+              "grid": ("nh_stencil", "nh_grid_"),
+              "gridpolar": ("polar_stencil", "polar_grid_"),
+              "pieces": ("polar_pieces", "polar_pieces_")}
 
 
 def load_version(root: str, name: str):
@@ -364,22 +400,89 @@ def load_version(root: str, name: str):
     return module
 
 
-def versions_ab(tt, parent_root: str) -> None:
-    """The dragon frame kernels, K7 and K3 of an earlier version (A) and of
-    this one (B), A B B A per shape, then their bits after 3 frames."""
+def resource_usage(lib, kernel: str) -> dict:
+    """Registers, shared and local (spill) bytes per thread of each function
+    whose name holds ``kernel`` in the library ``lib`` (cuobjdump
+    -res-usage beside nvcc)."""
+    from tetsim_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-res-usage", lib._name], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+        elif name and "REG:" in line:
+            out[name] = {k: int(v) for k, v in re.findall(
+                r"(REG|SHARED|LOCAL|STACK):(\d+)", line)}
+            name = None
+    return out
+
+
+def resident_threads(regs: int, threads: int, smem: int = 0) -> int:
+    """Threads an H100 SM holds of a kernel with ``regs`` registers per
+    thread, ``threads`` per block and ``smem`` bytes of shared memory per
+    block: 64 warps, 32 blocks, 65,536 registers allocated 256 per warp,
+    233,472 bytes of shared memory less 1,024 reserved per block."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(32, 64 // warps, 65536 // per_warp // warps,
+                 233472 // (smem + 1024))
+    return blocks * threads
+
+
+def launch_threads(lib) -> dict:
+    """Threads per block of each polar tet-pass kernel of ``lib`` (the
+    first designs' fixed sizes where the library names none)."""
+    if hasattr(lib, "polar_stencil_strip"):
+        return {"polar_grid_tet": 6 * lib.polar_stencil_strip(),
+                "polar_grid_vertex": 256, "polar_grid_acc": 256}
+    if hasattr(lib, "polar_pieces_threads"):
+        return {"polar_pieces_kernel": lib.polar_pieces_threads()}
+    return {"polar_grid_tet": 128, "polar_grid_vertex": 256,
+            "polar_grid_acc": 256, "polar_pieces_tet": 128,
+            "polar_pieces_lane": 256}
+
+
+def print_usage(label: str, lib, kernel: str, smem=None) -> None:
+    """``resource_usage`` of ``lib`` with the resident threads per SM that
+    follow; ``smem`` (bytes per block of dynamic shared memory) where the
+    launch adds some."""
+    sizes = launch_threads(lib)
+    for name, use in resource_usage(lib, kernel).items():
+        threads = next((t for k, t in sizes.items() if k in name), None)
+        if threads:
+            use["threads_per_block"] = threads
+            use["resident_threads_per_sm"] = resident_threads(
+                use["REG"], threads, use.get("SHARED", 0) + (smem or 0))
+        print(f"{label}: {name} {json.dumps(use)}", flush=True)
+
+
+def versions_ab(tt, parent_root: str, only=None) -> None:
+    """The dragon frame kernels, K7, K3, K4 and K6 of an earlier version (A)
+    and of this one (B), A B B A per shape (those named in ``only``, if
+    given), then their bits after 3 frames."""
+    from chip_smoke import BLOB, PIECES_TPP, event_ms
+
     packages = {"A": load_version(parent_root, "parent_tetsim_torch"),
                 "B": tt}
     kernels = {side: {k: importlib.import_module(
         f"{pkg.__name__}.kernels.{m}") for k, (m, _) in AB_KERNELS.items()}
         for side, pkg in packages.items()}
+    shapes = [s for s in AB_SHAPES if not only or s[0] in only]
     dragon = tt.load_dragon()
     grid_mesh = tt.grid_mesh(*GRID_DIMS, **GRID_BOX)
-    grids = {}  # each side's arrays of the 56^3 box
+    blob = (tt.ellipsoid_mesh(**BLOB)
+            if any(s[1] == "pieces" for s in shapes) else None)
+    grids = {}  # each side's arrays of the 56^3 box, of either engine
+    pieces = {}  # each side's arrays of the 987k blob
 
     def params_of(kind):
         if kind == "polar":
             return tt.default_gpu_params()
-        if kind == "grid":
+        if kind in ("grid", "gridpolar", "pieces"):
             return tt.PhysicsParams(num_substeps=5)
         return tt.default_cpu_params()
 
@@ -390,16 +493,30 @@ def versions_ab(tt, parent_root: str) -> None:
                                    jitter=0.2)
         if kind == "ordered":
             return mod.OrderedGSBody(dragon, jitter=0.2)
-        if kind == "grid":  # each side's own stepper (World's registry
-            # names this version's modules)
-            if side not in grids:
+        if kind in ("grid", "gridpolar"):  # each side's own stepper
+            # (World's registry names this version's modules)
+            if (side, kind) not in grids:
+                nh = kind == "grid"
                 solver = importlib.import_module(
-                    f"{packages[side].__name__}.solvers.neohookean_grid")
-                grids[side] = solver.build_nh_grid_arrays(
-                    grid_mesh, GRID_DIMS, device="cuda")
-            bd = _Packed(tt, mod.make_frame_stepper(grids[side]),
+                    f"{packages[side].__name__}.solvers."
+                    f"{'neohookean_grid' if nh else 'polar_grid'}")
+                build_arrays = (solver.build_nh_grid_arrays if nh
+                                else solver.build_grid_arrays)
+                grids[side, kind] = build_arrays(grid_mesh, GRID_DIMS,
+                                                 device="cuda")
+            arrays = grids[side, kind]
+            bd = _Packed(tt, mod.make_frame_stepper(arrays),
                          tt.init_state(grid_mesh, "cuda"), params_of(kind))
-            bd.arrays = grids[side]
+            bd.arrays = arrays
+            return bd
+        if kind == "pieces":
+            if side not in pieces:
+                pieces[side] = mod.build_pieces_arrays(
+                    blob, tets_per_piece=PIECES_TPP, boundary_prefix=True,
+                    device="cuda")
+            bd = _Packed(tt, mod.make_pieces_stepper(pieces[side]),
+                         tt.init_state(blob, "cuda"), params_of(kind))
+            bd.arrays = pieces[side]
             return bd
         return mod.FusedPolarBody(dragon, num_bodies=b, jitter=0.2)
 
@@ -413,30 +530,59 @@ def versions_ab(tt, parent_root: str) -> None:
         if kind == "grid":
             return (mod.frame_flops(bd.arrays, params, 1),
                     mod.frame_bytes(bd.arrays, params, 1, 1))
+        if kind == "gridpolar":
+            return (mod.frame_flops(bd.arrays, params, 1),
+                    mod.frame_bytes(bd.arrays, 1, 1))
+        if kind == "pieces":
+            return (mod.frame_flops(bd.arrays, params),
+                    mod.frame_bytes(bd.arrays, params))
         return (mod.frame_flops(bd.arrays, params, b),
                 mod.frame_bytes(bd.arrays, b, 1))
 
     def state(kind, bd):
-        if kind == "grid":
+        if kind in ("grid", "gridpolar", "pieces"):
             return list(bd.packed)
         return [bd.pos, bd.prev_pos, bd.vel] + (
             [bd.last_diag] if kind == "gs" else
             [bd.quats] if kind == "polar" else [])
 
+    def solve_ms(side, bd):
+        """The pieces solve alone by CUDA events on the packed state's
+        predicted planes (50 calls after one)."""
+        mod, arr = kernels[side]["pieces"], bd.arrays
+        params = params_of("pieces")
+        planes = mod.predict_planes(*bd.packed[:6], arr.movw_l > 0.0,
+                                    params.dt, params)[:3]
+        return event_ms(lambda: mod.pieces_solve(*planes, bd.packed[6], arr),
+                        50)
+
+    for side in packages:
+        for kind in ("gridpolar", "pieces"):
+            if any(s[1] == kind for s in shapes):
+                mod = kernels[side][kind]
+                smem = getattr(mod, "smem_bytes", None)  # a one-block design
+                print_usage(f"[{side}] {AB_KERNELS[kind][0]}", mod.library(),
+                            AB_KERNELS[kind][1],
+                            smem(*PIECES_LANES) if smem else None)
     pending = []
-    for name, kind, b, coloring, k1, k2 in AB_SHAPES:
+    for name, kind, b, coloring, k1, k2 in shapes:
         mod = kernels["B"][kind]
         params = params_of(kind)
         for side in "ABBA":
             bd = body(side, kind, b, coloring)
             pos_sum = ((lambda bd=bd: bd.packed[0].sum())
-                       if kind == "grid" else None)
-            pending.append((f"{name} [{side}]", measure(
+                       if hasattr(bd, "packed") else None)
+            row, profile = measure(
                 bd, params, k1, k2, AB_KERNELS[kind][1],
-                *work(mod, kind, bd, params, b), state_sum=pos_sum)[1]))
+                *work(mod, kind, bd, params, b), state_sum=pos_sum)
+            if kind == "gridpolar":
+                row["ms_per_substep"] = row["event_ms"] / params.num_substeps
+            if kind == "pieces":
+                row["solve_event_ms"] = solve_ms(side, bd)
+            pending.append((f"{name} [{side}]", profile))
     for name, profile in pending:
         print(name, json.dumps(profile()), flush=True)
-    for name, kind, b, coloring, _, _ in AB_SHAPES:
+    for name, kind, b, coloring, _, _ in shapes:
         params = params_of(kind)
         out = {}
         for side in "AB":
@@ -448,6 +594,63 @@ def versions_ab(tt, parent_root: str) -> None:
         worst = max(max_diff(x, y) for x, y in zip(out["A"], out["B"]))
         print(f"{name}: A vs B after 3 frames, bitwise {same} (largest "
               f"difference {worst:.3e})", flush=True)
+
+
+def variants(tt) -> None:
+    """K4 at strips of 32 and 64 cubes per pass-A block on the packed 56^3
+    box, and K6 at 256, 384 and 512 threads per block on the packed 987k
+    blob (its solve alone by CUDA events), each build's resource usage and
+    times in the columns above, the builds in the order A B B A (A B C C B
+    A)."""
+    from chip_smoke import BLOB, PIECES_TPP, event_ms
+    from tetsim_torch.kernels import polar_pieces, polar_stencil
+    from tetsim_torch.solvers import polar_grid
+
+    params = tt.PhysicsParams(num_substeps=5)
+    grid_mesh = tt.grid_mesh(*GRID_DIMS, **GRID_BOX)
+    garr = polar_grid.build_grid_arrays(grid_mesh, GRID_DIMS, device="cuda")
+    blob = tt.ellipsoid_mesh(**BLOB)
+    parr = polar_pieces.build_pieces_arrays(
+        blob, tets_per_piece=PIECES_TPP, boundary_prefix=True, device="cuda")
+    cases = (
+        (polar_stencil, STRIPS, "polar_grid_", 20, 120,
+         lambda: _Packed(tt, polar_stencil.make_frame_stepper(garr),
+                         tt.init_state(grid_mesh, "cuda"), params),
+         (polar_stencil.frame_flops(garr, params, 1),
+          polar_stencil.frame_bytes(garr, 1, 1)), None),
+        (polar_pieces, PIECES_THREADS, "polar_pieces_", 4, 24,
+         lambda: _Packed(tt, polar_pieces.make_pieces_stepper(parr),
+                         tt.init_state(blob, "cuda"), params),
+         (polar_pieces.frame_flops(parr, params),
+          polar_pieces.frame_bytes(parr, params)),
+         polar_pieces.smem_bytes(parr.rp, parr.rt)))
+    pending = []
+    for mod, builds, kernel, k1, k2, make, work, smem in cases:
+        for flags in builds:
+            with flags_build(mod, flags) as lib:
+                print_usage(f"{mod.__name__.split('.')[-1]} "
+                            f"[{build_name(flags)}]", lib, kernel, smem)
+        for flags in (*builds, *builds[::-1]):
+            def build(flags=flags):
+                return flags_build(mod, flags)
+
+            with build():
+                bd = make()
+                row, profile = measure(
+                    bd, params, k1, k2, kernel, *work,
+                    state_sum=lambda bd=bd: bd.packed[0].sum(), build=build)
+                row["ms_per_substep"] = row["event_ms"] / params.num_substeps
+                if mod is polar_pieces:
+                    planes = polar_pieces.predict_planes(
+                        *bd.packed[:6], parr.movw_l > 0.0, params.dt,
+                        params)[:3]
+                    row["solve_event_ms"] = event_ms(
+                        lambda: polar_pieces.pieces_solve(
+                            *planes, bd.packed[6], parr), 50)
+            pending.append((f"{mod.__name__.split('.')[-1]} "
+                            f"[{build_name(flags)}]", profile))
+    for name, profile in pending:
+        print(name, json.dumps(profile()), flush=True)
 
 
 PHASES = ("predict", "phase A", "barrier 1", "phase B", "barrier 2")
@@ -499,8 +702,6 @@ def sass_counts(lib, kernel: str) -> dict:
     """SASS instructions of the function whose name holds ``kernel`` in the
     library ``lib`` (cuobjdump -sass beside nvcc): the total and a few
     opcodes."""
-    import re
-
     from tetsim_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
@@ -631,18 +832,25 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="an earlier version to time "
                         "against (see the module docstring)")
+    parser.add_argument("--only", nargs="+", metavar="SHAPE",
+                        help="with --parent, only these shapes (names of "
+                        "AB_SHAPES)")
     parser.add_argument("--phases", action="store_true",
                         help="polar_frame's cycles per phase of a substep")
+    parser.add_argument("--variants", action="store_true",
+                        help="K4's strip widths and K6's block sizes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_frame: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
     import tetsim_torch as tt
-    if args.parent or args.phases:
+    if args.parent or args.phases or args.variants:
         print(card(), flush=True)
         if args.parent:
-            versions_ab(tt, args.parent)
+            versions_ab(tt, args.parent, args.only)
+        if args.variants:
+            variants(tt)
         if args.phases:
             polar_phases(tt)
             ordered_phases(tt, args.parent)

@@ -16,32 +16,52 @@
 // thread computes its corner ids from (cube, type) directly.
 //
 // Design: two launches per substep, no atomics, deterministic.
-//   A. One thread per (type, cube) tet: it predicts its 4 corners from the
-//      substep's start state (predict is elementwise and rounds every
-//      product, so every thread gets the same bits for a vertex), forms the
-//      centroid and the covariance with the rest corners rotated by its
-//      quaternion, runs extract_rotation from the identity (polar_math.cuh,
-//      the grid engine's axis form), writes the new quaternion and its 4
-//      rest-volume-weighted goal deltas to a scratch buffer [B, 72, C].
-//   B. One thread per vertex: it predicts itself again, gathers the deltas
-//      of its incident corners in the engine's order (slab s = 0..7, and
-//      within a slab types t = 0..5), divides by max(den, eps), collides,
-//      applies the grabs and sets the velocity.
+//   A. One block per strip of W = kStrip consecutive cubes (C order) and
+//      body, 6 W threads: thread (t, w) = threadIdx.x / W, % W solves type
+//      t of cube w (solve_tet, the same function for K4 and K4a).  It
+//      predicts its 4 corners from the substep's start state (predict is
+//      elementwise and rounds every product, so every thread gets the same
+//      bits for a vertex), forms the centroid and the covariance with the
+//      rest corners rotated by its quaternion, runs extract_rotation from
+//      the identity (polar_math.cuh, the grid engine's axis form), writes
+//      the new quaternion, and keeps its 4 rest-volume-weighted goal deltas
+//      in shared memory [6][4][3][W].  After one __syncthreads() the block
+//      forms each (slab s, coordinate r, cube w) sum over types t = 0..5 in
+//      order from 0 (a tet has at most one corner in a slab): the plain
+//      path's accx[s], 24 floats per cube, written to a scratch [B, 24, C]
+//      at row 3s + r, coalesced along the cubes.
+//   B. One thread per vertex: it predicts itself again, adds the 8 slab
+//      sums of the cubes it is a corner of in slab order s = 0..7 (the
+//      engine's order), divides by max(den, eps), collides, applies the
+//      grabs and sets the velocity.
 // Substep 0 reads the inputs; later substeps update the outputs in place
 // (a thread reads its own vertex, or its own quaternion, before it writes).
 //
 // Numerics: the accumulation, the predict and the collide round every
 // operation as the plain path does; the tet arithmetic is contracted by
 // nvcc into FMAs where it can, so a result may differ from the plain
-// path's in its last bits.
+// path's in its last bits.  The sums are the first design's (which summed
+// 72 corner deltas per cube in pass B in the same order), so K4 gives its
+// bits.
 //
 // What bounds it: FP32 arithmetic.  A tet costs 391 + 136 * iters flops
 // per substep (kernels/polar_stencil.py frame_flops), 1.70 GFLOP per
-// substep for the 56^3 box, against about 50 MB of state and quaternions
-// read and written once.  Each thread of pass A is a long dependent chain
-// (9 extract_rotation iterations with divides, a square root, a sine and a
-// cosine); 1,053,696 threads keep all 132 SMs busy.  The delta scratch (51
-// MB at 56^3) is written and read once per substep, mostly through L2.
+// substep for the 56^3 box (25.6 us at 67 TFLOP/s), against about 50 MB of
+// state and quaternions read and written once.  Measured at 56^3
+// (profile_frame.py --parent / --variants, NVIDIA H100 80GB HBM3 at 700 W):
+// the first design kept all 72 corner deltas of a cube in a global scratch
+// [B, 72, C], 50.6 MB written by pass A and read back by pass B each
+// substep; its pass A took 106.6-106.9 us (48 registers, 128 threads,
+// 1,280 resident threads per SM) and pass B 37.4-37.6 us, most of it that
+// read, 0.146 ms per substep.  The 24 slab sums are 16.9 MB each way: pass
+// B takes 11.0 us, pass A 111.2 us (54 registers, 192 threads, 1,152
+// resident threads per SM; the sums cost it about 4.6 us), 0.123 ms per
+// substep.  Pass A now bounds K4: 1.7x K9's measured pass
+// (extract_rotation.cu, 0.064 ms per 1,048,576 lanes), the rest of a tet's
+// arithmetic (4 predicted corners, 8 quaternion rotations, the covariance,
+// the normalisation) on top.  Strips of 64 cubes took the same time;
+// predicting a strip's corners once into shared memory, and 7 blocks per
+// SM at 40 registers, were no faster.
 
 // K4a, the slab form: replaces the TPU kernel
 // tetsim_tpu/kernels/polar_stencil.py:_make_call_acc (_build_call with
@@ -79,13 +99,20 @@ struct GridPolarParams {
   float rest_volume;
   float rest_centered[6][4][3];  // per type, per corner
   int corner_slab[6][4];         // slab s = 4 dx + 2 dy + dz of each corner
+  int slab_items[8][6];  // slab s: the corners 4t + c in it, types in order,
+                         // then -1
   int nx, ny, nz;                // cubes
   int iters;                     // extract_rotation iterations
 };
 
 namespace {
 
-constexpr int kTetThreads = 128;
+// W, the cubes of one pass-A block (32 or 64; profile_frame.py builds both)
+#ifndef POLAR_STENCIL_STRIP
+#define POLAR_STENCIL_STRIP 32
+#endif
+constexpr int kStrip = POLAR_STENCIL_STRIP;
+constexpr int kTetThreads = 6 * kStrip;
 constexpr int kVertexThreads = 256;
 
 // The predicted position of vertex v of one body's planes: gravity into
@@ -101,68 +128,21 @@ __device__ __forceinline__ void predict(const float* pos, const float* vel,
   out[2] = __fadd_rn(pos[2 * N + v], __fmul_rn(vz, P.dt));
 }
 
-// The inverse stencil at vertex (vi, vj, vk) of one body's deltas bd
-// [72, C]: slab s holds the corners of the cube v - (dx, dy, dz); the slabs
-// are summed in order s = 0..7, each over types t = 0..5 (the engine's
-// order).
-__device__ __forceinline__ void gather(const float* __restrict__ bd, int vi,
-                                       int vj, int vk, int C,
-                                       const GridPolarParams& P,
-                                       float num[3]) {
-  num[0] = num[1] = num[2] = 0.0f;
-  for (int s = 0; s < 8; ++s) {
-    const int ci = vi - ((s >> 2) & 1), cj = vj - ((s >> 1) & 1),
-              ck = vk - (s & 1);
-    if (ci < 0 || ci >= P.nx || cj < 0 || cj >= P.ny || ck < 0 || ck >= P.nz)
-      continue;
-    const int cube = (ci * P.ny + cj) * P.nz + ck;
-    float acc[3] = {0.0f, 0.0f, 0.0f};
-    for (int t = 0; t < 6; ++t)
-      for (int c = 0; c < 4; ++c)
-        if (P.corner_slab[t][c] == s)
-          for (int r = 0; r < 3; ++r)
-            acc[r] = __fadd_rn(acc[r],
-                               bd[(size_t)(12 * t + 3 * c + r) * C + cube]);
-    for (int r = 0; r < 3; ++r) num[r] = __fadd_rn(num[r], acc[r]);
-  }
-}
-
-__global__ void __launch_bounds__(kTetThreads)
-polar_grid_tet_kernel(const float* __restrict__ pos,  // [B,3,N]
-                      const float* __restrict__ vel,  // [B,3,N]
-                      const float* quat_in,           // [B,24,C]
-                      float* quat_out,                // [B,24,C]
-                      float* __restrict__ delta,      // [B,72,C] scratch
-                      const float* __restrict__ inv_mass,  // [N] or [B,N]
-                      int im_stride,  // 0: one inv_mass row for every body
-                      int N, int C, GridPolarParams P) {
-  const int b = blockIdx.y;
-  const int idx = blockIdx.x * kTetThreads + threadIdx.x;
-  if (idx >= 6 * C) return;
-  inv_mass += (size_t)b * im_stride;
-  const int t = idx / C, cube = idx - t * C;
-  const int i = cube / (P.ny * P.nz), j = (cube / P.nz) % P.ny,
-            k = cube % P.nz;
-  const int gy = P.ny + 1, gz = P.nz + 1;
-  const float* bpos = pos + (size_t)b * 3 * N;
-  const float* bvel = vel + (size_t)b * 3 * N;
-
-  float p[4][3], rc[4][3];
-  for (int c = 0; c < 4; ++c) {
-    const int s = P.corner_slab[t][c];
-    const int v = ((i + ((s >> 2) & 1)) * gy + (j + ((s >> 1) & 1))) * gz +
-                  (k + (s & 1));
-    predict(bpos, bvel, inv_mass, v, N, P, p[c]);
+// One tet of type t from its predicted corners p and its quaternion q:
+// returns the new quaternion and writes the 4 rest-volume-weighted goal
+// deltas d[c][r] = (R rest_c - (p_c - centroid))[r] * rest_volume.
+__device__ __forceinline__ float4 solve_tet(const float p[4][3], int t,
+                                            float4 q,
+                                            const GridPolarParams& P,
+                                            float d[4][3]) {
+  float rc[4][3];
+  for (int c = 0; c < 4; ++c)
     for (int r = 0; r < 3; ++r) rc[c][r] = P.rest_centered[t][c][r];
-  }
   float pc[4][3];
   for (int r = 0; r < 3; ++r) {
     const float cc = (((p[0][r] + p[1][r]) + p[2][r]) + p[3][r]) * 0.25f;
     for (int c = 0; c < 4; ++c) pc[c][r] = p[c][r] - cc;
   }
-
-  const float* qi = quat_in + ((size_t)b * 24 + 4 * t) * C + cube;
-  float4 q = make_float4(qi[0], qi[C], qi[2 * C], qi[3 * C]);
   float rr[4][3];
   for (int c = 0; c < 4; ++c) polar::qrot(rc[c], q, rr[c]);
   float a[3][3];  // a[r][c] = sum_k pc[k][r] * rr[k][c]
@@ -173,19 +153,89 @@ polar_grid_tet_kernel(const float* __restrict__ pos,  // [B,3,N]
   const float4 inc = polar::extract_rotation<polar::AxisForm::kReciprocal>(
       a, make_float4(0.0f, 0.0f, 0.0f, 1.0f), P.iters);
   q = polar::qnormalize_guarded(polar::qmul(inc, q));
-  float* qo = quat_out + ((size_t)b * 24 + 4 * t) * C + cube;
-  qo[0] = q.x;
-  qo[C] = q.y;
-  qo[2 * C] = q.z;
-  qo[3 * C] = q.w;
-
-  // goal - corner, weighted by the rest volume: rows 12t + 3c + r
-  float* d = delta + ((size_t)b * 72 + 12 * t) * C + cube;
   for (int c = 0; c < 4; ++c) {
     float g[3];
     polar::qrot(rc[c], q, g);
     for (int r = 0; r < 3; ++r)
-      d[(size_t)(3 * c + r) * C] = __fmul_rn(g[r] - pc[c][r], P.rest_volume);
+      d[c][r] = __fmul_rn(g[r] - pc[c][r], P.rest_volume);
+  }
+  return q;
+}
+
+// The inverse stencil at vertex (vi, vj, vk) of one body's slab sums bs
+// [24, C]: slab s holds the corners of the cube v - (dx, dy, dz); the slabs
+// are added in order s = 0..7 (the engine's order).
+__device__ __forceinline__ void gather(const float* __restrict__ bs, int vi,
+                                       int vj, int vk, int C,
+                                       const GridPolarParams& P,
+                                       float num[3]) {
+  num[0] = num[1] = num[2] = 0.0f;
+  for (int s = 0; s < 8; ++s) {
+    const int ci = vi - ((s >> 2) & 1), cj = vj - ((s >> 1) & 1),
+              ck = vk - (s & 1);
+    if (ci < 0 || ci >= P.nx || cj < 0 || cj >= P.ny || ck < 0 || ck >= P.nz)
+      continue;
+    const int cube = (ci * P.ny + cj) * P.nz + ck;
+    for (int r = 0; r < 3; ++r)
+      num[r] = __fadd_rn(num[r], bs[(size_t)(3 * s + r) * C + cube]);
+  }
+}
+
+// Pass A on a strip of kStrip cubes of body blockIdx.y (see the note).
+__global__ void __launch_bounds__(kTetThreads)
+polar_grid_tet_kernel(const float* __restrict__ pos,  // [B,3,N]
+                      const float* __restrict__ vel,  // [B,3,N]
+                      const float* quat_in,           // [B,24,C]
+                      float* quat_out,                // [B,24,C]
+                      float* __restrict__ sums,       // [B,24,C] scratch
+                      const float* __restrict__ inv_mass,  // [N] or [B,N]
+                      int im_stride,  // 0: one inv_mass row for every body
+                      int N, int C, GridPolarParams P) {
+  __shared__ float sd[24][3][kStrip];  // weighted deltas, corner 4t + c
+  const int b = blockIdx.y;
+  const int t = threadIdx.x / kStrip, w = threadIdx.x - t * kStrip;
+  const int cube = blockIdx.x * kStrip + w;
+  inv_mass += (size_t)b * im_stride;
+  const int gy = P.ny + 1, gz = P.nz + 1;
+  const float* bpos = pos + (size_t)b * 3 * N;
+  const float* bvel = vel + (size_t)b * 3 * N;
+  if (cube < C) {
+    const int i = cube / (P.ny * P.nz), j = (cube / P.nz) % P.ny,
+              k = cube % P.nz;
+    float p[4][3];
+    for (int c = 0; c < 4; ++c) {
+      const int s = P.corner_slab[t][c];
+      const int v = ((i + ((s >> 2) & 1)) * gy + (j + ((s >> 1) & 1))) * gz +
+                    (k + (s & 1));
+      predict(bpos, bvel, inv_mass, v, N, P, p[c]);
+    }
+    const float* qi = quat_in + ((size_t)b * 24 + 4 * t) * C + cube;
+    float d[4][3];
+    const float4 q = solve_tet(
+        p, t, make_float4(qi[0], qi[C], qi[2 * C], qi[3 * C]), P, d);
+    float* qo = quat_out + ((size_t)b * 24 + 4 * t) * C + cube;
+    qo[0] = q.x;
+    qo[C] = q.y;
+    qo[2 * C] = q.z;
+    qo[3 * C] = q.w;
+    for (int c = 0; c < 4; ++c)
+      for (int r = 0; r < 3; ++r) sd[4 * t + c][r][w] = d[c][r];
+  }
+  __syncthreads();
+  if (cube >= C) return;
+  // rows t, t + 6, t + 12, t + 18 of cube w: row 3s + r sums the corners
+  // of slab s over the types in order, as the plain path's accx[s] and the
+  // first design's per-slab acc
+  float* out = sums + (size_t)b * 24 * C + cube;
+  for (int row = t; row < 24; row += 6) {
+    const int s = row / 3, r = row - 3 * s;
+    float acc = 0.0f;
+    for (int e = 0; e < 6; ++e) {
+      const int item = P.slab_items[s][e];
+      if (item < 0) break;
+      acc = __fadd_rn(acc, sd[item][r][w]);
+    }
+    out[(size_t)row * C] = acc;
   }
 }
 
@@ -195,7 +245,7 @@ polar_grid_vertex_kernel(const float* pos,        // [B,3,N] substep start
                          float* pos_out,          // [B,3,N]
                          float* __restrict__ prev_out,  // [B,3,N]
                          float* vel_out,          // [B,3,N]
-                         const float* __restrict__ delta,     // [B,72,C]
+                         const float* __restrict__ sums,      // [B,24,C]
                          const float* __restrict__ inv_mass,  // [N]
                          const float* __restrict__ den,       // [N]
                          const int* __restrict__ grab_id,     // [B,G]
@@ -212,7 +262,7 @@ polar_grid_vertex_kernel(const float* pos,        // [B,3,N] substep start
   predict(bpos, vel + base, inv_mass, v, N, P, p);
 
   float num[3];
-  gather(delta + (size_t)b * 72 * C, vi, vj, vk, C, P, num);
+  gather(sums + (size_t)b * 24 * C, vi, vj, vk, C, P, num);
 
   float x = p[0], y = p[1], z = p[2];
   if (inv_mass[v] > 0.0f) {
@@ -259,7 +309,7 @@ polar_grid_acc_kernel(const float* __restrict__ pos,  // [B,3,N] substep start
                       const float* __restrict__ vel,  // [B,3,N]
                       float* __restrict__ pred_out,   // [B,3,N]
                       float* __restrict__ acc_out,    // [B,3,N]
-                      const float* __restrict__ delta,     // [B,72,C]
+                      const float* __restrict__ sums,      // [B,24,C]
                       const float* __restrict__ inv_mass,  // [B,N]
                       int N, int C, GridPolarParams P) {
   const int b = blockIdx.y;
@@ -270,7 +320,7 @@ polar_grid_acc_kernel(const float* __restrict__ pos,  // [B,3,N] substep start
   const size_t base = (size_t)b * 3 * N;
   float p[3], num[3];
   predict(pos + base, vel + base, inv_mass + (size_t)b * N, v, N, P, p);
-  gather(delta + (size_t)b * 72 * C, vi, vj, vk, C, P, num);
+  gather(sums + (size_t)b * 24 * C, vi, vj, vk, C, P, num);
   for (int r = 0; r < 3; ++r) {
     pred_out[base + (size_t)r * N + v] = p[r];
     acc_out[base + (size_t)r * N + v] = num[r];
@@ -341,26 +391,26 @@ extern "C" {
 int polar_stencil_slab_launches_per_substep() { return 3; }
 
 // K4a, one substep's first part on B slabs of one device (P holds the
-// slab's local dims): pass A (tets -> quat_out, delta) and pass B1
+// slab's local dims): pass A (tets -> quat_out, sums) and pass B1
 // (vertices -> pred, acc).  Returns the first launch error.
 int polar_stencil_slab_accumulate(const void* pos, const void* vel,
                                   const void* quat_in, void* quat_out,
-                                  void* delta, void* pred, void* acc,
+                                  void* sums, void* pred, void* acc,
                                   const void* inv_mass, int B,
                                   GridPolarParams P, void* stream) {
   const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
   const int C = P.nx * P.ny * P.nz;
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 tets((6 * C + kTetThreads - 1) / kTetThreads, B);
+  const dim3 tets((C + kStrip - 1) / kStrip, B);
   const dim3 verts((N + kVertexThreads - 1) / kVertexThreads, B);
   polar_grid_tet_kernel<<<tets, kTetThreads, 0, st>>>(
       (const float*)pos, (const float*)vel, (const float*)quat_in,
-      (float*)quat_out, (float*)delta, (const float*)inv_mass, N, N, C, P);
+      (float*)quat_out, (float*)sums, (const float*)inv_mass, N, N, C, P);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   polar_grid_acc_kernel<<<verts, kVertexThreads, 0, st>>>(
       (const float*)pos, (const float*)vel, (float*)pred, (float*)acc,
-      (const float*)delta, (const float*)inv_mass, N, C, P);
+      (const float*)sums, (const float*)inv_mass, N, C, P);
   return (int)cudaGetLastError();
 }
 
@@ -385,31 +435,33 @@ int polar_stencil_slab_apply(const void* pos, const void* pred,
 
 int polar_stencil_launches_per_substep() { return 2; }
 
+int polar_stencil_strip() { return kStrip; }
+
 // Launches S substeps on `stream`, two kernels each; returns the first
 // launch error (0 = every kernel launched).
 int polar_stencil_launch(const void* pos_in, const void* vel_in,
                          const void* quat_in, void* pos_out, void* prev_out,
-                         void* vel_out, void* quat_out, void* delta,
+                         void* vel_out, void* quat_out, void* sums,
                          const void* inv_mass, const void* den,
                          const void* grab_id, const void* grab_pos, int B,
                          int G, int S, GridPolarParams P, void* stream) {
   const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
   const int C = P.nx * P.ny * P.nz;
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 tets((6 * C + kTetThreads - 1) / kTetThreads, B);
+  const dim3 tets((C + kStrip - 1) / kStrip, B);
   const dim3 verts((N + kVertexThreads - 1) / kVertexThreads, B);
   for (int s = 0; s < S; ++s) {
     const float* pos = (const float*)(s == 0 ? pos_in : pos_out);
     const float* vel = (const float*)(s == 0 ? vel_in : vel_out);
     const float* quat = (const float*)(s == 0 ? quat_in : quat_out);
     polar_grid_tet_kernel<<<tets, kTetThreads, 0, st>>>(
-        pos, vel, quat, (float*)quat_out, (float*)delta,
+        pos, vel, quat, (float*)quat_out, (float*)sums,
         (const float*)inv_mass, 0, N, C, P);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     polar_grid_vertex_kernel<<<verts, kVertexThreads, 0, st>>>(
         pos, vel, (float*)pos_out, (float*)prev_out, (float*)vel_out,
-        (const float*)delta, (const float*)inv_mass, (const float*)den,
+        (const float*)sums, (const float*)inv_mass, (const float*)den,
         (const int*)grab_id, (const float*)grab_pos, N, C, G, P);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

@@ -18,9 +18,11 @@ incident rest volumes); collide; grab; velocity.  Every phase outside the
 solve and the completion is elementwise, so the instances of a particle
 stay bitwise equal.
 
-``pieces_solve`` runs the solve: on CUDA tensors it launches the two
-kernels of ``csrc/polar_pieces.cu``, on CPU tensors it runs
-``pieces_solve_reference``, the same solve in plain torch.  The rest of the
+``pieces_solve`` runs the solve: on CUDA tensors it launches the kernel of
+``csrc/polar_pieces.cu`` (one block holds a piece's planes and deltas in
+shared memory, so a piece must fit one: ``smem_bytes``, ``check_fits``), on
+CPU tensors it runs ``pieces_solve_reference``, the same solve in plain
+torch.  The rest of the
 substep is torch ops on either device.  ``launch_count`` counts the kernel
 launches.  The schedule helpers (``rcb_partition``, ``band_locals``,
 ``partner_tables``, ``completion_tables``) are shared with
@@ -40,9 +42,10 @@ from ..state import SimState, Controls
 from ..solvers import common
 from ..solvers.polar_grid import EXTRACT_ITERS, _extract_rotation, _qmul, _qrot_const
 from . import build
-from .batch import expect
+from .batch import SMEM_LIMIT, expect
 
-LAUNCHES_PER_SUBSTEP = 2  # as polar_pieces_launches_per_substep()
+LAUNCHES_PER_SUBSTEP = 1  # as polar_pieces_launches_per_substep()
+NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # kernel launches since import (or reset)
 
@@ -398,26 +401,53 @@ def frame_bytes(arr: PiecesArrays, params: PhysicsParams) -> int:
     position planes and writes the three numerator planes, and per tet
     reads its quaternion, 4 corner lanes, 12 rest coordinates, its rest
     volume and its 4 incidence entries and writes its quaternion (116
-    bytes); padded lanes and the -1 incidence padding carry no work, and the
-    delta scratch is not counted."""
+    bytes); padded lanes and the -1 incidence padding carry no work."""
     planes = 6 * 4 * arr.B * arr.rp
     return params.num_substeps * (planes + 116 * arr.num_tets)
 
 
+def smem_bytes(rp: int, rt: int) -> int:
+    """Shared memory of one block: a piece's three position planes and its
+    weighted goal deltas [3, 4 rt] (109.5 KB at rp 1,152 and rt 2,048, so
+    two blocks fit an SM)."""
+    return 4 * (3 * rp + 12 * rt)
+
+
+def check_fits(arr: PiecesArrays) -> None:
+    """Raise ValueError unless one piece of ``arr`` fits a block's shared
+    memory on Hopper (``SMEM_LIMIT``), naming the largest tets_per_piece
+    that would, at this mesh's ratio of particle lanes to tet lanes."""
+    need = smem_bytes(arr.rp, arr.rt)
+    if need > SMEM_LIMIT:
+        per_tet = 48 + 12 * arr.rp / arr.rt
+        largest = int(SMEM_LIMIT // per_tet) // 128 * 128
+        raise ValueError(
+            f"the polar pieces kernel keeps a piece in shared memory: rp="
+            f"{arr.rp} particle and rt={arr.rt} tet lanes need {need} bytes, "
+            f"a Hopper block has SMEM_LIMIT = {SMEM_LIMIT}; build with "
+            f"tets_per_piece of at most about {largest}")
+
+
 def library() -> ctypes.CDLL:
-    """The kernels' library, built at first use, with its arguments
+    """The kernel's library, built at first use, with its arguments
     declared."""
-    lib = build.load("polar_pieces")
+    lib = build.load("polar_pieces", NVCC_FLAGS)
     if lib.polar_pieces_launch.argtypes is None:
         lib.polar_pieces_launch.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.polar_pieces_launch.restype = ctypes.c_int
         lib.polar_pieces_error_string.argtypes = [ctypes.c_int]
         lib.polar_pieces_error_string.restype = ctypes.c_char_p
         lib.polar_pieces_launches_per_substep.restype = ctypes.c_int
+        lib.polar_pieces_threads.restype = ctypes.c_int
+        lib.polar_pieces_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.polar_pieces_smem_bytes.restype = ctypes.c_size_t
         if lib.polar_pieces_launches_per_substep() != LAUNCHES_PER_SUBSTEP:
             raise RuntimeError("csrc/polar_pieces.cu launches per substep != "
                                "polar_pieces.LAUNCHES_PER_SUBSTEP")
+        if lib.polar_pieces_smem_bytes(1152, 2048) != smem_bytes(1152, 2048):
+            raise RuntimeError("csrc/polar_pieces.cu smem_bytes != "
+                               "polar_pieces.smem_bytes")
     return lib
 
 
@@ -426,6 +456,7 @@ def _pieces_solve_cuda(px, py, pz, quats, arr: PiecesArrays, iters: int):
     dev = px.device
     if dev.type != "cuda":
         raise ValueError(f"the polar pieces kernels run on CUDA, not {dev}")
+    check_fits(arr)
     B, rp, rt, K = arr.B, arr.rp, arr.rt, arr.valence
     f32, i32 = torch.float32, torch.int32
     for name, plane in (("px", px), ("py", py), ("pz", pz)):
@@ -439,11 +470,10 @@ def _pieces_solve_cuda(px, py, pz, quats, arr: PiecesArrays, iters: int):
     lib = library()
     num = torch.empty((3, B, rp), dtype=f32, device=dev)
     quat_out = torch.empty_like(quats)
-    delta = torch.empty((B, 3, 4 * rt), dtype=f32, device=dev)
-    with torch.cuda.device(dev):  # the launches go to the current device
+    with torch.cuda.device(dev):  # the launch goes to the current device
         err = lib.polar_pieces_launch(
             px.data_ptr(), py.data_ptr(), pz.data_ptr(), quats.data_ptr(),
-            quat_out.data_ptr(), delta.data_ptr(), num.data_ptr(),
+            quat_out.data_ptr(), num.data_ptr(),
             arr.ids.data_ptr(), arr.inc.data_ptr(), arr.rc.data_ptr(),
             arr.wvol.data_ptr(), B, rp, rt, K, iters,
             torch.cuda.current_stream(dev).cuda_stream,
@@ -455,11 +485,11 @@ def _pieces_solve_cuda(px, py, pz, quats, arr: PiecesArrays, iters: int):
     return num[0], num[1], num[2], quat_out
 
 
-def pieces_solve_reference(px, py, pz, quats, arr: PiecesArrays,
-                           iters: int = EXTRACT_ITERS):
-    """The solve in plain torch: positions px/py/pz [B, rp], quaternions
-    [4, B, rt].  Returns (numx, numy, numz [B, rp], quats [4, B, rt]): the
-    piece-local partial numerators and the updated quaternions."""
+def tet_pass_reference(px, py, pz, quats, arr: PiecesArrays,
+                       iters: int = EXTRACT_ITERS):
+    """The solve's tet pass in plain torch (see ``pieces_solve_reference``):
+    returns (the weighted goal deltas, three planes [B, 4 rt] at slot
+    k*rt + t, and the updated quaternions [4, B, rt])."""
     ids = arr.ids.long()
     corners = [[torch.gather(plane, 1, ids[k]) for k in range(4)]
                for plane in (px, py, pz)]
@@ -482,6 +512,15 @@ def pieces_solve_reference(px, py, pz, quats, arr: PiecesArrays,
     goals = [_qrot_const(v, qx, qy, qz, qw) for v in rest]
     deltas = [torch.cat([(goals[k][r] - pc[r][k]) * arr.wvol for k in range(4)],
                         dim=1) for r in range(3)]
+    return deltas, torch.stack([qx, qy, qz, qw])
+
+
+def pieces_solve_reference(px, py, pz, quats, arr: PiecesArrays,
+                           iters: int = EXTRACT_ITERS):
+    """The solve in plain torch: positions px/py/pz [B, rp], quaternions
+    [4, B, rt].  Returns (numx, numy, numz [B, rp], quats [4, B, rt]): the
+    piece-local partial numerators and the updated quaternions."""
+    deltas, quats = tet_pass_reference(px, py, pz, quats, arr, iters)
     num = [torch.zeros_like(px) for _ in range(3)]
     for bank in arr.inc.unbind(0):
         live = bank >= 0
@@ -489,14 +528,15 @@ def pieces_solve_reference(px, py, pz, quats, arr: PiecesArrays,
         for r in range(3):
             num[r] = num[r] + torch.where(live, torch.gather(deltas[r], 1, idx),
                                           0.0)
-    return num[0], num[1], num[2], torch.stack([qx, qy, qz, qw])
+    return num[0], num[1], num[2], quats
 
 
 def pieces_solve(px, py, pz, quats, arr: PiecesArrays,
                  iters: int = EXTRACT_ITERS):
     """The solve (see ``pieces_solve_reference`` for shapes).  CPU tensors
-    take the plain path; any other device launches the CUDA kernels or
-    raises."""
+    take the plain path; any other device launches the CUDA kernel or
+    raises (``check_fits``: also where a piece is over a block's shared
+    memory)."""
     if px.device.type == "cpu":
         return pieces_solve_reference(px, py, pz, quats, arr, iters)
     return _pieces_solve_cuda(px, py, pz, quats, arr, iters)

@@ -10,6 +10,12 @@ substep; on CPU tensors it runs ``grid_frame_reference``, the same frame in
 plain torch from ``solvers/polar_grid.py``.  ``launch_count`` counts the
 kernel launches.
 
+Between the kernel's two passes a cube's tet deltas live as 24 slab sums
+(slab s, coordinate r at row 3s + r of a scratch [B, 24, C]), each summed
+over the cube's 6 types in order in shared memory by a block of ``STRIP``
+cubes; ``block_plan``, ``slab_sums_reference`` and ``gather24_reference``
+write that layout out in plain Python and torch for the tests.
+
 The state is kept in the kernel's layout: planes pos / prev / vel
 [B, 3, N] and quaternions [B, 6, 4, C] (C = nx*ny*nz cubes, type-major
 like ``SimState.quats``).  ``make_frame_stepper`` keeps a body in that
@@ -33,6 +39,8 @@ from . import build
 from .batch import expect
 
 LAUNCHES_PER_SUBSTEP = 2  # as polar_stencil_launches_per_substep()
+STRIP = 32  # cubes per block of pass A, as polar_stencil_strip()
+NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # kernel launches since import (or reset)
 SLAB_LAUNCHES_PER_SUBSTEP = 3  # as polar_stencil_slab_launches_per_substep()
@@ -53,7 +61,8 @@ def frame_flops(arr: GridArrays, params: PhysicsParams, num_bodies: int) -> int:
 def frame_bytes(arr: GridArrays, num_bodies: int, num_grabs: int) -> int:
     """Bytes a frame must move: each input read once (pos, vel,
     quaternions, inv_mass, den, grabs), each output written once (pos,
-    prev, vel, quaternions); the kernel's delta scratch is not counted."""
+    prev, vel, quaternions); the kernel's slab-sum scratch is not
+    counted."""
     n, m = arr.num_particles, arr.num_tets
     state = num_bodies * (2 * 12 * n + 16 * m + 16 * num_grabs)
     out = num_bodies * (3 * 12 * n + 16 * m)
@@ -68,6 +77,7 @@ class _GridPolarParams(ctypes.Structure):
         ("rest_volume", ctypes.c_float),
         ("rest_centered", ctypes.c_float * 72),
         ("corner_slab", ctypes.c_int * 24),
+        ("slab_items", ctypes.c_int * 48),
         ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
         ("iters", ctypes.c_int),
     ]
@@ -85,14 +95,28 @@ def _grid_params(arr: GridArrays, params: PhysicsParams) -> _GridPolarParams:
         (ctypes.c_float * 3)(*params.world_min),
         (ctypes.c_float * 3)(*params.world_max),
         arr.rest_volume, (ctypes.c_float * 72)(*rc.tolist()),
-        (ctypes.c_int * 24)(*cs.tolist()), *arr.dims, params.extract_iters,
+        (ctypes.c_int * 24)(*cs.tolist()),
+        (ctypes.c_int * 48)(*slab_items(arr.corner_slab).reshape(-1).tolist()),
+        *arr.dims, params.extract_iters,
     )
+
+
+def slab_items(corner_slab) -> np.ndarray:
+    """int32 [8, 6]: for each slab s the corners 4t + c that lie in it, by
+    type in order (a tet has at most one corner in a slab), then -1: the
+    terms of pass A's slab sum."""
+    out = np.full((8, 6), -1, np.int32)
+    for s in range(8):
+        items = [4 * t + c for t in range(6) for c in range(4)
+                 if corner_slab[t][c] == s]
+        out[s, :len(items)] = items
+    return out
 
 
 def library() -> ctypes.CDLL:
     """The kernels' library, built at first use, with its arguments
     declared."""
-    lib = build.load("polar_stencil")
+    lib = build.load("polar_stencil", NVCC_FLAGS)
     if lib.polar_stencil_launch.argtypes is None:
         lib.polar_stencil_launch.argtypes = (
             [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
@@ -102,6 +126,7 @@ def library() -> ctypes.CDLL:
         lib.polar_stencil_error_string.argtypes = [ctypes.c_int]
         lib.polar_stencil_error_string.restype = ctypes.c_char_p
         lib.polar_stencil_launches_per_substep.restype = ctypes.c_int
+        lib.polar_stencil_strip.restype = ctypes.c_int
         if lib.polar_stencil_launches_per_substep() != LAUNCHES_PER_SUBSTEP:
             raise RuntimeError("csrc/polar_stencil.cu launches per substep != "
                                "polar_stencil.LAUNCHES_PER_SUBSTEP")
@@ -146,12 +171,12 @@ def _grid_frame_cuda(pos, vel, quats, arr: GridArrays, params: PhysicsParams,
     lib = library()
     pos_out, prev_out, vel_out = (torch.empty_like(pos) for _ in range(3))
     quat_out = torch.empty_like(quats)
-    delta = torch.empty((B, 72, C), dtype=f32, device=dev)
+    sums = scratch(B, C, dev)
     with torch.cuda.device(dev):  # the launches go to the current device
         err = lib.polar_stencil_launch(
             pos.data_ptr(), vel.data_ptr(), quats.data_ptr(),
             pos_out.data_ptr(), prev_out.data_ptr(), vel_out.data_ptr(),
-            quat_out.data_ptr(), delta.data_ptr(), arr.inv_mass.data_ptr(),
+            quat_out.data_ptr(), sums.data_ptr(), arr.inv_mass.data_ptr(),
             arr.den.data_ptr(), grab_id.data_ptr(), grab_pos.data_ptr(),
             B, G, S, _grid_params(arr, params),
             torch.cuda.current_stream(dev).cuda_stream,
@@ -234,6 +259,66 @@ def substep(state: SimState, arr: GridArrays, params: PhysicsParams, dt,
     return new, diags[0]
 
 
+# -- the kernel's layout in plain Python and torch -----------------------------
+
+
+def scratch(b: int, c: int, device) -> torch.Tensor:
+    """The slab sums between the two passes: f32 [B, 24, C]."""
+    return torch.empty((b, 24, c), dtype=torch.float32, device=device)
+
+
+def block_plan(dims, strip: int = STRIP):
+    """Pass A's threads on a box of ``dims`` cubes: (cube, type) int64
+    [blocks, 6 * strip], thread (t, w) = (i // strip, i % strip) of block x
+    on cube x * strip + w, type t; -1 on the last strip's idle threads."""
+    c = dims[0] * dims[1] * dims[2]
+    blocks = -(-c // strip)
+    t, w = np.divmod(np.arange(6 * strip), strip)
+    cube = np.arange(blocks)[:, None] * strip + w[None, :]
+    live = cube < c
+    return (np.where(live, cube, -1),
+            np.where(live, np.broadcast_to(t, cube.shape), -1))
+
+
+def slab_sums_reference(deltas, corner_slab):
+    """The slab sums of pass A from the tets' weighted goal deltas
+    ``deltas`` [B, 6, 4, 3, C] (type, corner, coordinate, cube): row 3s + r
+    of the result [B, 24, C] adds, from 0 and over the types in order, the
+    delta of type t's corner in slab s (a tet has at most one)."""
+    b, _, _, _, c = deltas.shape
+    out = deltas.new_zeros((b, 24, c))
+    for s in range(8):
+        for r in range(3):
+            acc = deltas.new_zeros((b, c))
+            for t in range(6):
+                for k in range(4):
+                    if corner_slab[t][k] == s:
+                        acc = acc + deltas[:, t, k, r]
+            out[:, 3 * s + r] = acc
+    return out
+
+
+def gather24_reference(sums, dims):
+    """Pass B's numerators [B, 3, N] from the slab sums [B, 24, C], by the
+    kernel's index arithmetic: vertex v = (i*gy + j)*gz + k adds, in slab
+    order s = 0..7 from 0, the sums of slab s of cube (i - dx, j - dy,
+    k - dz), s = 4 dx + 2 dy + dz, where that cube exists."""
+    nx, ny, nz = dims
+    gy, gz = ny + 1, nz + 1
+    v = torch.arange((nx + 1) * gy * gz, device=sums.device)
+    vi, vj, vk = v // (gy * gz), (v // gz) % gy, v % gz
+    num = sums.new_zeros((sums.shape[0], 3, v.numel()))
+    for s, (dx, dy, dz) in enumerate(polar_grid.SLAB_OFFSETS):
+        ci, cj, ck = vi - dx, vj - dy, vk - dz
+        ok = ((ci >= 0) & (ci < nx) & (cj >= 0) & (cj < ny) & (ck >= 0)
+              & (ck < nz))
+        cube = ((ci * ny + cj) * nz + ck).clamp(min=0, max=nx * ny * nz - 1)
+        for r in range(3):
+            num[:, r] = torch.where(ok, num[:, r] + sums[:, 3 * s + r, cube],
+                                    num[:, r])
+    return num
+
+
 # -- the slab form (K4a) ---------------------------------------------------------
 
 
@@ -301,7 +386,7 @@ def _slab_frame_cuda(packed, slab_arr, mesh, local: GridArrays,
                  prev_out=torch.empty_like(g["pos"]),
                  vel_out=torch.empty_like(g["pos"]),
                  quat_out=torch.empty_like(g["quats"]),
-                 delta=torch.empty((k, 72, c), dtype=f32, device=dev),
+                 sums=scratch(k, c, dev),
                  pred=torch.empty_like(g["pos"]),
                  acc=torch.empty_like(g["pos"]))
     acc = [a for g in groups for a in ungroup(g["acc"])]
@@ -321,7 +406,7 @@ def _slab_frame_cuda(packed, slab_arr, mesh, local: GridArrays,
                 check(lib.polar_stencil_slab_accumulate(
                     g[src[0]].data_ptr(), g[src[1]].data_ptr(),
                     g[src[2]].data_ptr(), g["quat_out"].data_ptr(),
-                    g["delta"].data_ptr(), g["pred"].data_ptr(),
+                    g["sums"].data_ptr(), g["pred"].data_ptr(),
                     g["acc"].data_ptr(), g["im"].data_ptr(), g["k"], par,
                     g["stream"]))
         mesh.add_halo(lo, hi)

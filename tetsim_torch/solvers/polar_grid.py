@@ -244,27 +244,20 @@ def _cube_valid_mask(g: GridArrays, device=None):
     return ok.to(torch.float32)
 
 
-def _solve(fx, fy, fz, quats, g: GridArrays, iters: int = EXTRACT_ITERS,
-           halo=None):
-    """One Jacobi shape-matching iteration on flat padded components.
-
-    fx/fy/fz: [..., Nv + gyz]; quats: [6][4] of [..., Lc]; ``g`` from
-    ``_flat_arrays``.  ``halo``: an optional callback (numx, numy, numz)
-    -> (numx, numy, numz) run on the numerators before they are applied;
-    the slab stepper completes the boundary planes' partial sums there.
-    Returns (fx, fy, fz, new quats)."""
+def tet_deltas(fx, fy, fz, quats, g: GridArrays, iters: int = EXTRACT_ITERS):
+    """The tet pass of one Jacobi iteration on flat padded components (see
+    ``_solve``): per type t and corner k the rest-volume-weighted goal delta
+    ``deltas[t][k]`` = (dx, dy, dz), each [..., Lc], and the new
+    quaternions [6][4] of [..., Lc]."""
     _, _, _, _, lc, _, offs = _flat_geometry(g)
-    mask = _cube_valid_mask(g, fx.device)
 
     # the 8 shifted corner views
     sx = [fx[..., o:o + lc] for o in offs]
     sy = [fy[..., o:o + lc] for o in offs]
     sz = [fz[..., o:o + lc] for o in offs]
 
-    zero = fx.new_zeros(fx.shape[:-1] + (lc,))
-    accx, accy, accz = [zero] * 8, [zero] * 8, [zero] * 8
     w = g.rest_volume
-    new_quats = []
+    deltas, new_quats = [], []
     for t in range(6):
         ks = g.corner_slab[t]
         cx = [sx[s] for s in ks]
@@ -292,12 +285,42 @@ def _solve(fx, fy, fz, quats, g: GridArrays, iters: int = EXTRACT_ITERS,
         qx, qy, qz, qw = qx / norm, qy / norm, qz / norm, qw / norm
         new_quats.append((qx, qy, qz, qw))
 
-        for k in range(4):
-            gx_, gy_, gz_ = _qrot_const(g.rest_centered[t][k], qx, qy, qz, qw)
-            s = ks[k]
-            accx[s] = accx[s] + (gx_ - pcx[k]) * w
-            accy[s] = accy[s] + (gy_ - pcy[k]) * w
-            accz[s] = accz[s] + (gz_ - pcz[k]) * w
+        goal = [_qrot_const(g.rest_centered[t][k], qx, qy, qz, qw)
+                for k in range(4)]
+        deltas.append([((goal[k][0] - pcx[k]) * w, (goal[k][1] - pcy[k]) * w,
+                        (goal[k][2] - pcz[k]) * w) for k in range(4)])
+    return deltas, new_quats
+
+
+def apply_numerators(fx, fy, fz, numx, numy, numz, g: GridArrays):
+    """Movable particles move by num / max(den, eps)."""
+    d = torch.clamp(g.den, min=EPS)
+    movable = g.inv_mass > 0.0
+    return (torch.where(movable, fx + numx / d, fx),
+            torch.where(movable, fy + numy / d, fy),
+            torch.where(movable, fz + numz / d, fz))
+
+
+def _solve(fx, fy, fz, quats, g: GridArrays, iters: int = EXTRACT_ITERS,
+           halo=None):
+    """One Jacobi shape-matching iteration on flat padded components.
+
+    fx/fy/fz: [..., Nv + gyz]; quats: [6][4] of [..., Lc]; ``g`` from
+    ``_flat_arrays``.  ``halo``: an optional callback (numx, numy, numz)
+    -> (numx, numy, numz) run on the numerators before they are applied;
+    the slab stepper completes the boundary planes' partial sums there.
+    Returns (fx, fy, fz, new quats)."""
+    _, _, _, _, lc, _, offs = _flat_geometry(g)
+    mask = _cube_valid_mask(g, fx.device)
+    deltas, new_quats = tet_deltas(fx, fy, fz, quats, g, iters)
+
+    # per-slab sums over the types in order
+    zero = fx.new_zeros(fx.shape[:-1] + (lc,))
+    acc = [[zero] * 8 for _ in range(3)]
+    for t in range(6):
+        for k, s in enumerate(g.corner_slab[t]):
+            for r in range(3):
+                acc[r][s] = acc[r][s] + deltas[t][k][r]
 
     # inverse stencil: phantom lanes masked, slab s added at its offset, in
     # slab order
@@ -307,15 +330,10 @@ def _solve(fx, fy, fz, quats, g: GridArrays, iters: int = EXTRACT_ITERS,
             out[..., o:o + lc] += acc[s] * mask
         return out
 
-    numx, numy, numz = combine(accx), combine(accy), combine(accz)
+    numx, numy, numz = (combine(a) for a in acc)
     if halo is not None:
         numx, numy, numz = halo(numx, numy, numz)
-    d = torch.clamp(g.den, min=EPS)
-    movable = g.inv_mass > 0.0
-    fx = torch.where(movable, fx + numx / d, fx)
-    fy = torch.where(movable, fy + numy / d, fy)
-    fz = torch.where(movable, fz + numz / d, fz)
-    return fx, fy, fz, new_quats
+    return (*apply_numerators(fx, fy, fz, numx, numy, numz, g), new_quats)
 
 
 def _substep(carry, g: GridArrays, params: PhysicsParams, dt, grab_id,
