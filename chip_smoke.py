@@ -110,7 +110,11 @@ code is non-zero:
      memory) through gs_levels and polar_jacobi, 5 frames with a grab, each
      frame held to the twin (positions 2e-5, velocities 2e-3 / 2e-2,
      vol_err 1e-5, quaternions 2e-5 or twice the kernel's 1-ulp spread),
-     no host sync, K1 and K2 not launched;
+     no host sync, K1 and K2 not launched, gs_levels once per frame (one
+     cluster launch); then gs_levels through levels_frame on 8 jittered
+     bodies with two grabs and on one body at cs = 1 (a cluster of one
+     block), 2 frames each at the same bars, cs = 1 bit for bit the body's
+     own cluster size;
  20. the flat Neo-Hookean batch: add_body_batch(dragon, 8, engine=
      "neohookean", backend="flat") with a grab, frame 1 within 2e-5 of the
      plain twin (velocities 2e-2, as phase 2 holds K1), 2 frames bitwise
@@ -121,11 +125,12 @@ code is non-zero:
      frame within 2e-5 or twice K4's 1-ulp spread of K4 unsharded and at
      the polar bars of the sharded twin;
  22. the Neo-Hookean slab form (K3s): the 56^3 box at cell 0.05 through
-     make_nh_sharded_stepper on SlabMesh(4), 3 frames, bit for bit K3
-     unsharded after every frame and within 2e-5 / 2e-3 of the sharded
-     twin;
+     make_nh_sharded_stepper on SlabMesh(4), SlabMesh(2) and SlabMesh(1),
+     3 frames each, one cooperative launch per frame, bit for bit K3
+     unsharded after every frame, and at 4 slabs within 2e-5 / 2e-3 of the
+     sharded twin;
  23. ms per substep at 56^3 of both slab forms at 1, 2 and 4 slabs beside
-     the unsharded kernels, with launches per substep and the sharded
+     the unsharded kernels, with launches per frame and the sharded
      twins' ms; ms per frame of gs_levels and polar_jacobi on
      grid_mesh(20, 20, 20) and of their twins.
 Then a JSON line with every kernel's numbers, the card's name and power
@@ -1760,9 +1765,9 @@ def large_bodies(tt, kernels):
                     ("pos", body.state.pos, r[0][0], 2e-5, None),
                     ("vel", body.state.vel, r[2][0], vtol, None)] + extra))
         seconds = time.perf_counter() - t0
-        want = 2 * LARGE_FRAMES * params.num_substeps * (
-            gs_levels.launches_per_substep(body.arrays) if not polar
-            else polar_jacobi.LAUNCHES_PER_SUBSTEP)
+        want = 2 * LARGE_FRAMES * (
+            gs_levels.LAUNCHES_PER_FRAME if not polar
+            else params.num_substeps * polar_jacobi.LAUNCHES_PER_SUBSTEP)
         others = {k: m.launch_count for k, m in kernels.items()
                   if m is not mod and m.launch_count}
         check(mod.launch_count == want and not others,
@@ -1777,6 +1782,61 @@ def large_bodies(tt, kernels):
               f"{seconds:.2f} s", flush=True)
         out[mod] = (mod.launch_count // 2, worst)
     return out
+
+
+def levels_batches(tt, gs_levels):
+    """Phase 19, gs_levels beyond one body: 8 jittered bodies of
+    grid_mesh(20, 20, 20) with grabs on two of them through levels_frame (the
+    cluster size the batch takes), and one body on clusters of one block
+    (cs = 1, a level's virtual blocks in six passes), 2 frames each, held
+    after every frame to the twin at phase 19's bars; cs = 1 is bitwise the
+    body's own cluster size.  Returns the largest position difference."""
+    mesh = tt.grid_mesh(*LARGE, **LARGE_BOX)
+    arr = tt.build_arrays(mesh, coloring="ordered", device="cuda")
+    params = tt.default_cpu_params()
+    rng = np.random.RandomState(19)
+    rest = np.float32(mesh.verts)
+    pos = torch.tensor(rest + rng.normal(0, 0.002, (8,) + rest.shape)
+                       .astype(np.float32), device="cuda")
+    vel = torch.tensor(rng.uniform(-0.2, 0.2, pos.shape).astype(np.float32),
+                       device="cuda")
+    gid = torch.full((8, 1), -1, dtype=torch.int32, device="cuda")
+    gid[2, 0], gid[5, 0] = 0, 9260
+    gpos = pos[torch.arange(8), gid[:, 0].clamp(min=0).long()][:, None] \
+        + torch.tensor([0.0, 0.02, 0.0], device="cuda")
+    waves = gs_levels.active_clusters(pos.device)
+
+    def own(b):  # the cluster size levels_frame picks for b bodies
+        return gs_levels.cluster_size(b, gs_levels.MAX_CLUSTER, waves)
+
+    worst = 0.0
+    for label, b, cs in (("B=8", 8, None), ("B=1 cs=1", 1, 1)):
+        kernel = [pos[:b], vel[:b]]
+        twin = list(kernel)
+        wide = list(kernel)
+        for f in range(1, 3):
+            got = gs_levels._levels_frame_cuda(*kernel, arr, params, gid[:b],
+                                               gpos[:b], cs=cs)
+            want = gs_levels.levels_frame_reference(*twin, arr, params,
+                                                    gid[:b], gpos[:b])
+            kernel, twin = [got[0], got[2]], [want[0], want[2]]
+            worst = max(worst, hold(
+                f"phase 19 gs_levels {label} (cs "
+                f"{cs or own(b)}) {LARGE} frame {f}", [
+                    ("pos", got[0], want[0], 2e-5, None),
+                    ("vel", got[2], want[2], 2e-3, None),
+                    ("vol_err", got[3], want[3], 1e-5, None)]))
+            if cs is not None:
+                ref = gs_levels.levels_frame(*wide, arr, params, gid[:b],
+                                             gpos[:b])
+                wide = [ref[0], ref[2]]
+                check(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                      f"gs_levels at cs=1 is not its cs={own(b)} after "
+                      f"frame {f}")
+    print(f"phase 19 gs_levels: B=8 and cs=1 within the twin's bars, cs=1 "
+          f"bitwise cs={own(1)}; clusters the card runs "
+          f"at once {waves}", flush=True)
+    return worst
 
 
 def flat_nh_batch(tt, gs_fused, dragon):
@@ -1917,9 +1977,10 @@ def polar_slabs(tt, polar_stencil):
 
 def nh_slabs(tt, nh_stencil):
     """Phase 22: the 56^3 box at cell 0.05 (the Neo-Hookean engine collapses
-    at 0.02) through make_nh_sharded_stepper on SlabMesh(4), 3 frames from a
-    seeded state with a grab on a slab boundary: bit for bit K3 unsharded
-    after every frame, and within the Neo-Hookean bars of the sharded twin.
+    at 0.02) through make_nh_sharded_stepper on SlabMesh(4), SlabMesh(2) and
+    SlabMesh(1), 3 frames each from a seeded state with a grab on a slab
+    boundary: one K3s launch per frame, bit for bit K3 unsharded after every
+    frame, and at 4 slabs within the Neo-Hookean bars of the sharded twin.
     Returns (K3s launches, largest difference from the twin)."""
     from tetsim_torch.parallel import SlabMesh
     from tetsim_torch.solvers import neohookean_grid
@@ -1927,36 +1988,45 @@ def nh_slabs(tt, nh_stencil):
     params = tt.PhysicsParams(num_substeps=GRID_SUBSTEPS)
     arr, st, ctl = slab_start(tt, False, 0.05, (-1.4, 0.1, -1.4))
     ref = unsharded_frames(nh_stencil, arr, st, params, ctl, 3)
-    slabs = SlabMesh(4)
-    prepare, step, unprepare = nh_stencil.make_nh_sharded_stepper(slabs, arr)
-    twin = neohookean_grid.make_nh_sharded_step(slabs, arr)
-    tslab = neohookean_grid.nh_prepare(st, arr, slabs)
-    packed = prepare(st, params)
     nh_stencil.segment_launch_count = 0
     launches, worst = 0, 0.0
-    for f in range(3):
-        before = nh_stencil.segment_launch_count
-        with no_host_sync():
-            packed = step(packed, params, ctl)
-        launches += nh_stencil.segment_launch_count - before
-        got = unprepare(packed, params)
-        check(torch.equal(got.pos, ref[f].pos)
-              and torch.equal(got.vel, ref[f].vel),
-              f"K3s is not K3 after frame {f + 1}: pos "
-              f"{max_diff(got.pos, ref[f].pos):.3e}")
-        tslab, _ = twin(tslab, params, ctl)
-        tw = neohookean_grid.nh_unprepare(tslab, arr, 4, params)
-        worst = max(worst, hold(
-            f"phase 22 K3s {GRID} in 4 slabs, frame {f + 1} (bitwise K3 "
-            "unsharded) vs its sharded twin", [
-                ("pos", got.pos, tw.pos, 2e-5, None),
-                ("vel", got.vel, tw.vel, 2e-3, None)]))
-    check(max_diff(got.pos[ctl.grab_id.long()], ctl.grab_pos) == 0.0,
-          "grab off target")
-    check(launches > 0 and launches == nh_stencil.segment_launch_count,
+    for d in (4, 2, 1):
+        slabs = SlabMesh(d)
+        prepare, step, unprepare = nh_stencil.make_nh_sharded_stepper(slabs,
+                                                                      arr)
+        packed = prepare(st, params)
+        if d == 4:
+            twin = neohookean_grid.make_nh_sharded_step(slabs, arr)
+            tslab = neohookean_grid.nh_prepare(st, arr, slabs)
+        for f in range(3):
+            before = nh_stencil.segment_launch_count
+            with no_host_sync():
+                packed = step(packed, params, ctl)
+            n = nh_stencil.segment_launch_count - before
+            check(n == nh_stencil.SLAB_LAUNCHES_PER_FRAME,
+                  f"K3s in {d} slabs: {n} launches for frame {f + 1}")
+            launches += n
+            got = unprepare(packed, params)
+            check(torch.equal(got.pos, ref[f].pos)
+                  and torch.equal(got.vel, ref[f].vel),
+                  f"K3s in {d} slabs is not K3 after frame {f + 1}: pos "
+                  f"{max_diff(got.pos, ref[f].pos):.3e}")
+            if d != 4:
+                continue
+            tslab, _ = twin(tslab, params, ctl)
+            tw = neohookean_grid.nh_unprepare(tslab, arr, 4, params)
+            worst = max(worst, hold(
+                f"phase 22 K3s {GRID} in 4 slabs, frame {f + 1} (bitwise K3 "
+                "unsharded) vs its sharded twin", [
+                    ("pos", got.pos, tw.pos, 2e-5, None),
+                    ("vel", got.vel, tw.vel, 2e-3, None)]))
+        check(max_diff(got.pos[ctl.grab_id.long()], ctl.grab_pos) == 0.0,
+              "grab off target")
+    check(launches == nh_stencil.segment_launch_count,
           f"K3s launches {launches}")
-    print(f"phase 22 K3s: {launches} launches for 3 frames at 4 slabs, every "
-          "frame bit for bit K3 unsharded", flush=True)
+    print(f"phase 22 K3s: {launches} launches for 3 frames at 4, 2 and 1 "
+          "slabs, one per frame, every frame bit for bit K3 unsharded",
+          flush=True)
     return launches, worst
 
 
@@ -1998,7 +2068,7 @@ def slab_timings(tt, polar_stencil, nh_stencil, label):
             setattr(mod, counter, 0)
             times[d] = fit(step, prepare(st, params),
                            lambda p: (p.pos if polar else p[0])[0])
-            per = getattr(mod, counter) / ((1 + 25 + 5) * GRID_SUBSTEPS)
+            per = getattr(mod, counter) / (1 + 25 + 5)
             times[f"launches {d}"] = per
         if polar:
             twin = polar_grid.make_grid_sharded_step(SlabMesh(4), arr)
@@ -2025,8 +2095,8 @@ def slab_timings(tt, polar_stencil, nh_stencil, label):
                      else f"{mod.LAUNCHES_PER_FRAME} launch per frame")
         print(f"phase 23 [{label}] {name} slab form at {GRID}: "
               + ", ".join(f"{d} slab{'s' if d > 1 else ''} {times[d]:.4f} "
-                          f"ms/substep ({times[f'launches {d}']:.0f} launches)"
-                          for d in (1, 2, 4))
+                          f"ms/substep ({times[f'launches {d}']:.0f} launches "
+                          "per frame)" for d in (1, 2, 4))
               + f"; unsharded {times['unsharded']:.4f} ms/substep "
               f"({unsharded}); sharded twin at 4 slabs {twin_ms:.3f} "
               "ms/substep", flush=True)
@@ -2068,14 +2138,14 @@ def large_timings(tt, label):
         if engine == "polar":
             work = (mod.frame_flops(body.arrays, params, 1),
                     mod.frame_bytes(body.arrays, 1, 1))
-            per = mod.LAUNCHES_PER_SUBSTEP
+            per = mod.LAUNCHES_PER_SUBSTEP * params.num_substeps
         else:
             work = (mod.frame_flops(body.arrays, params, 1),
                     mod.frame_bytes(body.arrays, params, 1, 1))
-            per = mod.launches_per_substep(body.arrays)
+            per = mod.LAUNCHES_PER_FRAME
         print(f"phase 23 [{label}] {mod.__name__.split('.')[-1]} Body "
               f"{LARGE}: {k_ms:.4f} ms/frame at {params.num_substeps} "
-              f"substeps ({per} launches per substep), plain twin "
+              f"substeps ({per} launches per frame), plain twin "
               f"{p_ms:.3f} ms/frame", flush=True)
         out[mod] = (k_ms, p_ms, bound(*work))
     return out
@@ -2214,6 +2284,10 @@ def main() -> int:
     er_err, er_launches, er_ms, er_plain_ms, gbps = phase(
         "phase 18 done", extract_rotation_vs_plain, roofline)
     large = phase("phase 19 done", large_bodies, tt, kernels)
+    levels_err = phase("phase 19 gs_levels batches done", levels_batches, tt,
+                       gs_levels)
+    large[gs_levels] = (large[gs_levels][0],
+                        max(large[gs_levels][1], levels_err))
     phase("phase 20 done", flat_nh_batch, tt, gs_fused, dragon)
     k4a_launches, k4a_err = phase("phase 21 done", polar_slabs, tt,
                                   polar_stencil)

@@ -65,9 +65,16 @@ this one (B) in the order A B B A, each through its own FusedGSBody /
 FusedPolarBody / OrderedGSBody / make_frame_stepper / make_pieces_stepper
 (not through World, whose engine names resolve to this version's modules),
 in the columns above, and says whether the two give the same bits after 3
-frames from the same start.  kernel_us is per launch (nh_stencil: 50 per
-substep in the first design, one per frame since; polar_pieces: 2 per
-substep in the first design, one since); where a shape runs several
+frames from the same start; and gs_levels through each side's
+``levels_frame`` on grid_mesh(20, 20, 20) at B = 1 and 8 ("large nh 20^3
+B=1", "B=8"; 5 substeps) and K3s through each side's
+``make_nh_sharded_stepper`` on its ``SlabMesh(4)`` ("slab nh 56^3 x4",
+the box at cell 0.05, 5 substeps).  kernel_us is per launch (nh_stencil:
+50 per substep in the first design, one per frame since; polar_pieces: 2
+per substep in the first design, one since; gs_levels: L + 2 per substep
+in the first design, one per frame since; K3s: 50 per substep and 12
+plane copies per neighbour pair in the first design, one per frame
+since); where a shape runs several
 kernels, per_kernel gives each one's launches per frame and device us per
 launch; the polar_pieces rows add solve_event_ms, the solve alone by CUDA
 events on the packed state's predicted planes.  Before the timings it
@@ -100,7 +107,10 @@ kernel and of one solve per lane (and of the earlier version's kernel with
 --parent); then nh_stencil on the 56^3 box at its grid of one block per SM
 and at two per SM: SM cycles per substep on block 0 of its particle
 phases, its 48 colour phases and its 49 grid barriers
-(``-DNH_STENCIL_PHASES``), and the us of one grid barrier alone.
+(``-DNH_STENCIL_PHASES``), and the us of one grid barrier alone; then
+gs_levels on grid_mesh(20, 20, 20), one body at every cluster size the
+card runs and 8 bodies: SM cycles on block 0 per substep of its particle
+phases, per level and per cluster barrier (``-DGS_LEVELS_PHASES``).
 """
 import argparse
 import contextlib
@@ -379,13 +389,65 @@ AB_SHAPES = (("gs ordered B=1", "gs", 1, "ordered", 20, 80),
              ("gs_ordered B=8", "ordered", 8, None, 20, 80),
              ("grid nh 56^3", "grid", 1, None, 20, 120),
              ("grid polar 56^3", "gridpolar", 1, None, 20, 120),
-             ("pieces polar 987k", "pieces", 1, None, 4, 24))
+             ("pieces polar 987k", "pieces", 1, None, 4, 24),
+             ("large nh 20^3 B=1", "large", 1, None, 10, 50),
+             ("large nh 20^3 B=8", "large", 8, None, 10, 50),
+             ("slab nh 56^3 x4", "slab", 4, None, 5, 25))
+LARGE_DIMS = (20, 20, 20)  # 9,261 particles: over one block's shared memory
+LARGE_BOX = dict(cell=0.05, origin=(-0.5, 0.3, -0.5))
+SLAB_BOX = dict(cell=0.05, origin=(-1.4, 0.1, -1.4))  # NH collapses at 0.02
 AB_KERNELS = {"gs": ("gs_fused", "gs_frame_kernel"),
               "polar": ("polar_fused", "polar_frame_kernel"),
               "ordered": ("gs_ordered", "gs_ordered_kernel"),
               "grid": ("nh_stencil", "nh_grid_"),
               "gridpolar": ("polar_stencil", "polar_grid_"),
-              "pieces": ("polar_pieces", "polar_pieces_")}
+              "pieces": ("polar_pieces", "polar_pieces_"),
+              "large": ("gs_levels", "gs_levels_"),
+              "slab": ("nh_stencil", "nh_")}
+
+
+class _Levels:
+    """B jittered bodies of one large mesh stepped by a version's
+    ``gs_levels.levels_frame``, as ``measure`` drives a batch."""
+
+    def __init__(self, mod, arrays, mesh, b):
+        rng = np.random.RandomState(b)
+        rest = np.float32(mesh.verts)
+        self.mod, self.arrays = mod, arrays
+        self.pos = torch.tensor(rest + rng.normal(0, 0.002, (b,) + rest.shape)
+                                .astype(np.float32), device="cuda")
+        self.vel = torch.zeros_like(self.pos)
+        self.prev = self.pos
+        self.vol_err = None
+        self.gid = torch.full((b, 1), -1, dtype=torch.int32, device="cuda")
+        self.gpos = torch.zeros((b, 1, 3), device="cuda")
+
+    def step(self, params, k):
+        for _ in range(k):
+            self.pos, self.prev, self.vel, self.vol_err = \
+                self.mod.levels_frame(self.pos, self.vel, self.arrays, params,
+                                      self.gid, self.gpos)
+
+
+class _Slabs:
+    """A version's make_nh_sharded_stepper on SlabMesh(d), as ``measure``
+    drives a batch."""
+
+    def __init__(self, tt, pkg, mod, arrays, mesh, d, params):
+        slab_mesh = importlib.import_module(f"{pkg}.parallel").SlabMesh(d)
+        prepare, self._step, _ = mod.make_nh_sharded_stepper(slab_mesh,
+                                                             arrays)
+        self.arrays = arrays
+        self.packed = prepare(tt.init_state(mesh, "cuda"), params)
+        self.controls = tt.Controls.none("cuda")
+
+    @property
+    def pos(self):
+        return self.packed[0][0]
+
+    def step(self, params, k):
+        for _ in range(k):
+            self.packed = self._step(self.packed, params, self.controls)
 
 
 def load_version(root: str, name: str):
@@ -461,9 +523,9 @@ def print_usage(label: str, lib, kernel: str, smem=None) -> None:
 
 
 def versions_ab(tt, parent_root: str, only=None) -> None:
-    """The dragon frame kernels, K7, K3, K4 and K6 of an earlier version (A)
-    and of this one (B), A B B A per shape (those named in ``only``, if
-    given), then their bits after 3 frames."""
+    """The dragon frame kernels, K7, K3, K4, K6, gs_levels and K3s of an
+    earlier version (A) and of this one (B), A B B A per shape (those named
+    in ``only``, if given), then their bits after 3 frames."""
     from chip_smoke import BLOB, PIECES_TPP, event_ms
 
     packages = {"A": load_version(parent_root, "parent_tetsim_torch"),
@@ -478,16 +540,33 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
             if any(s[1] == "pieces" for s in shapes) else None)
     grids = {}  # each side's arrays of the 56^3 box, of either engine
     pieces = {}  # each side's arrays of the 987k blob
+    large = {}  # each side's mesh and ordered arrays of grid_mesh(20, 20, 20)
+    slab_mesh = tt.grid_mesh(*GRID_DIMS, **SLAB_BOX)
 
     def params_of(kind):
         if kind == "polar":
             return tt.default_gpu_params()
-        if kind in ("grid", "gridpolar", "pieces"):
+        if kind in ("grid", "gridpolar", "pieces", "slab"):
             return tt.PhysicsParams(num_substeps=5)
         return tt.default_cpu_params()
 
     def body(side, kind, b, coloring):
         mod = kernels[side][kind]
+        pkg = packages[side]
+        if kind == "large":
+            if side not in large:
+                mesh = pkg.grid_mesh(*LARGE_DIMS, **LARGE_BOX)
+                large[side] = mesh, pkg.build_arrays(mesh, coloring="ordered",
+                                                     device="cuda")
+            return _Levels(mod, large[side][1], large[side][0], b)
+        if kind == "slab":
+            if (side, kind) not in grids:
+                solver = importlib.import_module(
+                    f"{pkg.__name__}.solvers.neohookean_grid")
+                grids[side, kind] = solver.build_nh_grid_arrays(
+                    slab_mesh, GRID_DIMS, device="cuda")
+            return _Slabs(tt, pkg.__name__, mod, grids[side, kind], slab_mesh,
+                          b, params_of(kind))
         if kind == "gs":
             return mod.FusedGSBody(dragon, num_bodies=b, coloring=coloring,
                                    jitter=0.2)
@@ -527,9 +606,12 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
         if kind == "ordered":
             return (mod.frame_flops(bd.sched, params, b),
                     mod.frame_bytes(bd.sched, b, 1))
-        if kind == "grid":
+        if kind in ("grid", "slab"):
             return (mod.frame_flops(bd.arrays, params, 1),
                     mod.frame_bytes(bd.arrays, params, 1, 1))
+        if kind == "large":
+            return (mod.frame_flops(bd.arrays, params, b),
+                    mod.frame_bytes(bd.arrays, params, b, 1))
         if kind == "gridpolar":
             return (mod.frame_flops(bd.arrays, params, 1),
                     mod.frame_bytes(bd.arrays, 1, 1))
@@ -542,6 +624,10 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
     def state(kind, bd):
         if kind in ("grid", "gridpolar", "pieces"):
             return list(bd.packed)
+        if kind == "slab":
+            return list(bd.packed[0]) + list(bd.packed[1])
+        if kind == "large":
+            return [bd.pos, bd.prev, bd.vel, bd.vol_err]
         return [bd.pos, bd.prev_pos, bd.vel] + (
             [bd.last_diag] if kind == "gs" else
             [bd.quats] if kind == "polar" else [])
@@ -571,11 +657,11 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
         for side in "ABBA":
             bd = body(side, kind, b, coloring)
             pos_sum = ((lambda bd=bd: bd.packed[0].sum())
-                       if hasattr(bd, "packed") else None)
+                       if hasattr(bd, "packed") and kind != "slab" else None)
             row, profile = measure(
                 bd, params, k1, k2, AB_KERNELS[kind][1],
                 *work(mod, kind, bd, params, b), state_sum=pos_sum)
-            if kind == "gridpolar":
+            if kind in ("gridpolar", "slab"):
                 row["ms_per_substep"] = row["event_ms"] / params.num_substeps
             if kind == "pieces":
                 row["solve_event_ms"] = solve_ms(side, bd)
@@ -828,6 +914,67 @@ def grid_phases(tt) -> None:
                   flush=True)
 
 
+def levels_phases(tt) -> None:
+    """gs_levels on grid_mesh(20, 20, 20): SM cycles on block 0 of the
+    launch per substep of its particle phases, per level phase and per
+    cluster barrier (an instrumented build, 20 frames after 3), one body at
+    every cluster size the card runs and 8 bodies at the size they take,
+    and the us of one cluster barrier alone at that launch shape (1,000 in
+    one launch, CUDA events)."""
+    import ctypes
+
+    from tetsim_torch.kernels import gs_levels
+
+    mesh = tt.grid_mesh(*LARGE_DIMS, **LARGE_BOX)
+    params = tt.default_cpu_params()
+    with flags_build(gs_levels, ("-DGS_LEVELS_PHASES",)) as lib:
+        lib.gs_levels_phase_cycles.argtypes = [ctypes.c_void_p]
+        lib.gs_levels_sync_probe.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        arr = tt.build_arrays(mesh, coloring="ordered", device="cuda")
+        dev = arr.inv_mass.device
+        waves = gs_levels.active_clusters(dev)
+        cases = [(1, cs) for cs, n in waves.items() if n >= 1] + [
+            (8, gs_levels.cluster_size(8, gs_levels.MAX_CLUSTER, waves))]
+        cycles = (ctypes.c_ulonglong * 5)()
+        for b, cs in cases:
+            bd = _Levels(gs_levels, arr, mesh, b)
+
+            def step(k):
+                for _ in range(k):
+                    out = gs_levels._levels_frame_cuda(
+                        bd.pos, bd.vel, arr, params, bd.gid, bd.gpos, cs=cs)
+                    bd.pos, bd.vel = out[0], out[2]
+                torch.cuda.synchronize()
+
+            step(3)
+            lib.gs_levels_phase_cycles(cycles)
+            step(20)
+            if lib.gs_levels_phase_cycles(cycles):
+                raise RuntimeError("gs_levels_phase_cycles failed")
+            substeps, levels = cycles[3], cycles[4]
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for iters in (10, 1010):
+                start.record()
+                if lib.gs_levels_sync_probe(b, cs, iters, stream):
+                    raise RuntimeError("gs_levels_sync_probe failed")
+                end.record()
+                end.synchronize()
+                if iters == 10:
+                    t10 = start.elapsed_time(end)
+            probe_us = (start.elapsed_time(end) - t10) * 1e3 / 1000
+            print(f"gs_levels B={b} cs={cs} {LARGE_DIMS}: SM cycles on block "
+                  f"0 per substep: particle phases "
+                  f"{cycles[0] / substeps:.0f}, levels "
+                  f"{cycles[1] / substeps:.0f} ({cycles[1] / levels:.0f} per "
+                  f"level, {levels // substeps} levels), barriers "
+                  f"{cycles[2] / substeps:.0f} "
+                  f"({cycles[2] / (levels + substeps):.0f} per barrier); one "
+                  f"cluster barrier alone {probe_us:.3f} us", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="an earlier version to time "
@@ -855,6 +1002,7 @@ def main() -> int:
             polar_phases(tt)
             ordered_phases(tt, args.parent)
             grid_phases(tt)
+            levels_phases(tt)
         print(card(), flush=True)
         return 0
     from tetsim_torch.kernels import gs_fused, gs_ordered, polar_fused

@@ -19,6 +19,7 @@ import torch
 import tetsim_torch as tt
 from tetsim_torch.kernels import gs_ordered as go
 from tetsim_torch.kernels import nh_stencil as nh
+from tetsim_torch.parallel import SlabMesh
 from tetsim_torch.solvers import common, neohookean_grid
 
 SMALL = dict(cell=0.25, origin=(-0.375, 0.5, -0.375))  # conftest's small_mesh
@@ -121,10 +122,11 @@ def test_colour_order_changes_no_bit():
 
 
 def test_launch_counts():
-    """K3 is one launch per frame, K3s 50 per substep (predict, 48 colours,
-    collide); the plain paths count none."""
+    """K3 is one launch per frame, and so is K3s on each device where the
+    mesh's slabs lie on one device; the plain paths count none."""
     assert nh.LAUNCHES_PER_FRAME == 1
-    assert nh.SLAB_LAUNCHES_PER_SUBSTEP == 50
+    assert nh.SLAB_LAUNCHES_PER_FRAME == 1
+    assert len(nh.slab_calls(5, True)) == nh.SLAB_LAUNCHES_PER_FRAME
     dims = (2, 2, 2)
     mesh = tt.grid_mesh(*dims, **SMALL)
     arr = neohookean_grid.build_nh_grid_arrays(mesh, dims, device="cpu")
@@ -134,6 +136,15 @@ def test_launch_counts():
     nh.grid_frame(pos, torch.zeros_like(pos), arr, tt.PhysicsParams(),
                   gid[None], gpos[None])
     assert nh.launch_count == before
+    dims = (4, 2, 2)
+    mesh = tt.grid_mesh(*dims, **SMALL)
+    arr = neohookean_grid.build_nh_grid_arrays(mesh, dims, device="cpu")
+    slabs = SlabMesh(devices=["cpu"] * 2)
+    prepare, step, _ = nh.make_nh_sharded_stepper(slabs, arr)
+    before = nh.segment_launch_count
+    step(prepare(tt.init_state(mesh, "cpu"), tt.PhysicsParams()),
+         tt.PhysicsParams(), tt.Controls.none("cpu"))
+    assert nh.segment_launch_count == before
 
 
 @pytest.fixture(scope="module")

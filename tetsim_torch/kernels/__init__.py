@@ -8,7 +8,8 @@
   nh_pieces     — the per-piece Neo-Hookean sweep (csrc/nh_pieces.cu)
   gs_ordered    — the exact-order Gauss-Seidel frame (csrc/gs_ordered.cu)
   gs_levels     — the Neo-Hookean frame of a body too large for one block,
-                  a launch per colour level (csrc/gs_levels.cu)
+                  one launch per frame on a thread-block cluster per body
+                  (csrc/gs_levels.cu)
   polar_jacobi  — the polar frame of a body too large for one block, two
                   launches per substep (csrc/polar_jacobi.cu)
 

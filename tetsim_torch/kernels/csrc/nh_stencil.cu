@@ -62,17 +62,40 @@
 // tetsim_tpu/kernels/nh_stencil.py:_build_seg_call, one colour group (the 4
 // colours of one (type, px) pair) of K3's sweep on one x-slab, which
 // make_nh_sharded_stepper runs 12 times per substep with a one-plane
-// ppermute between groups.  Here the slabs of one device run together:
-// nh_grid_color_kernel on the slab's local dims, with blockIdx.y over the
-// slabs and each slab's own inv_mass row, so 4 slabs on one card cost one
-// launch per colour as one box does; predict and collide likewise, the
-// collide decoding grabs by global particle id.  The per-particle and
-// per-tet code is K3's.  A px=0 colour updates a shared vertex plane only on
-// the right slab and a px=1 colour only on the left, so the 12 SlabMesh
-// copies per substep between the groups (one plane of 3 * gy * gz * 4 =
-// 38,988 B per neighbour pair at 56^3, one way each) give K3's trajectory
-// bit for bit.  What bounds it: launches (50 per substep for the whole
-// device) and the 12 exchanges' copies (3 per exchange at 4 slabs).
+// ppermute between groups.  Here the slabs of one device run together in
+// one cooperative launch per frame (nh_slab_frame_kernel): K3's walk on
+// K3's grid, the slabs in the place of K3's bodies, each (slab, virtual
+// block) an item of a colour phase, each slab with its local dims, its own
+// inv_mass row [k, n] and the grabs decoded by global particle id
+// (x_offset0 + b * x_stride + v).  49 grid barriers per substep, as K3,
+// and no copy phase.
+//
+// The boundary planes, by write-through.  A slab stores the vertex plane
+// it shares with each neighbour (its planes 0 and lx), so the plane has two
+// replicas.  With cuts at even cube columns, a px = 0 colour's cubes are
+// x = 0, 2, ..., lx - 2: it writes a slab's plane 0 and never its plane
+// lx; a px = 1 colour's cubes are x = 1, 3, ..., lx - 1: it writes plane
+// lx and never plane 0.  So during a colour group (one type, one px) each
+// shared plane is read and written on one side of its boundary only, and
+// the replica on the other side is neither read nor written.  The first
+// design refreshed that replica with a SlabMesh copy after each group;
+// here the thread that writes a shared-plane vertex writes the same value
+// into the neighbour slab's replica at once (the neighbour is the next or
+// previous [3, n] slice of the device's buffer, and never past its ends).
+// The last write in a group is the group's final value, and the next
+// group, which reads the replica, runs after a grid barrier: it reads what
+// the copy would have given, so K3s keeps K3's trajectory bit for bit
+// (tests/test_torch_launch_layouts.py runs this order in plain torch
+// against the sharded twin).  The replicas also agree at frame ends:
+// predict and collide compute both on the same bits with the same global
+// ids.  Where a mesh spans several devices, each device runs the same
+// kernel over a range of the frame's phases, one colour group per call,
+// and SlabMesh copies move the planes between the devices' end slabs
+// only (nh_stencil.slab_calls); that pattern is compiled and planned on
+// the CPU but has not run on a card.  Measured on an H100 (PERF.md): the
+// 56^3 box in 4 slabs on one card takes 0.163-0.175 ms per substep, about
+// 3.4 us per phase, against K3's 0.151 unsharded; the first design's 50
+// launches and 36 copies per substep took 0.44-0.66 ms, paced by the host.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -168,9 +191,14 @@ __device__ __forceinline__ void collide_one(float& x, float& y, float& z,
 // Tet lane `lane` of colour `color` on one body's planes bpos [3, N] with
 // its inverse masses bim [N]: the colour's cubes are (px + 2 ax, py + 2 ay,
 // pz + 2 az), lanes in C order over (ax, ay, az).  Projects the tet in
-// place; returns its det F - 1, or 0 for a lane past the colour.
+// place; returns its det F - 1, or 0 for a lane past the colour.  With
+// kSlabs, bpos is slab b of the k slabs [k, 3, N] of one device buffer,
+// and a corner on the slab's plane 0 or plane nx that has a neighbour slab
+// there is also written into the neighbour's replica (the design note).
+template <bool kSlabs>
 __device__ __forceinline__ float solve_lane(float* bpos, const float* bim,
                                             int N, int color, int lane,
+                                            int b, int k,
                                             const GridNHParams& P) {
   const int t = color >> 3;
   const int px = (color >> 2) & 1, py = (color >> 1) & 1, pz = color & 1;
@@ -195,6 +223,17 @@ __device__ __forceinline__ float solve_lane(float* bpos, const float* bim,
       nh::solve_tet<true>(p, ir, P.irv, w, P.dev_scale, P.vol_scale, P.gamma);
   for (int c = 0; c < 4; ++c)
     for (int r = 0; r < 3; ++r) bpos[(size_t)r * N + ids[c]] = p[c][r];
+  if (kSlabs) {
+    const int shift = P.nx * gy * gz;  // plane nx of slab b - 1 is plane 0
+    for (int c = 0; c < 4; ++c) {
+      const int x = ci + ((P.corner_slab[t][c] >> 2) & 1);
+      float* peer = nullptr;
+      if (x == 0 && b > 0) peer = bpos - (size_t)3 * N + ids[c] + shift;
+      if (x == P.nx && b + 1 < k) peer = bpos + (size_t)3 * N + ids[c] - shift;
+      if (peer != nullptr)
+        for (int r = 0; r < 3; ++r) peer[(size_t)r * N] = p[c][r];
+    }
+  }
   return verr;
 }
 
@@ -210,22 +249,28 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return red[0];
 }
 
-// K3: S substeps of B boxes in one cooperative launch (the design note at
-// the top).  Positions, prev and velocities are read and written by other
-// blocks between barriers, so they are plain pointers (no read-only
-// cache); the partial sums too.
-__global__ void __launch_bounds__(kThreads)
-nh_grid_frame_kernel(const float* __restrict__ pos_in,  // [B,3,N]
-                     const float* __restrict__ vel_in,  // [B,3,N]
-                     float* pos,      // [B,3,N] out
-                     float* prev,     // [B,3,N] out
-                     float* vel,      // [B,3,N] out
-                     float* vol_err,  // [B,S] or null
-                     float* partial,  // [B,48,nblk], with vol_err
-                     const float* __restrict__ inv_mass,  // [N]
-                     const int* __restrict__ grab_id,     // [B,G]
-                     const float* __restrict__ grab_pos,  // [B,G,3]
-                     int B, int G, int S, GridNHParams P) {
+// Phases of a frame of S substeps: the first predict (0), then per substep
+// s the 48 colours (1 + 49 s + colour) and collide with the next predict
+// (49 (s + 1)).
+__host__ __device__ __forceinline__ int frame_phases(int S) {
+  return 1 + S * (kColors + 1);
+}
+
+// Phases [begin, end) of a frame of B items (K3's boxes or, with kSlabs,
+// K3s's slabs of one device), a grid barrier between two phases (the
+// design notes at the top).  Positions, prev and velocities are read and
+// written by other blocks between barriers, so they are plain pointers
+// (no read-only cache); the partial sums too.  inv_mass is [N] (K3) or
+// [B, N] (K3s); the grabs are [B, G] and match particle ids v (K3), or [G]
+// shared by the slabs and matching global ids x_offset0 + b * x_stride + v
+// (K3s).
+template <bool kSlabs>
+__device__ __forceinline__ void walk_frame(
+    const float* __restrict__ pos_in, const float* __restrict__ vel_in,
+    float* pos, float* prev, float* vel, float* vol_err, float* partial,
+    const float* __restrict__ inv_mass, const int* __restrict__ grab_id,
+    const float* __restrict__ grab_pos, int B, int G, int S, int x_offset0,
+    int x_stride, int begin, int end, const GridNHParams& P) {
   __shared__ float red[kThreads];
   cg::grid_group grid = cg::this_grid();
   const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
@@ -248,23 +293,30 @@ nh_grid_frame_kernel(const float* __restrict__ pos_in,  // [B,3,N]
 #define PHASE_END(k)
 #endif
 
-  for (int i = first; i < total; i += stride) {
-    const int v = i % N;
-    const size_t base = (size_t)(i / N) * 3 * N;
-    predict_one(pos_in[base + v], pos_in[base + N + v],
-                pos_in[base + 2 * N + v], vel_in[base + v],
-                vel_in[base + N + v], vel_in[base + 2 * N + v], inv_mass[v],
-                pos, prev, base, N, v, P);
-  }
-  PHASE_END(0);
-  for (int s = 0; s < S; ++s) {
-    grid.sync();
-    PHASE_END(2);
-    for (int color = 0; color < kColors; ++color) {
+  for (int u = begin; u < end; ++u) {
+    if (u > begin) {
+      grid.sync();
+      PHASE_END(2);
+    }
+    if (u == 0) {
+      for (int i = first; i < total; i += stride) {
+        const int v = i % N;
+        const size_t base = (size_t)(i / N) * 3 * N;
+        predict_one(pos_in[base + v], pos_in[base + N + v],
+                    pos_in[base + 2 * N + v], vel_in[base + v],
+                    vel_in[base + N + v], vel_in[base + 2 * N + v],
+                    inv_mass[kSlabs ? i : v], pos, prev, base, N, v, P);
+      }
+      PHASE_END(0);
+      continue;
+    }
+    const int s = (u - 1) / (kColors + 1), color = (u - 1) % (kColors + 1);
+    if (color < kColors) {
       for (int item = blockIdx.x; item < B * nblk; item += gridDim.x) {
         const int b = item / nblk, vb = item % nblk;
-        const float verr = solve_lane(pos + (size_t)b * 3 * N, inv_mass, N,
-                                      color, vb * kThreads + threadIdx.x, P);
+        const float verr = solve_lane<kSlabs>(
+            pos + (size_t)b * 3 * N, inv_mass + (kSlabs ? (size_t)b * N : 0),
+            N, color, vb * kThreads + threadIdx.x, b, B, P);
         if (vol_err != nullptr) {
           const float sum = block_sum(verr, red);
           if (threadIdx.x == 0)
@@ -273,8 +325,7 @@ nh_grid_frame_kernel(const float* __restrict__ pos_in,  // [B,3,N]
         }
       }
       PHASE_END(1);
-      grid.sync();
-      PHASE_END(2);
+      continue;
     }
     // collide this substep and predict the next, a particle per thread
     const bool last = s + 1 == S;
@@ -284,8 +335,12 @@ nh_grid_frame_kernel(const float* __restrict__ pos_in,  // [B,3,N]
       const float px = prev[base + v], py = prev[base + N + v],
                   pz = prev[base + 2 * N + v];
       float x = pos[base + v], y = pos[base + N + v], z = pos[base + 2 * N + v];
-      collide_one(x, y, z, px, pz, grab_id + (size_t)b * G,
-                  grab_pos + (size_t)b * G * 3, G, v, P);
+      if (kSlabs)
+        collide_one(x, y, z, px, pz, grab_id, grab_pos, G,
+                    v + x_offset0 + b * x_stride, P);
+      else
+        collide_one(x, y, z, px, pz, grab_id + (size_t)b * G,
+                    grab_pos + (size_t)b * G * 3, G, v, P);
       const float vx = (x - px) / P.dt, vy = (y - py) / P.dt,
                   vz = (z - pz) / P.dt;
       if (last) {
@@ -296,8 +351,8 @@ nh_grid_frame_kernel(const float* __restrict__ pos_in,  // [B,3,N]
         vel[base + N + v] = vy;
         vel[base + 2 * N + v] = vz;
       } else {
-        predict_one(x, y, z, vx, vy, vz, inv_mass[v], pos, prev, base, N, v,
-                    P);
+        predict_one(x, y, z, vx, vy, vz, inv_mass[kSlabs ? i : v], pos, prev,
+                    base, N, v, P);
       }
     }
     if (vol_err != nullptr) {
@@ -318,10 +373,46 @@ nh_grid_frame_kernel(const float* __restrict__ pos_in,  // [B,3,N]
 #ifdef NH_STENCIL_PHASES
   if (mark) {
     for (int k = 0; k < 3; ++k) phase_cycles[k] += acc[k];
-    phase_cycles[3] += S;
+    phase_cycles[3] += (end - begin) / (kColors + 1);  // whole substeps
   }
 #endif
 #undef PHASE_END
+}
+
+// K3: S substeps of B boxes in one cooperative launch.
+__global__ void __launch_bounds__(kThreads)
+nh_grid_frame_kernel(const float* __restrict__ pos_in,  // [B,3,N]
+                     const float* __restrict__ vel_in,  // [B,3,N]
+                     float* pos,      // [B,3,N] out
+                     float* prev,     // [B,3,N] out
+                     float* vel,      // [B,3,N] out
+                     float* vol_err,  // [B,S] or null
+                     float* partial,  // [B,48,nblk], with vol_err
+                     const float* __restrict__ inv_mass,  // [N]
+                     const int* __restrict__ grab_id,     // [B,G]
+                     const float* __restrict__ grab_pos,  // [B,G,3]
+                     int B, int G, int S, GridNHParams P) {
+  walk_frame<false>(pos_in, vel_in, pos, prev, vel, vol_err, partial,
+                    inv_mass, grab_id, grab_pos, B, G, S, 0, 0, 0,
+                    frame_phases(S), P);
+}
+
+// K3s: phases [begin, end) of a frame of S substeps on the k slabs of one
+// device (the K3s design note).
+__global__ void __launch_bounds__(kThreads)
+nh_slab_frame_kernel(const float* __restrict__ pos_in,  // [k,3,N]
+                     const float* __restrict__ vel_in,  // [k,3,N]
+                     float* pos,   // [k,3,N] out
+                     float* prev,  // [k,3,N] out
+                     float* vel,   // [k,3,N] out
+                     const float* __restrict__ inv_mass,  // [k,N]
+                     const int* __restrict__ grab_id,     // [G]
+                     const float* __restrict__ grab_pos,  // [G,3]
+                     int k, int G, int S, int x_offset0, int x_stride,
+                     int begin, int end, GridNHParams P) {
+  walk_frame<true>(pos_in, vel_in, pos, prev, vel, nullptr, nullptr,
+                   inv_mass, grab_id, grab_pos, k, G, S, x_offset0, x_stride,
+                   begin, end, P);
 }
 
 #ifdef NH_STENCIL_PHASES
@@ -332,58 +423,12 @@ __global__ void __launch_bounds__(kThreads) nh_grid_sync_probe(int iters) {
 }
 #endif
 
-// The slab form's kernels (K3s), over B slabs (blockIdx.y) with one
-// inv_mass row each and the grabs shared by every slab.
-
-__global__ void __launch_bounds__(kThreads)
-nh_grid_predict_kernel(const float* pos,     // [B,3,N] substep start
-                       const float* __restrict__ vel,  // [B,3,N]
-                       float* pos_out,       // [B,3,N] predicted
-                       float* __restrict__ prev_out,   // [B,3,N]
-                       const float* __restrict__ inv_mass,  // [B,N]
-                       int N, GridNHParams P) {
-  const int v = blockIdx.x * kThreads + threadIdx.x;
-  if (v >= N) return;
-  const size_t base = (size_t)blockIdx.y * 3 * N;
-  predict_one(pos[base + v], pos[base + N + v], pos[base + 2 * N + v],
-              vel[base + v], vel[base + N + v], vel[base + 2 * N + v],
-              inv_mass[(size_t)blockIdx.y * N + v], pos_out, prev_out, base,
-              N, v, P);
-}
-
-__global__ void __launch_bounds__(kThreads)
-nh_grid_color_kernel(float* __restrict__ pos,             // [B,3,N] in place
-                     const float* __restrict__ inv_mass,  // [B,N]
-                     int N, int color, GridNHParams P) {
-  solve_lane(pos + (size_t)blockIdx.y * 3 * N,
-             inv_mass + (size_t)blockIdx.y * N, N, color,
-             blockIdx.x * kThreads + threadIdx.x, P);
-}
-
-__global__ void __launch_bounds__(kThreads)
-nh_grid_collide_kernel(float* __restrict__ pos,             // [B,3,N]
-                       const float* __restrict__ prev,      // [B,3,N]
-                       float* __restrict__ vel_out,         // [B,3,N]
-                       const int* __restrict__ grab_id,     // [G]
-                       const float* __restrict__ grab_pos,  // [G,3]
-                       int N, int G,
-                       int x_offset0, int x_stride,  // id = v + these
-                       GridNHParams P) {
-  const int b = blockIdx.y;
-  const int v = blockIdx.x * kThreads + threadIdx.x;
-  if (v >= N) return;
-  const size_t base = (size_t)b * 3 * N;
-  const float px = prev[base + v], py = prev[base + N + v],
-              pz = prev[base + 2 * N + v];
-  float x = pos[base + v], y = pos[base + N + v], z = pos[base + 2 * N + v];
-  collide_one(x, y, z, px, pz, grab_id, grab_pos, G,
-              v + x_offset0 + b * x_stride, P);
-  pos[base + v] = x;
-  pos[base + N + v] = y;
-  pos[base + 2 * N + v] = z;
-  vel_out[base + v] = (x - px) / P.dt;
-  vel_out[base + N + v] = (y - py) / P.dt;
-  vel_out[base + 2 * N + v] = (z - pz) / P.dt;
+cudaError_t cooperative(const void* kernel, int grid, void** args,
+                        void* stream) {
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      kernel, dim3(grid), dim3(kThreads), args, 0, (cudaStream_t)stream);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
@@ -392,19 +437,25 @@ extern "C" {
 
 int nh_stencil_launches_per_frame() { return 1; }
 
-int nh_stencil_slab_launches_per_substep() { return kColors + 2; }
+int nh_stencil_slab_launches_per_frame() { return 1; }
 
-// Blocks of K3's kernel that one SM of the current device holds at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the device's SM
-// count.  Returns the CUDA error.
+int nh_stencil_frame_phases(int S) { return frame_phases(S); }
+
+// Blocks of K3's and K3s's kernels (the fewer) that one SM of the current
+// device holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
+// the device's SM count.  Returns the CUDA error.
 int nh_stencil_occupancy(int* blocks_per_sm, int* sms) {
-  int dev = 0;
+  int dev = 0, slab = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, nh_grid_frame_kernel, kThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &slab, nh_slab_frame_kernel, kThreads, 0);
+  if (err == cudaSuccess && slab < *blocks_per_sm) *blocks_per_sm = slab;
   return (int)err;
 }
 
@@ -429,11 +480,33 @@ int nh_stencil_launch(const void* pos_in, const void* vel_in, void* pos_out,
   const float* a9 = (const float*)grab_pos;
   void* args[] = {&a0, &a1, &a2, &a3, &a4, &a5, &a6, &a7, &a8, &a9,
                   &B,  &G,  &S,  &P};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)nh_grid_frame_kernel, dim3(grid), dim3(kThreads), args, 0,
-      (cudaStream_t)stream);
-  const cudaError_t last = cudaGetLastError();  // clears a refused launch
-  return (int)(err != cudaSuccess ? err : last);
+  return (int)cooperative((const void*)nh_grid_frame_kernel, grid, args,
+                          stream);
+}
+
+// Launches K3s on `stream` for phases [begin, end) of a frame of S
+// substeps (0 and nh_stencil_frame_phases(S) for a whole frame) on the k
+// slabs of one device: one cooperative launch of `grid` blocks.  P holds a
+// slab's local dims; pos_in / vel_in are read by phase 0 only.  Returns the
+// launch's error (0 = launched).
+int nh_stencil_slab_launch(const void* pos_in, const void* vel_in,
+                           void* pos_out, void* prev_out, void* vel_out,
+                           const void* inv_mass, const void* grab_id,
+                           const void* grab_pos, int k, int G, int S,
+                           int x_offset0, int x_stride, int begin, int end,
+                           int grid, GridNHParams P, void* stream) {
+  const float* a0 = (const float*)pos_in;
+  const float* a1 = (const float*)vel_in;
+  float* a2 = (float*)pos_out;
+  float* a3 = (float*)prev_out;
+  float* a4 = (float*)vel_out;
+  const float* a5 = (const float*)inv_mass;
+  const int* a6 = (const int*)grab_id;
+  const float* a7 = (const float*)grab_pos;
+  void* args[] = {&a0, &a1, &a2, &a3, &a4, &a5, &a6, &a7, &k,
+                  &G,  &S,  &x_offset0, &x_stride, &begin, &end, &P};
+  return (int)cooperative((const void*)nh_slab_frame_kernel, grid, args,
+                          stream);
 }
 
 #ifdef NH_STENCIL_PHASES
@@ -451,56 +524,10 @@ int nh_stencil_phase_cycles(unsigned long long* out) {
 // One cooperative launch of `grid` blocks that runs `iters` grid barriers.
 int nh_stencil_sync_probe(int grid, int iters, void* stream) {
   void* args[] = {&iters};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)nh_grid_sync_probe, dim3(grid), dim3(kThreads), args, 0,
-      (cudaStream_t)stream);
-  const cudaError_t last = cudaGetLastError();
-  return (int)(err != cudaSuccess ? err : last);
+  return (int)cooperative((const void*)nh_grid_sync_probe, grid, args,
+                          stream);
 }
 #endif
-
-// K3s, the slab form: B slabs of one device (P holds the slab's local
-// dims, inv_mass is [B, N], the grabs are shared and decoded by global id
-// v + x_offset0 + b * x_stride).  A substep is slab_predict, the 12
-// segments (each with a boundary-plane copy between slabs after it) and
-// slab_collide.  Each returns the first launch error.
-int nh_stencil_slab_predict(const void* pos, const void* vel, void* pos_out,
-                            void* prev_out, const void* inv_mass, int B,
-                            GridNHParams P, void* stream) {
-  const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
-  const dim3 verts((N + kThreads - 1) / kThreads, B);
-  nh_grid_predict_kernel<<<verts, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)pos, (const float*)vel, (float*)pos_out, (float*)prev_out,
-      (const float*)inv_mass, N, P);
-  return (int)cudaGetLastError();
-}
-
-// Colour group seg (0..11): the 4 colours of one (type, px) pair, in K3's
-// order.
-int nh_stencil_slab_segment(void* pos, const void* inv_mass, int B, int seg,
-                            GridNHParams P, void* stream) {
-  const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
-  const dim3 cells(partial_blocks(P.nx, P.ny, P.nz), B);
-  for (int color = 4 * seg; color < 4 * seg + 4; ++color) {
-    nh_grid_color_kernel<<<cells, kThreads, 0, (cudaStream_t)stream>>>(
-        (float*)pos, (const float*)inv_mass, N, color, P);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
-int nh_stencil_slab_collide(void* pos, const void* prev, void* vel_out,
-                            const void* grab_id, const void* grab_pos, int B,
-                            int G, int x_offset0, int x_stride,
-                            GridNHParams P, void* stream) {
-  const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
-  const dim3 verts((N + kThreads - 1) / kThreads, B);
-  nh_grid_collide_kernel<<<verts, kThreads, 0, (cudaStream_t)stream>>>(
-      (float*)pos, (const float*)prev, (float*)vel_out, (const int*)grab_id,
-      (const float*)grab_pos, N, G, x_offset0, x_stride, P);
-  return (int)cudaGetLastError();
-}
 
 const char* nh_stencil_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

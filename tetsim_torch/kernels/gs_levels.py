@@ -1,22 +1,26 @@
 """Neo-Hookean Gauss-Seidel frames of one body too large for one block's
-shared memory, a launch per colour level (``csrc/gs_levels.cu``).
+shared memory, a whole frame per launch on a thread-block cluster
+(``csrc/gs_levels.cu``).
 
 Replaces no TPU kernel: for such a body the JAX package runs its XLA
 engine (``tetsim_tpu/solvers/neohookean.py``).  The port's fused frame
 kernel (``gs_fused``, K1) keeps a body in one block's shared memory, at most
 6,456 particles (``gs_fused.check_fits``); ``Body(engine="neohookean")``
-on the card runs this module above that.  What bounds it on the card: the
-host's launches, L + 2 per substep (80 for ``grid_mesh(20, 20, 20)`` on
-the ordered schedule), each a few blocks of a level's tets.
+on the card runs this module above that.  Each body runs on a cluster of
+``cs`` blocks (``polar_fused.cluster_size`` over this kernel's
+``active_clusters``), which walk the ordered levels with a cluster barrier
+between them, the positions in global memory; ``level_plan`` says which
+block, thread and pass take each slot of a level.
 
 ``levels_frame`` runs one frame for B bodies of one mesh: on CUDA tensors
-the kernels, on CPU tensors ``levels_frame_reference``, the plain-torch
+the kernel, on CPU tensors ``levels_frame_reference``, the plain-torch
 frame of ``solvers/neohookean.py`` (the same twin as K1's).
 ``launch_count`` counts the kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -27,15 +31,24 @@ from ..state import Controls, SimState
 from . import build
 from .batch import expect
 from .gs_fused import _FrameParams, _frame_params, gs_frame_reference
+from .polar_fused import CLUSTER_SIZES, MAX_CLUSTER, cluster_size, split
 
-THREADS = 256  # threads per block, as kThreads in csrc/gs_levels.cu
+THREADS = 256  # threads per block and slots per volume sum (kThreads)
+LAUNCHES_PER_FRAME = 1  # as gs_levels_launches_per_frame()
+NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # kernel launches since import (or reset)
 
 
-def launches_per_substep(arr: TetArrays) -> int:
-    """Predict, one launch per level, collide."""
-    return arr.slot_valid.shape[0] + 2
+def level_plan(num_slots: int, cs: int) -> list:
+    """How a cluster of ``cs`` blocks takes a level of ``num_slots`` slots,
+    as ``gs_levels_frame_kernel`` walks it: (block rank, thread, pass,
+    slot) for every slot.  Block r takes the slots ``polar_fused.split``
+    gives it, ceil(num_slots / cs) in a row, thread j its j-th, then j +
+    THREADS-th in the next pass, and so on."""
+    return [(r, j % THREADS, j // THREADS, slot)
+            for r, (lo, hi) in enumerate(split(num_slots, cs))
+            for j, slot in enumerate(range(lo, hi))]
 
 
 def frame_flops(arr: TetArrays, params: PhysicsParams, num_bodies: int) -> int:
@@ -58,31 +71,67 @@ def frame_bytes(arr: TetArrays, params: PhysicsParams, num_bodies: int,
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' library, built at first use, with its arguments
+    """The kernel's library, built at first use, with its arguments
     declared."""
-    lib = build.load("gs_levels")
+    lib = build.load("gs_levels", NVCC_FLAGS)
     if lib.gs_levels_launch.argtypes is None:
         lib.gs_levels_launch.argtypes = (
-            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
             + [_FrameParams, ctypes.c_void_p]
         )
         lib.gs_levels_launch.restype = ctypes.c_int
+        lib.gs_levels_prepare.restype = ctypes.c_int
+        lib.gs_levels_active_clusters.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.gs_levels_active_clusters.restype = ctypes.c_int
         lib.gs_levels_error_string.argtypes = [ctypes.c_int]
         lib.gs_levels_error_string.restype = ctypes.c_char_p
         lib.gs_levels_threads.restype = ctypes.c_int
-        if lib.gs_levels_threads() != THREADS:
-            raise RuntimeError("csrc/gs_levels.cu kThreads != gs_levels.THREADS")
+        lib.gs_levels_launches_per_frame.restype = ctypes.c_int
+        if (lib.gs_levels_threads() != THREADS
+                or lib.gs_levels_launches_per_frame() != LAUNCHES_PER_FRAME):
+            raise RuntimeError("csrc/gs_levels.cu kThreads / launches per "
+                               "frame != gs_levels.THREADS / "
+                               "LAUNCHES_PER_FRAME")
     return lib
 
 
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"gs_levels {what} failed: "
+                           f"{lib.gs_levels_error_string(err).decode()}")
+
+
+def active_clusters(device) -> dict:
+    """{cs: clusters of cs blocks the card runs at once with one block on
+    each SM} for each cluster size (cudaOccupancyMaxActiveClusters on
+    ``device``, after the kernel's attributes are set there; 0 where it
+    runs none), asked once per device.  Raises on a CUDA error."""
+    lib = library()
+    waves = lib.__dict__.setdefault("waves", {})
+    if device.index not in waves:
+        out = {}
+        with torch.cuda.device(device):
+            _check(lib, lib.gs_levels_prepare(), "prepare")
+            for cs in CLUSTER_SIZES:
+                count = ctypes.c_int(0)
+                _check(lib, lib.gs_levels_active_clusters(
+                    cs, ctypes.byref(count)), f"occupancy query at cs={cs}")
+                out[cs] = count.value
+        waves[device.index] = out
+    return waves[device.index]
+
+
 def _levels_frame_cuda(pos, vel, arr: TetArrays, params: PhysicsParams,
-                       grab_id, grab_pos):
+                       grab_id, grab_pos, cs: Optional[int] = None):
+    """The launch; ``cs`` overrides ``cluster_size`` so that a check can run
+    a narrow cluster."""
     global launch_count
     dev = pos.device
     if dev.type != "cuda":
-        raise ValueError(f"the level kernels run on CUDA, not {dev}")
+        raise ValueError(f"the level kernel runs on CUDA, not {dev}")
     if arr.slot_tets is None:
-        raise ValueError("the level kernels need a GS schedule "
+        raise ValueError("the level kernel needs a GS schedule "
                          "(build_arrays(..., coloring='ordered'|'greedy'))")
     S = params.num_substeps
     if S < 1:
@@ -106,25 +155,32 @@ def _levels_frame_cuda(pos, vel, arr: TetArrays, params: PhysicsParams,
             raise ValueError("slot tables must be 16-byte aligned")
 
     lib = library()
+    waves = active_clusters(dev)
+    if cs is None:
+        cs = cluster_size(B, MAX_CLUSTER, waves)
+    elif waves.get(cs, 0) < 1:
+        raise ValueError(f"cluster size {cs}: the card runs clusters of "
+                         f"{[c for c, n in waves.items() if n >= 1]} blocks")
     pos_out, prev_out, vel_out = (torch.empty_like(pos) for _ in range(3))
     vol_err = torch.empty((B, S), dtype=f32, device=dev)
+    pos4 = torch.empty((B, N, 4), dtype=f32, device=dev)  # scratch
+    slot_err = torch.empty((B, L, C), dtype=f32, device=dev)
     partial = torch.empty((B, L, -(-C // THREADS)), dtype=f32, device=dev)
-    with torch.cuda.device(dev):  # the launches go to the current device
+    with torch.cuda.device(dev):  # the launch goes to the current device
         err = lib.gs_levels_launch(
             pos.data_ptr(), vel.data_ptr(), pos_out.data_ptr(),
             prev_out.data_ptr(), vel_out.data_ptr(), vol_err.data_ptr(),
+            pos4.data_ptr(), slot_err.data_ptr(),
             partial.data_ptr(), arr.slot_tets.data_ptr(),
             arr.slot_inv_rest_pose.data_ptr(),
             arr.slot_inv_rest_volume.data_ptr(), arr.slot_inv_mass.data_ptr(),
             arr.slot_valid.data_ptr(), arr.inv_mass.data_ptr(),
             grab_id.data_ptr(), grab_pos.data_ptr(),
-            B, N, L, C, G, S, arr.num_tets, _frame_params(params),
+            B, cs, N, L, C, G, S, arr.num_tets, _frame_params(params),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError("gs_levels launch failed: "
-                           f"{lib.gs_levels_error_string(err).decode()}")
-    launch_count += (L + 2) * S
+    _check(lib, err, f"cluster launch (B={B}, cs={cs})")
+    launch_count += LAUNCHES_PER_FRAME
     return pos_out, prev_out, vel_out, vol_err
 
 

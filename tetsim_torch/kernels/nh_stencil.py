@@ -42,9 +42,9 @@ LAUNCHES_PER_FRAME = 1  # K3, as nh_stencil_launches_per_frame()
 NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # kernel launches since import (or reset)
-SEGMENTS = 12  # colour groups of the slab form: one per (type, px) pair
-# K3s: predict, 48 colours, collide (nh_stencil_slab_launches_per_substep())
-SLAB_LAUNCHES_PER_SUBSTEP = COLORS + 2
+# K3s per device, where the mesh's slabs lie on one device (as
+# nh_stencil_slab_launches_per_frame(); slab_calls)
+SLAB_LAUNCHES_PER_FRAME = 1
 segment_launch_count = 0  # launches of the slab form (K3s) since import
 
 
@@ -152,6 +152,39 @@ def color_corners(dims, corner_slab, color: int, lanes) -> np.ndarray:
     return np.where((lanes < cwx * cwy * cwz)[:, None], out, -1)
 
 
+def frame_phases(num_substeps: int) -> int:
+    """Phases of a frame, as the cooperative kernels walk them
+    (``frame_phases`` of ``csrc/nh_stencil.cu``): the first predict (0),
+    then per substep s the 48 colours (1 + 49 s + colour) and collide with
+    the next predict (49 (s + 1)); a grid barrier between two phases."""
+    return 1 + num_substeps * (COLORS + 1)
+
+
+def slab_calls(num_substeps: int, one_device: bool) -> list:
+    """K3s's launches of one frame on each device, as (begin, end,
+    exchange): each runs phases [begin, end) of ``frame_phases``.  Where the
+    mesh's slabs lie on one device, one call runs the whole frame and the
+    boundary planes move inside it (write-through).  Else a call ends after
+    each colour group of 4 colours (one type, one px), and ``exchange``
+    says which replica of the planes shared across devices the group left
+    stale: "left" after a px = 0 group (the right slab's plane 0 -> the
+    left slab's plane lx), "right" after a px = 1 group, the last included,
+    before collide; None after the frame's last call."""
+    total = frame_phases(num_substeps)
+    if one_device:
+        return [(0, total, None)]
+    cuts = [1 + s * (COLORS + 1) + 4 * g for s in range(num_substeps)
+            for g in range(1, 13)]
+    bounds = [0] + cuts + [total]
+    calls = []
+    for begin, end in zip(bounds, bounds[1:]):
+        done = (end - 1) % (COLORS + 1) // 4  # groups of this substep run
+        exchange = (None if end == total
+                    else "left" if done < 12 and done % 2 == 1 else "right")
+        calls.append((begin, end, exchange))
+    return calls
+
+
 def library() -> ctypes.CDLL:
     """The kernels' library, built at first use, with its arguments
     declared."""
@@ -162,28 +195,26 @@ def library() -> ctypes.CDLL:
             + [_GridNHParams, ctypes.c_void_p]
         )
         lib.nh_stencil_launch.restype = ctypes.c_int
+        lib.nh_stencil_slab_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            + [_GridNHParams, ctypes.c_void_p]
+        )
+        lib.nh_stencil_slab_launch.restype = ctypes.c_int
         lib.nh_stencil_error_string.argtypes = [ctypes.c_int]
         lib.nh_stencil_error_string.restype = ctypes.c_char_p
         lib.nh_stencil_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         lib.nh_stencil_occupancy.restype = ctypes.c_int
         lib.nh_stencil_launches_per_frame.restype = ctypes.c_int
-        lib.nh_stencil_slab_launches_per_substep.restype = ctypes.c_int
+        lib.nh_stencil_slab_launches_per_frame.restype = ctypes.c_int
+        lib.nh_stencil_frame_phases.argtypes = [ctypes.c_int]
+        lib.nh_stencil_frame_phases.restype = ctypes.c_int
         if (lib.nh_stencil_launches_per_frame() != LAUNCHES_PER_FRAME
-                or lib.nh_stencil_slab_launches_per_substep()
-                != SLAB_LAUNCHES_PER_SUBSTEP):
-            raise RuntimeError("csrc/nh_stencil.cu launch counts != "
-                               "nh_stencil.LAUNCHES_PER_FRAME / "
-                               "SLAB_LAUNCHES_PER_SUBSTEP")
-        tail = [_GridNHParams, ctypes.c_void_p]
-        lib.nh_stencil_slab_predict.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] + tail)
-        lib.nh_stencil_slab_segment.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + tail)
-        lib.nh_stencil_slab_collide.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + tail)
-        for f in (lib.nh_stencil_slab_predict, lib.nh_stencil_slab_segment,
-                  lib.nh_stencil_slab_collide):
-            f.restype = ctypes.c_int
+                or lib.nh_stencil_slab_launches_per_frame()
+                != SLAB_LAUNCHES_PER_FRAME
+                or lib.nh_stencil_frame_phases(5) != frame_phases(5)):
+            raise RuntimeError("csrc/nh_stencil.cu launch counts or phases "
+                               "!= nh_stencil.LAUNCHES_PER_FRAME / "
+                               "SLAB_LAUNCHES_PER_FRAME / frame_phases")
     return lib
 
 
@@ -345,10 +376,12 @@ def make_nh_sharded_stepper(mesh, arr: NHGridArrays, axis: str = "x"):
     step(packed, params, controls) -> packed  (num_substeps substeps)
     unprepare(packed, params)      -> SimState (prev_pos = pos - vel * dt)
 
-    On CUDA slabs a substep is predict, the 12 colour groups of
-    ``csrc/nh_stencil.cu`` over each device's slabs with a ``SlabMesh``
-    boundary-plane copy after each group, and collide: the unsharded
-    kernels' trajectory bit for bit.  On CPU slabs it is
+    On CUDA slabs a frame is one cooperative launch of K3s per device
+    (``csrc/nh_stencil.cu``), which writes each boundary-plane update
+    through to the neighbour slab's replica, where the slabs lie on one
+    device; over several devices, one launch per colour group with
+    ``SlabMesh`` copies between the devices' end slabs (``slab_calls``):
+    the unsharded kernel's trajectory bit for bit.  On CPU slabs it is
     ``neohookean_grid.make_nh_sharded_step``, the plain sweep with the
     exchange hook."""
     del axis
@@ -388,43 +421,37 @@ def _slab_frame_cuda(packed, inv_mass, mesh, local: NHGridArrays, lx: int,
     groups = device_groups(mesh, pos=packed[0], vel=packed[1], im=inv_mass)
     for g in groups:
         k, dev = g["k"], g["dev"]
+        if 3 * k * n >= 2**31:
+            raise ValueError(f"{k} slabs of {n} particles overflow K3s's "
+                             "indices")
         expect(g["pos"], "pos", torch.float32, (k, 3, n), dev)
         expect(g["vel"], "vel", torch.float32, (k, 3, n), dev)
         expect(g["im"], "inv_mass", torch.float32, (k, n), dev)
         g.update(gid=gid.to(dev).contiguous(), gpos=gpos.to(dev).contiguous(),
                  pos_out=torch.empty_like(g["pos"]),
                  prev_out=torch.empty_like(g["pos"]),
-                 vel_out=torch.empty_like(g["pos"]))
-    slabs = [x for g in groups for x in ungroup(g["pos_out"])]
-    lo = [plane(x, 0, gyz) for x in slabs]
-    hi = [plane(x, lx, gyz) for x in slabs]
-
-    def launch(fn, g, *args):
-        with torch.cuda.device(g["dev"]):
-            _check(lib, fn(*args, par, g["stream"]), "slab launch")
-
-    for s in range(S):
+                 vel_out=torch.empty_like(g["pos"]), grid=frame_grid(dev))
+    calls = slab_calls(S, len(groups) == 1)
+    if len(groups) > 1:  # the planes shared across devices
+        cuts = mesh.device_cuts()
+        slabs = [x for g in groups for x in ungroup(g["pos_out"])]
+        lo = [plane(x, 0, gyz) for x in slabs]
+        hi = [plane(x, lx, gyz) for x in slabs]
+    for begin, end, exchange in calls:
         for g in groups:
-            src = (g["pos"], g["vel"]) if s == 0 else (g["pos_out"],
-                                                       g["vel_out"])
-            launch(lib.nh_stencil_slab_predict, g, src[0].data_ptr(),
-                   src[1].data_ptr(), g["pos_out"].data_ptr(),
-                   g["prev_out"].data_ptr(), g["im"].data_ptr(), g["k"])
-        for seg in range(SEGMENTS):
-            for g in groups:
-                launch(lib.nh_stencil_slab_segment, g, g["pos_out"].data_ptr(),
-                       g["im"].data_ptr(), g["k"], seg)
-            # the plan is type-major, px-minor: odd groups are px = 1; after
-            # the last, refresh the right copies for collide
-            if seg + 1 < SEGMENTS and (seg + 1) % 2 == 1:
-                mesh.send_left(lo, hi)  # right's plane 0 -> plane lx
-            else:
-                mesh.send_right(hi, lo)  # left's plane lx -> plane 0
-        for g in groups:
-            launch(lib.nh_stencil_slab_collide, g, g["pos_out"].data_ptr(),
-                   g["prev_out"].data_ptr(), g["vel_out"].data_ptr(),
-                   g["gid"].data_ptr(), g["gpos"].data_ptr(), g["k"],
-                   g["gid"].shape[0], g["first"] * lx * gyz, lx * gyz)
-    segment_launch_count += SLAB_LAUNCHES_PER_SUBSTEP * S * len(groups)
+            with torch.cuda.device(g["dev"]):
+                err = lib.nh_stencil_slab_launch(
+                    g["pos"].data_ptr(), g["vel"].data_ptr(),
+                    g["pos_out"].data_ptr(), g["prev_out"].data_ptr(),
+                    g["vel_out"].data_ptr(), g["im"].data_ptr(),
+                    g["gid"].data_ptr(), g["gpos"].data_ptr(), g["k"],
+                    g["gid"].shape[0], S, g["first"] * lx * gyz, lx * gyz,
+                    begin, end, g["grid"], par, g["stream"])
+            _check(lib, err, f"cooperative slab launch of {g['grid']} blocks")
+        if exchange == "left":
+            mesh.send_left(lo, hi, pairs=cuts)  # right's plane 0 -> plane lx
+        elif exchange == "right":
+            mesh.send_right(hi, lo, pairs=cuts)  # left's plane lx -> plane 0
+    segment_launch_count += len(calls) * len(groups)
     return ([x for g in groups for x in ungroup(g["pos_out"])],
             [x for g in groups for x in ungroup(g["vel_out"])])

@@ -68,17 +68,22 @@ class SlabMesh:
             out += ungroup(torch.stack(list(slabs[first:first + k])).to(dev))
         return out
 
-    def send_left(self, src, dst, add: bool = False) -> None:
-        """dst[i - 1] <- src[i] for i = 1 .. size - 1 (``copy_``, or
-        ``add_`` with ``add``); src and dst list one plane view per slab."""
-        for i in range(1, self.size):
+    def send_left(self, src, dst, add: bool = False, pairs=None) -> None:
+        """dst[i - 1] <- src[i] for i = 1 .. size - 1, or for the i in
+        ``pairs`` (``copy_``, or ``add_`` with ``add``); src and dst list
+        one plane view per slab."""
+        for i in range(1, self.size) if pairs is None else pairs:
             _move(src[i], dst[i - 1], add)
 
-    def send_right(self, src, dst, add: bool = False) -> None:
-        """dst[i + 1] <- src[i] for i = 0 .. size - 2."""
-        for i in range(self.size - 1):
-            _move(src[i], dst[i + 1], add)
+    def send_right(self, src, dst, add: bool = False, pairs=None) -> None:
+        """dst[i] <- src[i - 1] for i = 1 .. size - 1, or for the i in
+        ``pairs``."""
+        for i in range(1, self.size) if pairs is None else pairs:
+            _move(src[i - 1], dst[i], add)
 
+    def device_cuts(self) -> List[int]:
+        """The slabs i whose left neighbour i - 1 lies on another device."""
+        return [first for _, first, _ in self.groups()[1:]]
 
     def add_halo(self, lo, hi) -> None:
         """Complete the shared planes' partial sums: each slab's plane 0

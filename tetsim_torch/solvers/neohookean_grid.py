@@ -15,7 +15,8 @@ every state array.
 
 ``step_frame`` hands the frame to ``kernels/nh_stencil.grid_frame``: on a
 CPU tensor that runs this plain-torch path, on a CUDA tensor it launches
-the stencil kernels (``kernels/csrc/nh_stencil.cu``), 50 per substep.
+the stencil kernel (``kernels/csrc/nh_stencil.cu``), one cooperative
+launch per frame.
 """
 from __future__ import annotations
 

@@ -9,8 +9,9 @@ never waits for the device: ``positions``, ``surface_mesh``,
 ``diagnostics`` and ``start_grab`` (which returns the grabbed id) are the
 calls that synchronise.  This package carries the Neo-Hookean and polar
 engines: ``Body`` runs either through its solver (one fused-kernel launch
-per frame on CUDA, or a multi-block kernel per level or pass where the
-body outgrows one block's shared memory), ``add_body_batch`` runs
+per frame on CUDA; where the body outgrows one block's shared memory, one
+cluster launch per frame (Neo-Hookean) or a multi-block kernel per pass
+(polar)), ``add_body_batch`` runs
 ``FusedGSBody``, ``FusedPolarBody`` or ``BatchedBody``.  ``add_grid_body``
 runs a
 ``grid_mesh`` box through the stencil engines (``Body`` with grid arrays,
