@@ -61,30 +61,31 @@ code is non-zero:
  11. ms per substep at 56^3 of each grid kernel and its plain twin, and K3's
      us per phase (a substep is 48 colour phases and a particle phase, each
      ended by a grid barrier);
- 12. the pieces kernels, polar_pieces (K6) and nh_pieces (K5), the substep
-     with the kernel vs the same substep with the plain twin of the solve,
-     after every frame at 5 substeps: tests_tpu's blob at 512 tets per
-     piece, both lane layouts, 2 pinned particles and a grab, 3 frames; the
-     blob resting on the ground after 60 frames, 1 frame; blobs past +x
-     and past -z and the ground at friction k = 0.1, 2 frames; the
-     62,370-tet blob at cell 0.05 and bench.py's 987,090-tet blob at cell
-     0.02 (2,048 tets per piece, banded), 2 frames; each beside the
-     kernel's own spread from positions 1 ulp apart; and, for polar_pieces,
-     whose kernel holds a whole piece in one block's shared memory, the
-     62,370-tet blob at 8,192 tets per piece refused by name before any
-     launch.  The Neo-Hookean
-     engine collapses the 987k blob, so its whole frames there are held
-     by their spread alone, and one sweep at that width, on the first
-     substep's predicted planes from rest with a 10x softer deviatoric
-     compliance (the engine's own is chaotic within one sweep there), is
-     held strictly instead;
+ 12. the pieces kernels, polar_pieces (K6, one launch per substep between
+     torch ops) and nh_pieces (K5, one cooperative launch per frame that
+     carries the whole substep), the kernel's frames vs the plain twin's,
+     after every frame at 5 substeps, with the launches per frame held:
+     tests_tpu's blob at 512 tets per piece, both lane layouts, 2 pinned
+     particles and a grab, 3 frames; the blob resting on the ground after
+     60 frames, 1 frame; blobs past +x and past -z and the ground at
+     friction k = 0.1, 2 frames; the 62,370-tet blob at cell 0.05 and
+     bench.py's 987,090-tet blob at cell 0.02 (2,048 tets per piece,
+     banded), 2 frames; each beside the kernel's own spread from
+     positions 1 ulp apart; and, for polar_pieces, whose kernel holds a
+     whole piece in one block's shared memory, the 62,370-tet blob at
+     8,192 tets per piece refused by name before any launch.  The
+     Neo-Hookean engine collapses the 987k blob, so its whole frames there
+     are held by their spread alone, and one substep at that width from
+     rest with a 10x softer deviatoric compliance (the engine's own is
+     chaotic within one sweep there) is held strictly instead;
  13. the pieces main path at 987,090 tets: World -> add_body(blob with its
      boundary surface, engine="polar_pieces" / "nh_pieces") for 20 frames
      with a grab, surface_mesh and diagnostics, then the packed stepper
      for 20 frames; no host sync while stepping, each launch counter
-     equal to frames x substeps x launches per substep;
+     equal to frames x the kernel's launches per frame (K6 5, K5 1);
  14. ms per substep at 987,090 tets of each pieces engine (two-point fit),
-     its kernel's CUDA-event time, bound and plain twin;
+     its kernel's CUDA-event time per substep (K6's solve, K5's frame),
+     bound and plain twin;
  15. the exact-order kernel (gs_ordered, K7) vs its plain twin after every
      frame at 5 substeps: 8 jittered dragons with a pinned particle and a
      grab on body 2, 3 frames; 8 dragons resting on the ground after 120
@@ -120,10 +121,11 @@ code is non-zero:
      plain twin (velocities 2e-2, as phase 2 holds K1), 2 frames bitwise
      FusedGSBody(coloring="ordered"), one K1 launch per frame;
  21. the polar slab form (K4a): the 56^3 box at cell 0.02 through
-     make_grid_sharded_stepper on SlabMesh(4) and SlabMesh(2), 3 frames
-     from seeded velocities with a grab on a slab boundary, after every
-     frame within 2e-5 or twice K4's 1-ulp spread of K4 unsharded and at
-     the polar bars of the sharded twin;
+     make_grid_sharded_stepper on SlabMesh(4), SlabMesh(2) and SlabMesh(1),
+     3 frames from seeded velocities with a grab on a slab boundary, two
+     launches per substep (one host call per frame), after every frame
+     within 2e-5 or twice K4's 1-ulp spread of K4 unsharded and at the
+     polar bars of the sharded twin;
  22. the Neo-Hookean slab form (K3s): the 56^3 box at cell 0.05 through
      make_nh_sharded_stepper on SlabMesh(4), SlabMesh(2) and SlabMesh(1),
      3 frames each, one cooperative launch per frame, bit for bit K3
@@ -1013,17 +1015,17 @@ class PiecesEngine:
     mod: object  # the kernel module (launch_count, frame_flops, frame_bytes)
     build: Callable  # (mesh, tets_per_piece=, pinned=, boundary_prefix=,
     #                   device=) -> arrays
-    make: Callable  # (arrays, solve=) -> (pack, step, unpack, unpack_pos)
-    solve: Callable  # the solve that launches the kernel
-    plain: Callable  # its plain twin
-    solve_args: Callable  # (planes, packed, arrays, params) -> the solve's
-    #                        arguments
+    make: Callable  # arrays -> (pack, step, unpack, unpack_pos), the kernel's
+    twin: Callable  # arrays -> the same with the plain twin
+    timed: Callable  # (arrays, packed, params) -> (kernel call, the plain
+    #                  twin's call, substeps per call)
+    per_frame: int  # kernel launches per frame at PIECES_SUBSTEPS
     describe: Callable  # arrays -> their engine's own table shapes
     vel_tol: float
     quats: bool  # the packed state ends in the quaternions, held at 2e-5
     # the engine collapses the 987k blob at cell 0.02 (PERF.md), so its whole
-    # frames there are held only by their spread and one sweep is held
-    # strictly instead
+    # frames there are held only by their spread and one substep with a
+    # softer material is held strictly instead
     collapses: bool
     replaces: str  # the TPU kernel, under tetsim_tpu/kernels/
 
@@ -1035,38 +1037,58 @@ class PiecesEngine:
 def pieces_engines():
     """K6's engine (polar_pieces), then K5's (nh_pieces)."""
     from tetsim_torch.kernels import nh_pieces as nh, polar_pieces as pp
+
+    def k6_calls(arr, packed, params):
+        args = (*packed[:3], packed[6], arr, params.extract_iters)
+        return (lambda: pp.pieces_solve(*args),
+                lambda: pp.pieces_solve_reference(*args), 1)
+
+    def k5_calls(arr, packed, params):
+        gid, gpos = (x[0] for x in no_grab(1))
+        return (lambda: nh.nh_pieces_frame(packed, arr, params, gid, gpos),
+                lambda: nh.nh_pieces_frame_reference(packed, arr, params, gid,
+                                                     gpos),
+                params.num_substeps)
+
     return (
         PiecesEngine(pp, pp.build_pieces_arrays, pp.make_pieces_stepper,
-                     pp.pieces_solve, pp.pieces_solve_reference,
-                     lambda planes, packed, arr, params: (
-                         *planes, packed[6], arr, params.extract_iters),
+                     lambda a: pp.make_pieces_stepper(
+                         a, solve=pp.pieces_solve_reference), k6_calls,
+                     PIECES_SUBSTEPS * pp.LAUNCHES_PER_SUBSTEP,
                      lambda a: f"rt {a.rt}, K {a.valence}", vel_tol=2e-2,
                      quats=True, collapses=False,
                      replaces="polar_pieces.py:422"),
         PiecesEngine(nh, nh.build_nh_pieces_arrays, nh.make_nh_pieces_stepper,
-                     nh.nh_pieces_solve, nh.nh_pieces_solve_reference,
-                     lambda planes, packed, arr, params: (*planes, arr, params),
-                     lambda a: f"l_max {a.l_max}", vel_tol=2e-3, quats=False,
-                     collapses=True, replaces="nh_pieces.py:250"),
+                     lambda a: nh.make_nh_pieces_stepper(
+                         a, frame=nh.nh_pieces_frame_reference), k5_calls,
+                     nh.LAUNCHES_PER_FRAME, lambda a: f"l_max {a.l_max}",
+                     vel_tol=2e-3, quats=False, collapses=True,
+                     replaces="nh_pieces.py:250"),
     )
 
 
 def pieces_case(e, arr, state, params, controls, frames, label):
-    """The substep with the kernel vs the same substep with the plain twin
-    of the solve, from ``state`` in piece planes, after each of ``frames``
-    frames, beside the kernel's own spread from positions 1 ulp apart.
-    Positions and polar quaternions are held to 2e-5, velocities to 2e-2
-    (polar) or 2e-3 (Neo-Hookean); each bound is at least twice the spread.
-    Returns (largest position difference, the last packed kernel state)."""
+    """The kernel's frames vs the plain twin's, from ``state`` in piece
+    planes, after each of ``frames`` frames, beside the kernel's own spread
+    from positions 1 ulp apart; the kernel launches ``e.per_frame`` times a
+    frame (at ``PIECES_SUBSTEPS``).  Positions and polar quaternions are
+    held to 2e-5, velocities to 2e-2 (polar) or 2e-3 (Neo-Hookean); each
+    bound is at least twice the spread.  Returns (largest position
+    difference, the last packed kernel state)."""
     pack, kstep, _, _ = e.make(arr)
-    _, pstep, _, _ = e.make(arr, solve=e.plain)
+    _, pstep, _, _ = e.twin(arr)
 
     def run(step, s):
         out, packed = [], pack(s, params)
+        before = e.mod.launch_count
         for _ in range(frames):
             packed = step(packed, params, controls)
             out.append(packed)
         sync()
+        if step is kstep and params.num_substeps == PIECES_SUBSTEPS:
+            n = e.mod.launch_count - before
+            check(n == frames * e.per_frame,
+                  f"{e.name} {label}: {n} launches for {frames} frames")
         return out
 
     moved = state.replace(pos=torch.nextafter(state.pos,
@@ -1093,42 +1115,46 @@ def pieces_case(e, arr, state, params, controls, frames, label):
     return worst, got[-1]
 
 
-def sweep_case(tt, e, mesh, arr):
-    """One call of the solve at full width vs its plain twin, on the first
-    substep's predicted planes from rest, beside that call's own spread
-    from planes 1 ulp apart.  With the engine's parameters one sweep of the
-    collapsing blob is itself chaotic (PERF.md), so it is held only to
-    twice its spread.  With the deviatoric compliance 10x higher, a softer
-    material on the same tables and planes, it is held to 2e-5 or twice its
-    spread, whichever is larger, and must move the planes by ten times
-    that bound or more, so that a kernel that did nothing would fail.
-    Returns that difference."""
+def soft_substep_case(tt, e, mesh, arr):
+    """One substep at full width from rest through the frame kernel vs its
+    plain twin, beside its own spread from positions 1 ulp apart.  With the
+    engine's parameters the collapsing blob is chaotic within one sweep
+    (PERF.md), so that substep is held only to twice its spread.  With the
+    deviatoric compliance 10x higher, a softer material on the same tables,
+    it is held to 2e-5 or twice its spread, whichever is larger, and must
+    move the sweep's planes by ten times that bound or more (the predicted
+    planes, against the swept ones of the plain twin), so that a kernel
+    that did nothing would fail.  Returns that difference."""
     from tetsim_torch.kernels.polar_pieces import predict_planes
 
-    params = tt.PhysicsParams(num_substeps=PIECES_SUBSTEPS)
-    packed = e.make(arr)[0](tt.init_state(mesh, "cuda"), params)
-    planes = predict_planes(*packed[:6], arr.movw_l > 0.0, params.dt,
-                            params)[:3]
-    up = [torch.nextafter(p, torch.full_like(p, 10.0)) for p in planes]
+    base = tt.PhysicsParams(num_substeps=PIECES_SUBSTEPS)
+    params = dataclasses.replace(
+        base, num_substeps=1, time_step=base.time_step / PIECES_SUBSTEPS)
+    state = tt.init_state(mesh, "cuda")
+    pack, kstep, _, _ = e.make(arr)
+    _, pstep, _, _ = e.twin(arr)
+    none = tt.Controls.none("cuda")
     soft = dataclasses.replace(params,
                                dev_compliance=10 * params.dev_compliance)
     for p, label, floor in ((params, "the engine's parameters", 0.0),
                             (soft, "dev_compliance x10", 2e-5)):
-        got = e.solve(*e.solve_args(planes, packed, arr, p))
-        want = e.plain(*e.solve_args(planes, packed, arr, p))
-        spread = e.solve(*e.solve_args(up, packed, arr, p))
+        packed = pack(state, p)
+        moved = pack(state.replace(pos=torch.nextafter(
+            state.pos, torch.full_like(state.pos, 10.0))), p)
+        got, want, spread = (kstep(packed, p, none), pstep(packed, p, none),
+                             kstep(moved, p, none))
+        pred = predict_planes(*packed[:6], arr.movw_l > 0.0, p.dt, p)[:3]
         sync()
-        d = max(max_diff(k, r) for k, r in zip(got, want))
-        s = max(max_diff(k, m) for k, m in zip(got, spread))
-        shift = max(max_diff(k, q) for k, q in zip(got, planes))
+        d = max(max_diff(k, r) for k, r in zip(got[:3], want[:3]))
+        s = max(max_diff(k, m) for k, m in zip(got[:3], spread[:3]))
+        shift = max(max_diff(w, q) for w, q in zip(want[:3], pred))
         t = max(floor, 2 * s)
-        print(f"phase 12 {e.name} one sweep at {mesh.num_tets} tets "
-              f"({arr.B} pieces, banded) on the first substep's predicted "
-              f"planes from rest, {label}: kernel vs plain max|dpos| "
-              f"{d:.3e} (tol {t:.3e}, 1-ulp spread {s:.3e}); the sweep "
-              f"moves the planes by up to {shift:.3e}", flush=True)
-        check(d <= t, f"{e.name} one sweep at full width disagrees, {label}")
-    check(shift >= 10 * t, f"{e.name} one sweep moves too little to hold")
+        print(f"phase 12 {e.name} one substep at {mesh.num_tets} tets "
+              f"({arr.B} pieces, banded) from rest, {label}: kernel vs plain "
+              f"max|dpos| {d:.3e} (tol {t:.3e}, 1-ulp spread {s:.3e}); the "
+              f"sweep moves the planes by up to {shift:.3e}", flush=True)
+        check(d <= t, f"{e.name} one substep at full width disagrees, {label}")
+    check(shift >= 10 * t, f"{e.name} one substep moves too little to hold")
     return d
 
 
@@ -1218,7 +1244,8 @@ def pieces_vs_plain(tt, e, big_mesh, big_arr):
         e, big_arr, tt.init_state(big_mesh, "cuda"), params, none, 2,
         f"blob at cell 0.02 ({big_mesh.num_tets} tets, {big_arr.B} pieces, "
         "banded), from rest")[0]
-    errs.append(sweep_case(tt, e, big_mesh, big_arr) if e.collapses else err)
+    errs.append(soft_substep_case(tt, e, big_mesh, big_arr) if e.collapses
+                else err)
     return max(errs)
 
 
@@ -1271,7 +1298,7 @@ def pieces_main_path(tt, e, mesh, arr, kernels):
     mod, name = e.mod, e.name
     params = tt.PhysicsParams(num_substeps=PIECES_SUBSTEPS)
     frames = (10, 10)
-    want = sum(frames) * PIECES_SUBSTEPS * mod.LAUNCHES_PER_SUBSTEP
+    want = sum(frames) * e.per_frame
     target = np.float32([0.0, 1.6, 0.0])
     launches = 0
 
@@ -1350,9 +1377,10 @@ def event_ms(fn, n):
 
 
 def pieces_timings(tt, e, mesh, arr, label):
-    """Phase 14: (kernel ms and plain ms per substep, bound).  The solve is
-    timed on the state after the fit's 28 frames from rest: for the
-    Neo-Hookean engine a collapsed blob, as on its main path."""
+    """Phase 14: (kernel ms and plain ms per substep, bound).  The kernel
+    (K6's solve, K5's whole frame) is timed on the state after the fit's 28
+    frames from rest: for the Neo-Hookean engine a collapsed blob, as on
+    its main path."""
     params = tt.PhysicsParams(num_substeps=PIECES_SUBSTEPS)
     pack, step, _, _ = e.make(arr)
     st = {"p": pack(tt.init_state(mesh, "cuda"), params)}
@@ -1364,17 +1392,23 @@ def pieces_timings(tt, e, mesh, arr, label):
 
     sub_ms = per_frame(frames, lambda: st["p"][0].sum(), 4, 24) * 1e3 \
         / PIECES_SUBSTEPS
-    args = e.solve_args(st["p"][:3], st["p"], arr, params)
-    k_ms = event_ms(lambda: e.solve(*args), 50)
-    p_ms = event_ms(lambda: e.plain(*args), 5)
+    kernel, plain, per_call = e.timed(arr, st["p"], params)
+    k_ms = event_ms(kernel, 50) / per_call
+    p_ms = event_ms(plain, 5) / per_call
     one = dataclasses.replace(params, num_substeps=1)
     b = bound(e.mod.frame_flops(arr, one), e.mod.frame_bytes(arr, one))
+    design = ""  # K5: the bytes its design moves beyond the function's
+    if hasattr(e.mod, "design_bytes"):
+        d = bound(0, e.mod.frame_bytes(arr, one)
+                  + e.mod.design_bytes(arr, one))[0]
+        design = f", {d * 1e3:.3f} us at the design's own bytes"
     print(f"phase 14 [{label}] {e.name} at {mesh.num_tets} tets: substep "
           f"{sub_ms:.4f} ms ({1e3 / sub_ms:.1f} substeps/s), of it the kernel "
-          f"{k_ms:.4f} ms (CUDA events; {b[0] * 1e3:.3f} us bound by {b[1]}) and "
-          f"the torch phases around it {sub_ms - k_ms:.4f} ms "
-          f"({(sub_ms - k_ms) / sub_ms:.1%}); plain twin of the solve "
-          f"{p_ms:.4f} ms", flush=True)
+          f"{k_ms:.4f} ms (CUDA events over calls of {per_call} substeps; "
+          f"{b[0] * 1e3:.3f} us bound by {b[1]}{design}) and the rest (torch ops "
+          f"and the host's pace) {sub_ms - k_ms:.4f} ms "
+          f"({(sub_ms - k_ms) / sub_ms:.1%}); plain twin {p_ms:.4f} ms",
+          flush=True)
     return k_ms, p_ms, b
 
 
@@ -1925,11 +1959,13 @@ def unsharded_frames(mod, arr, state, params, ctl, frames):
 
 def polar_slabs(tt, polar_stencil):
     """Phase 21: the 56^3 box at cell 0.02 through make_grid_sharded_stepper
-    on SlabMesh(4) and SlabMesh(2), 3 frames from a seeded state with a grab
-    on a slab boundary; after every frame, positions and quaternions within
-    2e-5 or twice K4's 1-ulp spread of K4 unsharded, and the sharded twin at
-    the polar bars.  Returns (K4a launches, largest difference from the
-    twin)."""
+    on SlabMesh(4), SlabMesh(2) and SlabMesh(1), 3 frames from a seeded
+    state with a grab on a slab boundary: two K4a launches per substep
+    (pass A and the vertex pass; the card holds every slab); after every
+    frame, positions and
+    quaternions within 2e-5 or twice K4's 1-ulp spread of K4 unsharded,
+    and the sharded twin at the polar bars.  Returns (K4a launches, largest
+    difference from the twin)."""
     from tetsim_torch.parallel import SlabMesh
     from tetsim_torch.solvers import polar_grid
 
@@ -1941,7 +1977,7 @@ def polar_slabs(tt, polar_stencil):
         ctl, 3)
     polar_stencil.acc_launch_count = 0
     launches, worst = 0, 0.0
-    for d in (4, 2):
+    for d in (4, 2, 1):
         slabs = SlabMesh(d)
         prepare, step, unprepare = polar_stencil.make_grid_sharded_stepper(
             slabs, arr)
@@ -1952,7 +1988,11 @@ def polar_slabs(tt, polar_stencil):
             before = polar_stencil.acc_launch_count
             with no_host_sync():
                 packed = step(packed, params, ctl)
-            launches += polar_stencil.acc_launch_count - before
+            n = polar_stencil.acc_launch_count - before
+            check(n == polar_stencil.SLAB_LAUNCHES_PER_SUBSTEP
+                  * params.num_substeps,
+                  f"K4a in {d} slabs: {n} launches for frame {f + 1}")
+            launches += n
             got = unprepare(packed, params)
             tslab, _ = twin(tslab, tarr, params, ctl)
             tw = polar_grid.grid_unprepare(tslab, arr, d)
@@ -1970,8 +2010,9 @@ def polar_slabs(tt, polar_stencil):
               "grab off target")
     check(launches > 0 and launches == polar_stencil.acc_launch_count,
           f"K4a launches {launches}")
-    print(f"phase 21 K4a: {launches} launches for 3 frames at 4 and at 2 "
-          "slabs", flush=True)
+    print(f"phase 21 K4a: {launches} launches for 3 frames at 4, 2 and 1 "
+          f"slabs, {polar_stencil.SLAB_LAUNCHES_PER_SUBSTEP} per substep",
+          flush=True)
     return launches, worst
 
 
@@ -2033,7 +2074,7 @@ def nh_slabs(tt, nh_stencil):
 def slab_timings(tt, polar_stencil, nh_stencil, label):
     """Phase 23: ms per substep at 56^3 of each slab form at 1, 2 and 4 slabs
     beside the unsharded kernel (two-point fits, data-dependent sync),
-    launches per substep, and the sharded twins' ms at 4 slabs.  Returns
+    launches per frame, and the sharded twins' ms at 4 slabs.  Returns
     {module: (ms at 4 slabs, twin ms, bound)}."""
     from tetsim_torch.parallel import SlabMesh
     from tetsim_torch.solvers import neohookean_grid, polar_grid
@@ -2091,7 +2132,8 @@ def slab_timings(tt, polar_stencil, nh_stencil, label):
         twin_ms = per_frame(trun, lambda: (tstate["p"].pos if polar
                                            else tstate["p"][0])[0].sum(),
                             1, 2) * 1e3 / GRID_SUBSTEPS
-        unsharded = (f"{mod.LAUNCHES_PER_SUBSTEP} launches" if polar
+        unsharded = (f"{mod.LAUNCHES_PER_SUBSTEP} launches per substep"
+                     if polar
                      else f"{mod.LAUNCHES_PER_FRAME} launch per frame")
         print(f"phase 23 [{label}] {name} slab form at {GRID}: "
               + ", ".join(f"{d} slab{'s' if d > 1 else ''} {times[d]:.4f} "

@@ -16,8 +16,9 @@ workload (1,053,696 tets, 5 substeps, as examples/scale_grid.py) through
 substep) and nh_stencil (1 per frame), then the pieces kernels on the
 987,090-tet blob of the unstructured scale workload (bench.py:
 ellipsoid_mesh(68), 2,048 tets per piece, banded lanes, 5 substeps) through
-their packed steppers: polar_pieces (2 launches per substep) and nh_pieces
-(1), each between the torch phases of the substep:
+their packed steppers: polar_pieces (1 launch per substep, between the
+torch phases of the substep) and nh_pieces (1 per frame, the whole
+substep in the kernel):
   host_ms     synced host time per frame: a two-point fit over k1 and k2
               frames, each run ending in a data-dependent sync;
   enqueue_ms  host time per frame to enqueue k2 frames, with no sync;
@@ -28,7 +29,7 @@ their packed steppers: polar_pieces (2 launches per substep) and nh_pieces
   busy_share  device_ms / event_ms: the share of a frame's span in which
               the kernels run;
   glue_device_ms  (pieces rows) the device time per frame of every other
-              kernel, the torch phases around the solve;
+              kernel, the torch phases around the kernel;
   idle_ms     (pieces rows) event_ms less all device time: the span in
               which the card runs nothing;
   bound_us    the least time the card could take for the frame: its
@@ -69,12 +70,20 @@ frames from the same start; and gs_levels through each side's
 ``levels_frame`` on grid_mesh(20, 20, 20) at B = 1 and 8 ("large nh 20^3
 B=1", "B=8"; 5 substeps) and K3s through each side's
 ``make_nh_sharded_stepper`` on its ``SlabMesh(4)`` ("slab nh 56^3 x4",
-the box at cell 0.05, 5 substeps).  kernel_us is per launch (nh_stencil:
+the box at cell 0.05, 5 substeps); K4a through each side's
+``make_grid_sharded_stepper`` on its ``SlabMesh(d)`` ("slab polar 56^3 x1",
+"x2", "x4": the 56^3 box at cell 0.02 from velocities seeded in +-0.1, 5
+substeps); and nh_pieces through each side's ``make_nh_pieces_stepper`` on
+the 987k blob ("pieces nh 987k" banded, "pieces nh 987k default" in the
+default lane layout, 5 substeps).  kernel_us is per launch (nh_stencil:
 50 per substep in the first design, one per frame since; polar_pieces: 2
 per substep in the first design, one since; gs_levels: L + 2 per substep
 in the first design, one per frame since; K3s: 50 per substep and 12
 plane copies per neighbour pair in the first design, one per frame
-since); where a shape runs several
+since; K4a: 3 per substep and the halo's plane copies and adds in the
+first design, 2 per substep since; nh_pieces: one sweep per substep
+between torch ops in the first design, one launch per frame that carries
+the whole substep since); where a shape runs several
 kernels, per_kernel gives each one's launches per frame and device us per
 launch; the polar_pieces rows add solve_event_ms, the solve alone by CUDA
 events on the packed state's predicted planes.  Before the timings it
@@ -129,7 +138,7 @@ import torch
 from chip_smoke import bound, max_diff
 
 PIECES_SHAPES = (("pieces polar 987k", "polar_pieces", "polar_pieces_", 4, 24),
-                 ("pieces nh 987k", "nh_pieces", "nh_pieces_kernel", 4, 24))
+                 ("pieces nh 987k", "nh_pieces", "nh_pieces_", 4, 24))
 GRID_DIMS = (56, 56, 56)  # the scale box: 1,053,696 tets
 GRID_BOX = dict(cell=0.02, origin=(-0.56, 0.5, -0.56))
 GRID_SHAPES = (("grid polar 56^3", "polar_grid_pallas", "polar_grid_", 20, 120),
@@ -392,7 +401,12 @@ AB_SHAPES = (("gs ordered B=1", "gs", 1, "ordered", 20, 80),
              ("pieces polar 987k", "pieces", 1, None, 4, 24),
              ("large nh 20^3 B=1", "large", 1, None, 10, 50),
              ("large nh 20^3 B=8", "large", 8, None, 10, 50),
-             ("slab nh 56^3 x4", "slab", 4, None, 5, 25))
+             ("slab nh 56^3 x4", "slab", 4, None, 5, 25),
+             ("slab polar 56^3 x1", "slabpolar", 1, None, 5, 25),
+             ("slab polar 56^3 x2", "slabpolar", 2, None, 5, 25),
+             ("slab polar 56^3 x4", "slabpolar", 4, None, 5, 25),
+             ("pieces nh 987k", "piecesnh", 1, True, 4, 24),
+             ("pieces nh 987k default", "piecesnh", 1, False, 4, 24))
 LARGE_DIMS = (20, 20, 20)  # 9,261 particles: over one block's shared memory
 LARGE_BOX = dict(cell=0.05, origin=(-0.5, 0.3, -0.5))
 SLAB_BOX = dict(cell=0.05, origin=(-1.4, 0.1, -1.4))  # NH collapses at 0.02
@@ -403,7 +417,9 @@ AB_KERNELS = {"gs": ("gs_fused", "gs_frame_kernel"),
               "gridpolar": ("polar_stencil", "polar_grid_"),
               "pieces": ("polar_pieces", "polar_pieces_"),
               "large": ("gs_levels", "gs_levels_"),
-              "slab": ("nh_stencil", "nh_")}
+              "slab": ("nh_stencil", "nh_"),
+              "slabpolar": ("polar_stencil", "polar_"),
+              "piecesnh": ("nh_pieces", "nh_pieces_")}
 
 
 class _Levels:
@@ -430,20 +446,28 @@ class _Levels:
 
 
 class _Slabs:
-    """A version's make_nh_sharded_stepper on SlabMesh(d), as ``measure``
-    drives a batch."""
+    """A version's slab stepper (``make``: make_nh_sharded_stepper or
+    make_grid_sharded_stepper) on SlabMesh(d), as ``measure`` drives a
+    batch; from rest, or with ``seed`` from velocities seeded in +-0.1 (as
+    chip_smoke.py's slab_start), with no grab."""
 
-    def __init__(self, tt, pkg, mod, arrays, mesh, d, params):
+    def __init__(self, tt, pkg, make, arrays, mesh, d, params, seed=None):
         slab_mesh = importlib.import_module(f"{pkg}.parallel").SlabMesh(d)
-        prepare, self._step, _ = mod.make_nh_sharded_stepper(slab_mesh,
-                                                             arrays)
+        prepare, self._step, _ = make(slab_mesh, arrays)
         self.arrays = arrays
-        self.packed = prepare(tt.init_state(mesh, "cuda"), params)
+        st = tt.init_state(mesh, "cuda")
+        if seed is not None:
+            rng = np.random.RandomState(seed)
+            st = st.replace(vel=torch.tensor(
+                rng.uniform(-0.1, 0.1, st.vel.shape).astype(np.float32),
+                device="cuda"))
+        self.packed = prepare(st, params)
         self.controls = tt.Controls.none("cuda")
 
     @property
     def pos(self):
-        return self.packed[0][0]
+        p = self.packed
+        return (p.pos if hasattr(p, "pos") else p[0])[0]
 
     def step(self, params, k):
         for _ in range(k):
@@ -500,9 +524,13 @@ def launch_threads(lib) -> dict:
     first designs' fixed sizes where the library names none)."""
     if hasattr(lib, "polar_stencil_strip"):
         return {"polar_grid_tet": 6 * lib.polar_stencil_strip(),
-                "polar_grid_vertex": 256, "polar_grid_acc": 256}
+                "polar_slab_vertex": 256,
+                "polar_grid_vertex": 256, "polar_grid_acc": 256,
+                "polar_grid_apply": 256}
     if hasattr(lib, "polar_pieces_threads"):
         return {"polar_pieces_kernel": lib.polar_pieces_threads()}
+    if hasattr(lib, "nh_pieces_slots"):
+        return {"nh_pieces": lib.nh_pieces_slots()}
     return {"polar_grid_tet": 128, "polar_grid_vertex": 256,
             "polar_grid_acc": 256, "polar_pieces_tet": 128,
             "polar_pieces_lane": 256}
@@ -537,7 +565,7 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
     dragon = tt.load_dragon()
     grid_mesh = tt.grid_mesh(*GRID_DIMS, **GRID_BOX)
     blob = (tt.ellipsoid_mesh(**BLOB)
-            if any(s[1] == "pieces" for s in shapes) else None)
+            if any(s[1] in ("pieces", "piecesnh") for s in shapes) else None)
     grids = {}  # each side's arrays of the 56^3 box, of either engine
     pieces = {}  # each side's arrays of the 987k blob
     large = {}  # each side's mesh and ordered arrays of grid_mesh(20, 20, 20)
@@ -546,7 +574,8 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
     def params_of(kind):
         if kind == "polar":
             return tt.default_gpu_params()
-        if kind in ("grid", "gridpolar", "pieces", "slab"):
+        if kind in ("grid", "gridpolar", "pieces", "slab", "slabpolar",
+                    "piecesnh"):
             return tt.PhysicsParams(num_substeps=5)
         return tt.default_cpu_params()
 
@@ -565,8 +594,26 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
                     f"{pkg.__name__}.solvers.neohookean_grid")
                 grids[side, kind] = solver.build_nh_grid_arrays(
                     slab_mesh, GRID_DIMS, device="cuda")
-            return _Slabs(tt, pkg.__name__, mod, grids[side, kind], slab_mesh,
-                          b, params_of(kind))
+            return _Slabs(tt, pkg.__name__, mod.make_nh_sharded_stepper,
+                          grids[side, kind], slab_mesh, b, params_of(kind))
+        if kind == "slabpolar":
+            if (side, kind) not in grids:
+                solver = importlib.import_module(
+                    f"{pkg.__name__}.solvers.polar_grid")
+                grids[side, kind] = solver.build_grid_arrays(
+                    grid_mesh, GRID_DIMS, device="cuda")
+            return _Slabs(tt, pkg.__name__, mod.make_grid_sharded_stepper,
+                          grids[side, kind], grid_mesh, b, params_of(kind),
+                          seed=6)
+        if kind == "piecesnh":  # coloring: the banded lane layout or not
+            if (side, coloring) not in pieces:
+                pieces[side, coloring] = mod.build_nh_pieces_arrays(
+                    blob, tets_per_piece=PIECES_TPP, boundary_prefix=coloring,
+                    device="cuda")
+            bd = _Packed(tt, mod.make_nh_pieces_stepper(pieces[side, coloring]),
+                         tt.init_state(blob, "cuda"), params_of(kind))
+            bd.arrays = pieces[side, coloring]
+            return bd
         if kind == "gs":
             return mod.FusedGSBody(dragon, num_bodies=b, coloring=coloring,
                                    jitter=0.2)
@@ -615,17 +662,23 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
         if kind == "gridpolar":
             return (mod.frame_flops(bd.arrays, params, 1),
                     mod.frame_bytes(bd.arrays, 1, 1))
-        if kind == "pieces":
+        if kind in ("pieces", "piecesnh"):
             return (mod.frame_flops(bd.arrays, params),
                     mod.frame_bytes(bd.arrays, params))
+        if kind == "slabpolar":  # the unsharded box's work
+            return (mod.frame_flops(bd.arrays, params, 1),
+                    mod.frame_bytes(bd.arrays, 1, 1))
         return (mod.frame_flops(bd.arrays, params, b),
                 mod.frame_bytes(bd.arrays, b, 1))
 
     def state(kind, bd):
-        if kind in ("grid", "gridpolar", "pieces"):
+        if kind in ("grid", "gridpolar", "pieces", "piecesnh"):
             return list(bd.packed)
         if kind == "slab":
             return list(bd.packed[0]) + list(bd.packed[1])
+        if kind == "slabpolar":
+            p = bd.packed
+            return [*p.pos, *p.prev, *p.vel, *p.quats]
         if kind == "large":
             return [bd.pos, bd.prev, bd.vel, bd.vol_err]
         return [bd.pos, bd.prev_pos, bd.vel] + (
@@ -643,13 +696,14 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
                         50)
 
     for side in packages:
-        for kind in ("gridpolar", "pieces"):
+        for kind in ("gridpolar", "pieces", "slabpolar", "piecesnh"):
             if any(s[1] == kind for s in shapes):
                 mod = kernels[side][kind]
                 smem = getattr(mod, "smem_bytes", None)  # a one-block design
+                lanes = PIECES_LANES[:1] if kind == "piecesnh" else PIECES_LANES
                 print_usage(f"[{side}] {AB_KERNELS[kind][0]}", mod.library(),
                             AB_KERNELS[kind][1],
-                            smem(*PIECES_LANES) if smem else None)
+                            smem(*lanes) if smem else None)
     pending = []
     for name, kind, b, coloring, k1, k2 in shapes:
         mod = kernels["B"][kind]
@@ -657,11 +711,12 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
         for side in "ABBA":
             bd = body(side, kind, b, coloring)
             pos_sum = ((lambda bd=bd: bd.packed[0].sum())
-                       if hasattr(bd, "packed") and kind != "slab" else None)
+                       if hasattr(bd, "packed")
+                       and kind not in ("slab", "slabpolar") else None)
             row, profile = measure(
                 bd, params, k1, k2, AB_KERNELS[kind][1],
                 *work(mod, kind, bd, params, b), state_sum=pos_sum)
-            if kind in ("gridpolar", "slab"):
+            if kind in ("gridpolar", "slab", "slabpolar", "piecesnh"):
                 row["ms_per_substep"] = row["event_ms"] / params.num_substeps
             if kind == "pieces":
                 row["solve_event_ms"] = solve_ms(side, bd)

@@ -12,6 +12,10 @@ import tetsim_torch as tt
 from tetsim_torch.kernels import gs_fused
 from tetsim_torch.world import BatchedBody
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def jax_flat(dragon):

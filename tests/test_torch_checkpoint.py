@@ -11,6 +11,10 @@ import tetsim_torch as tt
 from tetsim_tpu import checkpoint as jck
 from tetsim_torch import checkpoint
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 SMALL = dict(cell=0.25, origin=(-0.375, 0.5, -0.375))  # conftest's small_mesh
 
 

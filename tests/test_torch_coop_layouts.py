@@ -22,6 +22,10 @@ from tetsim_torch.kernels import nh_stencil as nh
 from tetsim_torch.parallel import SlabMesh
 from tetsim_torch.solvers import common, neohookean_grid
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 SMALL = dict(cell=0.25, origin=(-0.375, 0.5, -0.375))  # conftest's small_mesh
 SMS = (132, 7)  # an H100's SMs and a stand-in small card
 

@@ -24,6 +24,10 @@ from tetsim_torch.solvers import common
 from tetsim_torch.solvers import polar as tpolar
 from tetsim_torch.utils import mat3
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 BOX = dict(cell=0.25, origin=(-0.3, 0.5, -0.4))  # tests/test_polar_fused.py
 PINNED = [12, 27, 42]
 GRAB_BODY, GRAB_PID = 2, 5

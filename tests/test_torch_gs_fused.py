@@ -15,6 +15,10 @@ from tetsim_torch.kernels import gs_fused
 from tetsim_torch.kernels.gs_fused import FusedGSBody
 from tetsim_torch.solvers import neohookean as tnh
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 BOX = dict(cell=0.5, origin=(-0.25, 0.1, -0.25))  # tests/test_gs_fused.py small
 GRAB = (1, 5, [0.3, 1.2, 0.0])  # body, particle, target
 

@@ -16,6 +16,10 @@ from tetsim_tpu.kernels import gs_ordered as jgo
 from tetsim_tpu.solvers.golden import GoldenSolver
 from tetsim_torch.kernels import gs_ordered as go
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 SMALL = dict(cell=0.25, origin=(-0.375, 0.5, -0.375))  # conftest's small_mesh
 GRAB = (2, 5, [0.1, 1.3, 0.0])  # body, particle, target
 

@@ -17,6 +17,10 @@ from tetsim_torch.kernels import (gs_fused, gs_levels, polar_fused,
                                   polar_jacobi)
 from tetsim_torch.kernels.batch import SMEM_LIMIT
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 SMALL = dict(cell=0.25, origin=(-0.375, 0.5, -0.375))  # conftest's small_mesh
 MESHES = {"small": ((3, 3, 3), SMALL),
           "grid6": ((6, 6, 6), dict(cell=0.1, origin=(-0.3, 0.2, -0.3)))}

@@ -28,6 +28,10 @@ from tetsim_torch.kernels import nh_stencil as nh
 from tetsim_torch.parallel import SlabMesh
 from tetsim_torch.solvers import common, neohookean, neohookean_grid as nhg
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 CLUSTERS = (1, 2, 4, 8, 16)
 SMALL = dict(cell=0.25, origin=(-0.375, 0.5, -0.375))  # conftest's small_mesh
 BOX = (8, 2, 2)

@@ -24,6 +24,10 @@ from tetsim_torch.parallel import SlabMesh
 from tetsim_torch.solvers import neohookean_grid as tnhg
 from tetsim_tpu.solvers import neohookean_grid as jnhg
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 _O0 = {"xla_backend_optimization_level": "0"}
 
 

@@ -23,6 +23,10 @@ from tetsim_tpu.solvers.neohookean import solve_tet_batch
 from tetsim_torch import convert
 from tetsim_torch.kernels import nh_pieces as nhp
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 BLOB = dict(n=8, radii=(0.4, 0.3, 0.35), center=(0.0, 0.8, 0.0))
 CW = jnh._CW
 
@@ -252,17 +256,25 @@ def test_world_body_pieces(blobs):
 
 
 def test_frame_work_counts(arr):
-    """The bound's inputs: 420 flops and 72 bytes of tables per live tet and
-    substep (padded slots, half of cons at 987,090 tets, not counted),
-    beside the planes and live counts; at the 987,090-tet blob (512
-    pieces, rp = 1,152, 30 sub-levels) 0.41 GFLOP and 85 MB per substep."""
+    """The bound's inputs: 420 flops per live tet and substep (padded
+    slots, half of cons at 987,090 tets, not counted); per substep the
+    bytes the frame must move: 15 planes of B*rp floats (the state in and
+    out, movw, pid, lane_bnd), the live counts and 72 bytes of tables per
+    live tet, and the completion's reads across pieces (none of a J=2 band
+    in the default layout); at the 987,090-tet blob's shape (512 pieces,
+    rp = 1,152, 30 sub-levels) 0.41 GFLOP, and about 106.5 MB per substep
+    before its own completion's reads."""
     one = tt.PhysicsParams(num_substeps=1)
     assert nhp.frame_flops(arr, one) == 420 * 960
+    tier = arr.lane_bnd >= 0
+    count = arr.bnd_count[arr.lane_bnd[tier].long()]
+    assert arr.r2 == 0 and int(tier.sum()) > 0
     assert nhp.frame_bytes(arr, tt.PhysicsParams(num_substeps=5)) == 5 * (
-        24 * arr.B * arr.rp + 4 * arr.l_max * arr.B + 72 * 960)
+        60 * arr.B * arr.rp + 4 * arr.l_max * arr.B + 72 * 960
+        + 4 * int(tier.sum()) + 28 * int(count.sum()))
     big = dataclasses.replace(arr, num_tets=987_090, B=512, rp=1152, l_max=30)
     assert 0.41e9 < nhp.frame_flops(big, one) < 0.42e9
-    assert 84e6 < nhp.frame_bytes(big, one) < 86e6
+    assert 106e6 < nhp.frame_bytes(big, one) < 107e6
 
 
 def test_convert_round_trip(blobs, arr):
@@ -287,6 +299,8 @@ def test_non_cpu_tensor_goes_to_the_kernel(arr):
     refuses a device it cannot launch on instead of taking the plain
     path."""
     assert tt.get_engine("nh_pieces") is nhp
-    meta = [torch.zeros(arr.B, arr.rp, device="meta") for _ in range(3)]
+    meta = [torch.zeros(arr.B, arr.rp, device="meta") for _ in range(6)]
+    gid, gpos = tt.Controls.none("cpu").grab_id, tt.Controls.none("cpu").grab_pos
     with pytest.raises(ValueError, match="runs on CUDA"):
-        nhp.nh_pieces_solve(*meta, arr.to("meta"), tt.PhysicsParams())
+        nhp.nh_pieces_frame(meta, arr.to("meta"), tt.PhysicsParams(),
+                            gid[None], gpos.reshape(1, 3))

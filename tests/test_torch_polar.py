@@ -23,6 +23,10 @@ from tetsim_torch.solvers import polar as tpolar
 from tetsim_torch.utils import mat3 as tmat3
 from tetsim_torch.world import Body
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 SMALL = dict(cell=0.25, origin=(-0.375, 0.5, -0.375))  # tests/conftest.py small_mesh
 
 

@@ -19,6 +19,10 @@ from tetsim_torch.kernels.polar_fused import FusedPolarBody
 from tetsim_torch.solvers import polar as tpolar
 from tetsim_torch.world import BatchedBody
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 BOX = dict(cell=0.25, origin=(-0.3, 0.5, -0.4))  # tests/test_polar_fused.py
 PINNED = [12, 27, 42]  # three particles of the top face (y = 1.0)
 GRAB_BODY, GRAB_PID = 2, 5

@@ -24,6 +24,10 @@ from tetsim_torch.kernels import polar_stencil
 from tetsim_torch.solvers import get_engine, polar_grid as tpg
 from tetsim_torch.world import Body, GridBodyBatch, PackedGridBody
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 DIMS = (4, 3, 2)
 BOX = dict(cell=0.25, origin=(-0.5, 0.4, -0.3))
 PINS = [0, 11]

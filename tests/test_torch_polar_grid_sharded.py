@@ -24,6 +24,10 @@ from tetsim_torch.parallel import SlabMesh
 from tetsim_torch.solvers import polar_grid as tpg
 from tetsim_tpu.solvers import polar_grid as jpg
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 DIMS = (8, 3, 5)
 BOX = dict(cell=0.2, origin=(-0.8, 0.5, -0.5))
 SUBSTEPS = 4

@@ -26,6 +26,10 @@ from tetsim_torch.kernels import polar_stencil as ps
 from tetsim_torch.kernels.batch import SMEM_LIMIT
 from tetsim_torch.solvers import polar_grid
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 SM_SHARED = 233_472  # shared memory of one Hopper SM (228 KB)
 SM_RESERVED = 1_024  # reserved per resident block
 

@@ -20,6 +20,10 @@ from tetsim_tpu.kernels import polar_pieces as jpp
 from tetsim_torch import convert, diag
 from tetsim_torch.kernels import polar_pieces as pp
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 BLOB = dict(n=8, radii=(0.4, 0.3, 0.35), center=(0.0, 0.8, 0.0))
 
 

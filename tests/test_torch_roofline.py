@@ -10,6 +10,10 @@ import torch
 from tetsim_tpu.solvers.polar_grid import _extract_rotation
 from tetsim_torch import roofline
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 
 def _jax_loop(a, passes):
     """scripts/roofline.py's loop: extract_rotation from the identity, then

@@ -19,6 +19,10 @@ from tetsim_tpu.viewer import ViewerServer as JaxViewerServer
 from tetsim_torch.viewer import ViewerServer
 from tetsim_torch.world import Body, _surface_render_data
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 SMALL = dict(cell=0.25, origin=(-0.375, 0.5, -0.375))  # conftest's small_mesh
 N_VIS, N_PART, N_TRIS, N_EDGES = 29800, 1234, 59657, 6222  # the dragon
 

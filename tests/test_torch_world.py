@@ -11,6 +11,10 @@ from tetsim_torch.kernels.gs_fused import FusedGSBody
 from tetsim_torch.kernels.polar_fused import FusedPolarBody
 from tetsim_torch.world import BatchedBody, Body
 
+# One torch thread per process: the suite runs a process per core, and
+# torch's own thread pool on top of that spends the cores spinning.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def dragon_pair():

@@ -6,21 +6,26 @@ matching with Jacobi iteration, ground/bounds collision with friction, grab
 constraints, barycentric surface skinning and batched bodies.  Plain torch
 runs on the CPU; on CUDA tensors a whole frame is one launch of a
 hand-written kernel (``kernels/csrc/gs_frame.cu``,
-``kernels/csrc/polar_frame.cu``), and a substep of a structured grid box
-(``World.add_grid_body``) two launches of ``kernels/csrc/polar_stencil.cu``
-or 50 of ``kernels/csrc/nh_stencil.cu``.  One large unstructured mesh
-(``ellipsoid_mesh``, a million tets) runs through the pieces engines, a
-substep two launches of ``kernels/csrc/polar_pieces.cu`` or one of
-``kernels/csrc/nh_pieces.cu`` between torch ops.  Eight bodies in the
-reference's exact constraint order (``add_body_batch(...,
-backend="fused_ordered")``) are one launch of ``kernels/csrc/gs_ordered.cu``
-per frame.  A grid box also runs in x-slabs (``parallel.SlabMesh``, one
-process driving every slab, several slabs to a card if need be) through
+``kernels/csrc/polar_frame.cu``).  A substep of a structured grid box
+(``World.add_grid_body``) is two launches of
+``kernels/csrc/polar_stencil.cu`` (K4); a Neo-Hookean frame of one is one
+cooperative launch of ``kernels/csrc/nh_stencil.cu`` (K3).  One large
+unstructured mesh (``ellipsoid_mesh``, a million tets) runs through the
+pieces engines: a polar substep is one launch of
+``kernels/csrc/polar_pieces.cu`` (K6) between torch ops, a Neo-Hookean
+frame one cooperative launch of ``kernels/csrc/nh_pieces.cu`` (K5) that
+carries the whole substep.  Eight bodies in the reference's exact
+constraint order (``add_body_batch(..., backend="fused_ordered")``) are
+one launch of ``kernels/csrc/gs_ordered.cu`` per frame.  A grid box also
+runs in x-slabs (``parallel.SlabMesh``, one process driving every slab,
+several slabs to a card if need be) through
 ``solvers.polar_grid.make_grid_sharded_step``,
 ``solvers.neohookean_grid.make_nh_sharded_step`` and their kernel forms in
-``kernels/polar_stencil.py`` and ``kernels/nh_stencil.py``; a body too
-large for one block's shared memory runs through
-``kernels/csrc/gs_levels.cu`` or ``kernels/csrc/polar_jacobi.cu``.
+``kernels/polar_stencil.py`` (K4a: two launches per substep and card,
+one host call per frame) and ``kernels/nh_stencil.py`` (K3s: one
+cooperative launch per frame and card); a body too large for one
+block's shared memory runs through ``kernels/csrc/gs_levels.cu`` (one
+launch per frame) or ``kernels/csrc/polar_jacobi.cu`` (two per substep).
 ``World.save`` / ``load`` write and read scene checkpoints in the JAX
 package's format, and ``python -m tetsim_torch.viewer.server``
 serves the browser viewer.  The entry points run on the card unless the

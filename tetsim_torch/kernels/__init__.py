@@ -5,7 +5,8 @@
   polar_stencil — the polar grid stencil substep (csrc/polar_stencil.cu)
   nh_stencil    — the Neo-Hookean 48-colour grid sweep (csrc/nh_stencil.cu)
   polar_pieces  — the polar solve on the pieces of one mesh (csrc/polar_pieces.cu)
-  nh_pieces     — the per-piece Neo-Hookean sweep (csrc/nh_pieces.cu)
+  nh_pieces     — the Neo-Hookean pieces frame: the per-piece sweep and the
+                  substep around it, one launch per frame (csrc/nh_pieces.cu)
   gs_ordered    — the exact-order Gauss-Seidel frame (csrc/gs_ordered.cu)
   gs_levels     — the Neo-Hookean frame of a body too large for one block,
                   one launch per frame on a thread-block cluster per body
@@ -14,7 +15,8 @@
                   launches per substep (csrc/polar_jacobi.cu)
 
 polar_stencil and nh_stencil also carry the grid boxes' x-slab forms (K4a,
-K3s), driven over a ``parallel.SlabMesh``.
+K4a: two launches per substep and card; K3s: one cooperative launch per
+frame and card), driven over a ``parallel.SlabMesh``.
 
 (``tetsim_torch/roofline.py`` wraps the extract_rotation micro-kernel,
 csrc/extract_rotation.cu.)

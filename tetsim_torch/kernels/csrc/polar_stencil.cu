@@ -68,21 +68,40 @@
 // epilogue=False), which stops a slab's substep after the accumulation and
 // returns the predicted positions, the new quaternions and the unapplied
 // numerator planes; make_grid_sharded_stepper completes the boundary
-// planes with a ppermute per neighbour and applies them.  Here the slabs
-// of one device run together (blockIdx.y over the slabs, each with its own
-// inv_mass and den rows), three launches per substep: pass A unchanged on
-// the slab's local dims; pass B split in two, B1 (polar_grid_acc_kernel:
-// predict and the inverse stencil into three numerator planes) and, after
-// the SlabMesh halo has added the neighbour's partial plane (two plane
-// adds per neighbour pair, one each way, of 3 * gy * gz * 4 = 38,988 B at
-// 56^3),
-// B2 (polar_grid_apply_kernel: apply over max(den, eps), collide, grab by
-// global id, prev and velocity).  The halo re-associates a shared plane's
-// sum (the left partial plus the right one, where K4 sums the slabs in
-// order), so K4a agrees with K4 to rounding, not bitwise.  What bounds it:
-// pass A as in K4, plus the numerator planes written and read once more
-// (about 5 MB per substep at 56^3) and, at 4 slabs, the halo's nine small
-// copies per substep (three snapshots and six adds).
+// planes with a ppermute per neighbour and applies them.
+//
+// Here a substep on the slabs of one device is two launches, as K4's: pass
+// A (polar_grid_tet_kernel over blockIdx.y = slab, the inverse masses a
+// row per slab) and one vertex pass (polar_slab_vertex_kernel) that takes
+// in what the first design did in three steps (B1: predict and the inverse
+// stencil into numerator planes; the SlabMesh halo adding each shared
+// plane's neighbour partial; B2: apply, collide, grab, velocity): a vertex
+// predicts itself and gathers its own slab's sums, as B1 did; a vertex on
+// plane 0 of slab i > 0 then adds the gather of slab i - 1's sums at its
+// mirror vertex on plane lx, and a vertex on plane lx the gather of slab
+// i + 1's sums at plane 0; then it applies, collides, grabs by global id
+// (x_offset0 + b * x_stride + v) and writes pos, prev and the velocity, as
+// B2 did.  The halo formed lo_i + hi_{i-1} on one replica and hi_{i-1} +
+// lo_i on the other; IEEE addition commutes, so both replicas get those
+// bits here too, from the sums, which the vertex pass only reads: no plane
+// copies, no predicted or numerator planes in device memory, the first
+// design's bits.  One host call enqueues a frame's launches on a device
+// (polar_stencil_slab_launch over phases [0, 2 S)).
+//
+// Where a mesh spans several devices, each device runs a range of the
+// frame's phases per call (polar_stencil.slab_calls): a call ends after
+// each pass A, the host copies the sums' boundary cube column across each
+// device cut into the neighbour's ghost sums (left_sums / right_sums,
+// [24, C] laid out as a slab's sums, only that column written), and the
+// next call's vertex pass gathers the mirror from there.  That pattern is
+// compiled and planned on the CPU but has not run on a card.
+//
+// What bounds it: pass A, as in K4 (the same kernel on the same cubes).
+// Measured on an H100 (PERF.md): a cooperative form that walked a whole
+// frame in one launch, both passes grid-stride with a grid barrier
+// between them, took 80 registers in its pass-A loop (4 blocks per SM
+// against this pass A's 6) and ran slower than this form at 1, 2 and 4
+// slabs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -239,6 +258,50 @@ polar_grid_tet_kernel(const float* __restrict__ pos,  // [B,3,N]
   }
 }
 
+// The end of a vertex's substep: from its predicted position p and its
+// completed numerator num, apply over max(den, eps) where im > 0, collide
+// (world bounds, then the ground with friction toward the substep's start
+// (px, py, pz)), apply the grabs (rows gid / gpos matched against the
+// particle id `id`; the last grab on it wins) and write pos, prev and the
+// velocity at v of the planes that start at `base`.
+__device__ __forceinline__ void finish_vertex(
+    const float p[3], const float num[3], float im, float den, float px,
+    float py, float pz, const int* gid, const float* gpos, int G, int id,
+    float* pos_out, float* prev_out, float* vel_out, size_t base, int N,
+    int v, const GridPolarParams& P) {
+  float x = p[0], y = p[1], z = p[2];
+  if (im > 0.0f) {
+    const float d = fmaxf(den, polar::kEps);
+    x = __fadd_rn(x, num[0] / d);
+    y = __fadd_rn(y, num[1] / d);
+    z = __fadd_rn(z, num[2] / d);
+  }
+  x = fminf(fmaxf(x, P.wmin[0]), P.wmax[0]);
+  y = fminf(fmaxf(y, P.wmin[1]), P.wmax[1]);
+  z = fminf(fmaxf(z, P.wmin[2]), P.wmax[2]);
+  if (y < 0.0f) {
+    y = 0.0f;
+    x = __fadd_rn(x, __fmul_rn(px - x, P.k_fric));
+    z = __fadd_rn(z, __fmul_rn(pz - z, P.k_fric));
+  }
+  for (int g = 0; g < G; ++g) {
+    if (gid[g] == id) {
+      x = gpos[3 * g];
+      y = gpos[3 * g + 1];
+      z = gpos[3 * g + 2];
+    }
+  }
+  prev_out[base + v] = px;
+  prev_out[base + N + v] = py;
+  prev_out[base + 2 * N + v] = pz;
+  pos_out[base + v] = x;
+  pos_out[base + N + v] = y;
+  pos_out[base + 2 * N + v] = z;
+  vel_out[base + v] = (x - px) / P.dt;
+  vel_out[base + N + v] = (y - py) / P.dt;
+  vel_out[base + 2 * N + v] = (z - pz) / P.dt;
+}
+
 __global__ void __launch_bounds__(kVertexThreads)
 polar_grid_vertex_kernel(const float* pos,        // [B,3,N] substep start
                          const float* vel,        // [B,3,N]
@@ -258,179 +321,109 @@ polar_grid_vertex_kernel(const float* pos,        // [B,3,N] substep start
   const int vi = v / (gy * gz), vj = (v / gz) % gy, vk = v % gz;
   const size_t base = (size_t)b * 3 * N;
   const float* bpos = pos + base;
-  float p[3];
+  float p[3], num[3];
   predict(bpos, vel + base, inv_mass, v, N, P, p);
-
-  float num[3];
   gather(sums + (size_t)b * 24 * C, vi, vj, vk, C, P, num);
-
-  float x = p[0], y = p[1], z = p[2];
-  if (inv_mass[v] > 0.0f) {
-    const float d = fmaxf(den[v], polar::kEps);
-    x = __fadd_rn(x, num[0] / d);
-    y = __fadd_rn(y, num[1] / d);
-    z = __fadd_rn(z, num[2] / d);
-  }
-  // collide: world bounds, then the ground with friction toward the
-  // substep's start position
-  const float px = bpos[v], py = bpos[N + v], pz = bpos[2 * N + v];
-  x = fminf(fmaxf(x, P.wmin[0]), P.wmax[0]);
-  y = fminf(fmaxf(y, P.wmin[1]), P.wmax[1]);
-  z = fminf(fmaxf(z, P.wmin[2]), P.wmax[2]);
-  if (y < 0.0f) {
-    y = 0.0f;
-    x = __fadd_rn(x, __fmul_rn(px - x, P.k_fric));
-    z = __fadd_rn(z, __fmul_rn(pz - z, P.k_fric));
-  }
-  for (int g = 0; g < G; ++g) {  // the last grab on v wins
-    if (grab_id[b * G + g] == v) {
-      x = grab_pos[(b * G + g) * 3];
-      y = grab_pos[(b * G + g) * 3 + 1];
-      z = grab_pos[(b * G + g) * 3 + 2];
-    }
-  }
-  prev_out[base + v] = px;
-  prev_out[base + N + v] = py;
-  prev_out[base + 2 * N + v] = pz;
-  pos_out[base + v] = x;
-  pos_out[base + N + v] = y;
-  pos_out[base + 2 * N + v] = z;
-  vel_out[base + v] = (x - px) / P.dt;
-  vel_out[base + N + v] = (y - py) / P.dt;
-  vel_out[base + 2 * N + v] = (z - pz) / P.dt;
+  finish_vertex(p, num, inv_mass[v], den[v], bpos[v], bpos[N + v],
+                bpos[2 * N + v], grab_id + (size_t)b * G,
+                grab_pos + (size_t)b * G * 3, G, v, pos_out, prev_out,
+                vel_out, base, N, v, P);
 }
 
-// K4a, pass B1 on the slabs of one device (blockIdx.y): a thread per
-// vertex writes its predicted position and its unapplied numerator, the
-// partial sum over the slab's own cubes (a shared plane gets the rest from
-// the neighbour's halo).
+// K4a's vertex pass on slab blockIdx.y of the k slabs of one device (the
+// K4a design note).  pos_out may be pos (a thread reads its vertex before
+// it writes it).
 __global__ void __launch_bounds__(kVertexThreads)
-polar_grid_acc_kernel(const float* __restrict__ pos,  // [B,3,N] substep start
-                      const float* __restrict__ vel,  // [B,3,N]
-                      float* __restrict__ pred_out,   // [B,3,N]
-                      float* __restrict__ acc_out,    // [B,3,N]
-                      const float* __restrict__ sums,      // [B,24,C]
-                      const float* __restrict__ inv_mass,  // [B,N]
-                      int N, int C, GridPolarParams P) {
+polar_slab_vertex_kernel(const float* pos,        // [k,3,N] substep start
+                         const float* vel,        // [k,3,N]
+                         float* pos_out,          // [k,3,N]
+                         float* __restrict__ prev_out,  // [k,3,N]
+                         float* vel_out,          // [k,3,N]
+                         const float* __restrict__ sums,        // [k,24,C]
+                         const float* __restrict__ left_sums,   // [24,C]
+                         const float* __restrict__ right_sums,  // [24,C]
+                         const float* __restrict__ inv_mass,  // [k,N]
+                         const float* __restrict__ den,       // [k,N]
+                         const int* __restrict__ grab_id,     // [G]
+                         const float* __restrict__ grab_pos,  // [G,3]
+                         int k, int G, int x_offset0, int x_stride,
+                         GridPolarParams P) {
+  const int gy = P.ny + 1, gz = P.nz + 1;
+  const int N = (P.nx + 1) * gy * gz, C = P.nx * P.ny * P.nz;
   const int b = blockIdx.y;
   const int v = blockIdx.x * kVertexThreads + threadIdx.x;
   if (v >= N) return;
-  const int gy = P.ny + 1, gz = P.nz + 1;
   const int vi = v / (gy * gz), vj = (v / gz) % gy, vk = v % gz;
-  const size_t base = (size_t)b * 3 * N;
+  const size_t base = (size_t)b * 3 * N, at = (size_t)b * N + v;
+  const size_t slab_sums = (size_t)24 * C;
   float p[3], num[3];
   predict(pos + base, vel + base, inv_mass + (size_t)b * N, v, N, P, p);
-  gather(sums + (size_t)b * 24 * C, vi, vj, vk, C, P, num);
-  for (int r = 0; r < 3; ++r) {
-    pred_out[base + (size_t)r * N + v] = p[r];
-    acc_out[base + (size_t)r * N + v] = num[r];
+  gather(sums + b * slab_sums, vi, vj, vk, C, P, num);
+  // the shared planes: the neighbour's partial at the mirror vertex
+  const float* peer = nullptr;
+  int mirror = 0;
+  if (vi == 0) {
+    peer = b > 0 ? sums + (b - 1) * slab_sums : left_sums;
+    mirror = P.nx;
+  } else if (vi == P.nx) {
+    peer = b + 1 < k ? sums + (b + 1) * slab_sums : right_sums;
   }
-}
-
-// K4a, pass B2, after the halo: a thread per vertex applies its completed
-// numerator over max(den, eps), collides, grabs by global particle id
-// (v + x_offset0 + b * x_stride) and sets prev and the velocity.
-__global__ void __launch_bounds__(kVertexThreads)
-polar_grid_apply_kernel(const float* pos,  // [B,3,N] substep start
-                        const float* __restrict__ pred,  // [B,3,N]
-                        const float* __restrict__ acc,   // [B,3,N]
-                        float* pos_out,                  // [B,3,N]
-                        float* __restrict__ prev_out,    // [B,3,N]
-                        float* __restrict__ vel_out,     // [B,3,N]
-                        const float* __restrict__ inv_mass,  // [B,N]
-                        const float* __restrict__ den,       // [B,N]
-                        const int* __restrict__ grab_id,     // [G]
-                        const float* __restrict__ grab_pos,  // [G,3]
-                        int N, int G, int x_offset0, int x_stride,
-                        GridPolarParams P) {
-  const int b = blockIdx.y;
-  const int v = blockIdx.x * kVertexThreads + threadIdx.x;
-  if (v >= N) return;
-  const size_t base = (size_t)b * 3 * N;
-  float x = pred[base + v], y = pred[base + N + v], z = pred[base + 2 * N + v];
-  const size_t at = (size_t)b * N + v;
-  if (inv_mass[at] > 0.0f) {
-    const float d = fmaxf(den[at], polar::kEps);
-    x = __fadd_rn(x, acc[base + v] / d);
-    y = __fadd_rn(y, acc[base + N + v] / d);
-    z = __fadd_rn(z, acc[base + 2 * N + v] / d);
+  if (peer != nullptr) {
+    float m[3];
+    gather(peer, mirror, vj, vk, C, P, m);
+    for (int r = 0; r < 3; ++r) num[r] = __fadd_rn(num[r], m[r]);
   }
-  const float px = pos[base + v], py = pos[base + N + v],
-              pz = pos[base + 2 * N + v];
-  x = fminf(fmaxf(x, P.wmin[0]), P.wmax[0]);
-  y = fminf(fmaxf(y, P.wmin[1]), P.wmax[1]);
-  z = fminf(fmaxf(z, P.wmin[2]), P.wmax[2]);
-  if (y < 0.0f) {
-    y = 0.0f;
-    x = __fadd_rn(x, __fmul_rn(px - x, P.k_fric));
-    z = __fadd_rn(z, __fmul_rn(pz - z, P.k_fric));
-  }
-  const int id = v + x_offset0 + b * x_stride;
-  for (int g = 0; g < G; ++g) {  // the last grab on v wins
-    if (grab_id[g] == id) {
-      x = grab_pos[3 * g];
-      y = grab_pos[3 * g + 1];
-      z = grab_pos[3 * g + 2];
-    }
-  }
-  prev_out[base + v] = px;
-  prev_out[base + N + v] = py;
-  prev_out[base + 2 * N + v] = pz;
-  pos_out[base + v] = x;
-  pos_out[base + N + v] = y;
-  pos_out[base + 2 * N + v] = z;
-  vel_out[base + v] = (x - px) / P.dt;
-  vel_out[base + N + v] = (y - py) / P.dt;
-  vel_out[base + 2 * N + v] = (z - pz) / P.dt;
+  finish_vertex(p, num, inv_mass[at], den[at], pos[base + v],
+                pos[base + N + v], pos[base + 2 * N + v], grab_id, grab_pos,
+                G, v + x_offset0 + b * x_stride, pos_out, prev_out, vel_out,
+                base, N, v, P);
 }
 
 }  // namespace
 
 extern "C" {
 
-int polar_stencil_slab_launches_per_substep() { return 3; }
+int polar_stencil_slab_launches_per_substep() { return 2; }
 
-// K4a, one substep's first part on B slabs of one device (P holds the
-// slab's local dims): pass A (tets -> quat_out, sums) and pass B1
-// (vertices -> pred, acc).  Returns the first launch error.
-int polar_stencil_slab_accumulate(const void* pos, const void* vel,
-                                  const void* quat_in, void* quat_out,
-                                  void* sums, void* pred, void* acc,
-                                  const void* inv_mass, int B,
-                                  GridPolarParams P, void* stream) {
+// Launches phases [begin, end) of a frame of S substeps (0 and 2 S for a
+// whole frame) on the k slabs of one device on `stream`: phase 2s is pass
+// A of substep s, 2s + 1 its vertex pass, one kernel each.  P holds a
+// slab's local dims; pos_in, vel_in and quat_in are read by substep 0
+// only; left_sums / right_sums may be null.  Returns the first launch
+// error (0 = every kernel launched).
+int polar_stencil_slab_launch(const void* pos_in, const void* vel_in,
+                              const void* quat_in, void* pos_out,
+                              void* prev_out, void* vel_out, void* quat_out,
+                              void* sums, const void* left_sums,
+                              const void* right_sums, const void* inv_mass,
+                              const void* den, const void* grab_id,
+                              const void* grab_pos, int k, int G,
+                              int x_offset0, int x_stride, int begin, int end,
+                              GridPolarParams P, void* stream) {
   const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
   const int C = P.nx * P.ny * P.nz;
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 tets((C + kStrip - 1) / kStrip, B);
-  const dim3 verts((N + kVertexThreads - 1) / kVertexThreads, B);
-  polar_grid_tet_kernel<<<tets, kTetThreads, 0, st>>>(
-      (const float*)pos, (const float*)vel, (const float*)quat_in,
-      (float*)quat_out, (float*)sums, (const float*)inv_mass, N, N, C, P);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  polar_grid_acc_kernel<<<verts, kVertexThreads, 0, st>>>(
-      (const float*)pos, (const float*)vel, (float*)pred, (float*)acc,
-      (const float*)sums, (const float*)inv_mass, N, C, P);
-  return (int)cudaGetLastError();
-}
-
-// K4a, the substep's last part after the halo: pass B2.  pos_out may be
-// pos (a thread reads its vertex before it writes it).
-int polar_stencil_slab_apply(const void* pos, const void* pred,
-                             const void* acc, void* pos_out, void* prev_out,
-                             void* vel_out, const void* inv_mass,
-                             const void* den, const void* grab_id,
-                             const void* grab_pos, int B, int G,
-                             int x_offset0, int x_stride, GridPolarParams P,
-                             void* stream) {
-  const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
-  const dim3 verts((N + kVertexThreads - 1) / kVertexThreads, B);
-  polar_grid_apply_kernel<<<verts, kVertexThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)pos, (const float*)pred, (const float*)acc,
-      (float*)pos_out, (float*)prev_out, (float*)vel_out,
-      (const float*)inv_mass, (const float*)den, (const int*)grab_id,
-      (const float*)grab_pos, N, G, x_offset0, x_stride, P);
-  return (int)cudaGetLastError();
+  const dim3 tets((C + kStrip - 1) / kStrip, k);
+  const dim3 verts((N + kVertexThreads - 1) / kVertexThreads, k);
+  for (int u = begin; u < end; ++u) {
+    const bool first = u < 2;
+    const float* pos = (const float*)(first ? pos_in : pos_out);
+    const float* vel = (const float*)(first ? vel_in : vel_out);
+    if ((u & 1) == 0)
+      polar_grid_tet_kernel<<<tets, kTetThreads, 0, st>>>(
+          pos, vel, (const float*)(first ? quat_in : quat_out),
+          (float*)quat_out, (float*)sums, (const float*)inv_mass, N, N, C, P);
+    else
+      polar_slab_vertex_kernel<<<verts, kVertexThreads, 0, st>>>(
+          pos, vel, (float*)pos_out, (float*)prev_out, (float*)vel_out,
+          (const float*)sums, (const float*)left_sums,
+          (const float*)right_sums, (const float*)inv_mass,
+          (const float*)den, (const int*)grab_id, (const float*)grab_pos, k,
+          G, x_offset0, x_stride, P);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 int polar_stencil_launches_per_substep() { return 2; }

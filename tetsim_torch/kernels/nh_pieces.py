@@ -13,11 +13,14 @@ per-piece deltas (``_complete_boundary``; a sum double-corrects and
 explodes within about 10 substeps).  Every other phase is elementwise, so
 a particle's instances stay bitwise equal.
 
-``nh_pieces_solve`` runs the per-piece sweep: on CUDA tensors it launches
-the kernel of ``csrc/nh_pieces.cu`` once per substep, on CPU tensors it
-runs ``nh_pieces_solve_reference``, the same sweep in plain torch on
-``solvers/neohookean.solve_tet_batch``.  The rest of the substep is torch
-ops on either device.  ``launch_count`` counts the kernel launches.
+``nh_pieces_frame`` runs a whole frame: on CUDA tensors it launches the
+kernel of ``csrc/nh_pieces.cu`` once, a cooperative launch whose blocks
+sweep the pieces and whose threads then complete, collide, grab and set
+the velocity of every lane, a grid barrier between the two phases of each
+substep; on CPU tensors it runs ``nh_pieces_frame_reference``, the
+substep loop in plain torch with the sweep ``nh_pieces_solve_reference``
+on ``solvers/neohookean.solve_tet_batch``.  ``launch_count`` counts the
+kernel launches.
 """
 from __future__ import annotations
 
@@ -32,14 +35,14 @@ from ..params import PhysicsParams
 from ..state import SimState, Controls
 from ..solvers import common, neohookean
 from . import build
-from .batch import SMEM_LIMIT, expect
+from .batch import SMEM_LIMIT, cached_params, expect
 from .polar_pieces import (_rcm_particle_order, _round_up, band_locals,
                            collide_planes, completion_tables, grab_planes,
                            owned, partner_tables, predict_planes, rcb_partition,
                            to_device, to_local, velocity_planes)
 
 CW = 128  # tets per sub-level, the kernel's threads per block
-LAUNCHES_PER_SUBSTEP = 1
+LAUNCHES_PER_FRAME = 1  # as nh_pieces_launches_per_frame()
 
 launch_count = 0  # kernel launches since import (or reset)
 
@@ -231,7 +234,7 @@ def build_nh_pieces_arrays(mesh: TetMesh, density: float = 1000.0,
     )
 
 
-# -- the per-piece sweep: kernel and plain twin ---------------------------------
+# -- the frame kernel and its plain twin ----------------------------------------
 
 
 def smem_bytes(rp: int) -> int:
@@ -243,85 +246,171 @@ def frame_flops(arr: NHPiecesArrays, params: PhysicsParams) -> int:
     """Floating-point operations of the sweep in one frame, counted as for
     ``gs_fused.frame_flops`` (the projection is the same, without its
     vol_err sum): 420 per tet and substep.  Padded slots (half of ``cons``
-    at 987,090 tets) carry no work and are not counted; the torch phases
-    around the sweep are not counted."""
+    at 987,090 tets) carry no work and are not counted, nor are the lane
+    phase's few operations per lane."""
     return params.num_substeps * 420 * arr.num_tets
 
 
 def frame_bytes(arr: NHPiecesArrays, params: PhysicsParams) -> int:
-    """Bytes the sweep must move in one frame: each substep reads the three
-    position planes and the live counts and writes three planes, and per
-    tet reads its 4 corner lanes and 14 constants (72 bytes; padded slots
-    are not read)."""
-    planes = 6 * 4 * arr.B * arr.rp
-    counts = 4 * arr.l_max * arr.B
-    return params.num_substeps * (planes + counts + 72 * arr.num_tets)
+    """Bytes a frame must move, per substep: the six state planes read and
+    written once, movw, pid and lane_bnd read once (15 planes of B*rp
+    floats), the live counts, per live tet its 4 corner lanes and 14
+    constants (72 bytes; padded slots are not read), pidx and is2 over the
+    J=2 band (5 bytes a lane), the partner's swept and predicted position
+    for each J=2 lane (24 bytes), and for each lane of a boundary row its
+    count (4 bytes) and, per instance of the row, the instance index and
+    its six planes (28 bytes).  The frame kernel moves 15 planes more than
+    this (``design_bytes``)."""
+    lanes = arr.B * arr.rp
+    tier = arr.lane_bnd >= 0
+    count = arr.bnd_count[arr.lane_bnd[tier].long()]
+    pairs = int(arr.is2.sum())
+    per_substep = (4 * 15 * lanes + 4 * arr.l_max * arr.B
+                   + 72 * arr.num_tets + 5 * arr.B * arr.r2 + 24 * pairs
+                   + 4 * int(tier.sum()) + 28 * int(count.sum()))
+    return params.num_substeps * per_substep
+
+
+def design_bytes(arr: NHPiecesArrays, params: PhysicsParams) -> int:
+    """Bytes the frame kernel moves on top of ``frame_bytes``, per
+    substep: the piece phase writes the predicted and swept planes to the
+    scratch and the lane phase reads its lane's back (12 planes of B*rp
+    floats), and the lane phase reads the substep's start positions a
+    second time (3 planes)."""
+    return params.num_substeps * 4 * 15 * arr.B * arr.rp
 
 
 class _NHPiecesParams(ctypes.Structure):
-    _fields_ = [("dev_scale", ctypes.c_float), ("vol_scale", ctypes.c_float),
+    _fields_ = [("dt", ctypes.c_float), ("gdt", ctypes.c_float),
+                ("k_fric", ctypes.c_float),
+                ("wmin", ctypes.c_float * 3), ("wmax", ctypes.c_float * 3),
+                ("dev_scale", ctypes.c_float), ("vol_scale", ctypes.c_float),
                 ("gamma", ctypes.c_float)]
 
 
-def _sweep_params(params: PhysicsParams) -> _NHPiecesParams:
-    """compliance / dt^2 and gamma in f32, with the plain path's operation
-    order."""
+class _NHPiecesInputs(ctypes.Structure):
+    _fields_ = [("p", ctypes.c_void_p * 6)]
+
+
+def _frame_params(params: PhysicsParams) -> _NHPiecesParams:
+    """The frame's scalars in f32, with the plain path's operation order."""
     dt = params.dt
     dt2 = dt * dt
-    return _NHPiecesParams(params.dev_compliance / dt2,
-                           params.vol_compliance / dt2, params.gamma)
+    return _NHPiecesParams(
+        dt, params.gravity * dt,
+        np.minimum(np.float32(1.0), dt * params.friction),
+        (ctypes.c_float * 3)(*params.world_min),
+        (ctypes.c_float * 3)(*params.world_max),
+        params.dev_compliance / dt2, params.vol_compliance / dt2,
+        params.gamma)
 
 
 def library() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its arguments
     declared."""
     lib = build.load("nh_pieces")
-    if lib.nh_pieces_launch.argtypes is None:
-        lib.nh_pieces_launch.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+    if lib.nh_pieces_frame_launch.argtypes is None:
+        lib.nh_pieces_frame_launch.argtypes = (
+            [_NHPiecesInputs] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
             + [_NHPiecesParams, ctypes.c_void_p])
-        lib.nh_pieces_launch.restype = ctypes.c_int
+        lib.nh_pieces_frame_launch.restype = ctypes.c_int
+        lib.nh_pieces_occupancy.argtypes = (
+            [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2)
+        lib.nh_pieces_occupancy.restype = ctypes.c_int
         lib.nh_pieces_error_string.argtypes = [ctypes.c_int]
         lib.nh_pieces_error_string.restype = ctypes.c_char_p
         lib.nh_pieces_slots.restype = ctypes.c_int
-        if lib.nh_pieces_slots() != CW:
-            raise RuntimeError("csrc/nh_pieces.cu kSlots != nh_pieces.CW")
+        lib.nh_pieces_launches_per_frame.restype = ctypes.c_int
+        if (lib.nh_pieces_slots() != CW
+                or lib.nh_pieces_launches_per_frame() != LAUNCHES_PER_FRAME):
+            raise RuntimeError("csrc/nh_pieces.cu kSlots or launches per "
+                               "frame != nh_pieces.CW / LAUNCHES_PER_FRAME")
     return lib
 
 
-def _nh_pieces_solve_cuda(px, py, pz, arr: NHPiecesArrays,
-                          params: PhysicsParams):
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"nh_pieces {what} failed: "
+                           f"{lib.nh_pieces_error_string(err).decode()}")
+
+
+def frame_grid(device, rp: int) -> int:
+    """Blocks of the frame kernel's cooperative grid on ``device`` for
+    pieces of ``rp`` lanes: every block the SMs hold at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the piece's shared
+    memory), asked once per device and rp.  Raises where an SM holds
+    none."""
+    lib = library()
+    known = lib.__dict__.setdefault("grids", {})
+    if (device.index, rp) not in known:
+        per_sm, sms = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(device):
+            _check(lib, lib.nh_pieces_occupancy(rp, ctypes.byref(per_sm),
+                                                ctypes.byref(sms)),
+                   "occupancy query")
+        if per_sm.value < 1:
+            raise RuntimeError(f"an SM of {device} holds no block of the "
+                               f"nh_pieces frame kernel at rp={rp}")
+        known[device.index, rp] = per_sm.value * sms.value
+    return known[device.index, rp]
+
+
+def _frame_cuda(packed, arr: NHPiecesArrays, params: PhysicsParams, gid,
+                gpos):
     global launch_count
-    dev = px.device
+    dev = packed[0].device
     if dev.type != "cuda":
         raise ValueError(f"the NH pieces kernel runs on CUDA, not {dev}")
-    B, rp, L = arr.B, arr.rp, arr.l_max
+    S = params.num_substeps
+    if S < 1:
+        raise ValueError(f"num_substeps must be at least 1, got {S}")
+    B, rp, L, r2 = arr.B, arr.rp, arr.l_max, arr.r2
     if smem_bytes(rp) > SMEM_LIMIT:
         raise ValueError(
             f"the NH pieces kernel keeps a piece's planes in shared memory: "
             f"rp={rp} lanes need {smem_bytes(rp)} bytes, a Hopper block has "
             f"{SMEM_LIMIT}; build with a smaller tets_per_piece")
+    if 6 * B * rp >= 2**31:
+        raise ValueError(f"{B} pieces of {rp} lanes overflow the kernel's "
+                         "indices")
     f32, i32 = torch.float32, torch.int32
-    for name, plane in (("px", px), ("py", py), ("pz", pz)):
+    for name, plane in zip(("lx", "ly", "lz", "vx", "vy", "vz"), packed):
         expect(plane, name, f32, (B, rp), dev)
     expect(arr.lids, "lids", i32, (L, B, 4 * CW), dev)
     expect(arr.cons, "cons", f32, (L, B, 14, CW), dev)
     expect(arr.n_live, "n_live", i32, (L, B), dev)
+    expect(arr.movw_l, "movw_l", f32, (B, rp), dev)
+    expect(arr.pid_l, "pid_l", i32, (B, rp), dev)
+    expect(arr.pidx, "pidx", i32, (B, r2), dev)
+    expect(arr.is2, "is2", torch.bool, (B, r2), dev)
+    expect(arr.lane_bnd, "lane_bnd", i32, (B * rp,), dev)
+    sb = arr.bnd_inst.shape[1]
+    expect(arr.bnd_inst, "bnd_inst", i32, (arr.bnd_inst.shape[0], sb), dev)
+    expect(arr.bnd_count, "bnd_count", f32, (sb,), dev)
+    G = gid.shape[0]
+    gid, gpos = gid.to(dev, i32).contiguous(), gpos.to(dev, f32).contiguous()
+    expect(gpos, "gpos", f32, (G, 3), dev)
 
     lib = library()
-    out = torch.empty((3, B, rp), dtype=f32, device=dev)
+    grid = frame_grid(dev, rp)
+    out = torch.empty((6, B, rp), dtype=f32, device=dev)
+    scratch = torch.empty((6, B, rp), dtype=f32, device=dev)
+    inputs = _NHPiecesInputs((ctypes.c_void_p * 6)(
+        *(p.data_ptr() for p in packed)))
     with torch.cuda.device(dev):  # the launch goes to the current device
-        err = lib.nh_pieces_launch(
-            px.data_ptr(), py.data_ptr(), pz.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), arr.lids.data_ptr(),
-            arr.cons.data_ptr(), arr.n_live.data_ptr(), B, rp, L,
-            _sweep_params(params), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError("nh_pieces launch failed: "
-                           f"{lib.nh_pieces_error_string(err).decode()}")
-    launch_count += LAUNCHES_PER_SUBSTEP
-    return out[0], out[1], out[2]
+        err = lib.nh_pieces_frame_launch(
+            inputs, out.data_ptr(), scratch.data_ptr(), arr.lids.data_ptr(),
+            arr.cons.data_ptr(), arr.n_live.data_ptr(),
+            arr.movw_l.data_ptr(), arr.pid_l.data_ptr(),
+            arr.pidx.data_ptr() if r2 else None,
+            arr.is2.data_ptr() if r2 else None, arr.lane_bnd.data_ptr(),
+            arr.bnd_inst.data_ptr(), arr.bnd_count.data_ptr(),
+            gid.data_ptr(), gpos.data_ptr(), B, rp, L, r2, sb, G, S, grid,
+            cached_params(params, _frame_params),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, err, f"cooperative launch of {grid} blocks")
+    launch_count += LAUNCHES_PER_FRAME
+    return tuple(out.unbind(0))
 
 
 def nh_pieces_solve_reference(px, py, pz, arr: NHPiecesArrays,
@@ -348,15 +437,6 @@ def nh_pieces_solve_reference(px, py, pz, arr: NHPiecesArrays,
         dst = torch.where(live, ids.long(), rp)[..., None].expand(-1, -1, 3)
         pos.scatter_(1, dst, new)  # a sub-level's live lanes are distinct
     return tuple(pos[:, :rp, i].contiguous() for i in range(3))
-
-
-def nh_pieces_solve(px, py, pz, arr: NHPiecesArrays, params: PhysicsParams):
-    """The per-piece sweep (see ``nh_pieces_solve_reference``).  CPU tensors
-    take the plain path; any other device launches the CUDA kernel or
-    raises."""
-    if px.device.type == "cpu":
-        return nh_pieces_solve_reference(px, py, pz, arr, params)
-    return _nh_pieces_solve_cuda(px, py, pz, arr, params)
 
 
 # -- the substep on piece planes ------------------------------------------------
@@ -413,11 +493,34 @@ def _substep_local(carry, arr: NHPiecesArrays, params: PhysicsParams, dt,
             velocity_planes(ly, ply, dt), velocity_planes(lz, plz, dt))
 
 
-def make_nh_pieces_stepper(arr: NHPiecesArrays, solve=nh_pieces_solve):
+def nh_pieces_frame_reference(packed, arr: NHPiecesArrays,
+                              params: PhysicsParams, gid, gpos):
+    """A frame in plain torch on the packed planes (lx, ly, lz, vx, vy, vz)
+    [B, rp]: num_substeps substeps of predict, the sweep
+    (``nh_pieces_solve_reference``), the completion across pieces
+    (``_complete_boundary``), collide, grab and velocity."""
+    for _ in range(params.num_substeps):
+        packed = _substep_local(packed, arr, params, params.dt, gid, gpos,
+                                nh_pieces_solve_reference)
+    return packed
+
+
+def nh_pieces_frame(packed, arr: NHPiecesArrays, params: PhysicsParams, gid,
+                    gpos):
+    """A frame on the packed planes (see ``nh_pieces_frame_reference``);
+    gid int32 [G], gpos [G, 3].  CPU tensors take the plain path; any other
+    device launches the CUDA kernel or raises."""
+    if packed[0].device.type == "cpu":
+        return nh_pieces_frame_reference(packed, arr, params, gid, gpos)
+    return _frame_cuda(packed, arr, params, gid, gpos)
+
+
+def make_nh_pieces_stepper(arr: NHPiecesArrays, frame=nh_pieces_frame):
     """(pack, step, unpack, unpack_pos) over state in piece planes, as
     ``polar_pieces.make_pieces_stepper``; the packed state is (lx, ly, lz,
-    vx, vy, vz) and ``unpack`` gives identity quaternions.  ``solve`` is the
-    sweep to run (``nh_pieces_solve_reference`` gives the plain twin)."""
+    vx, vy, vz) and ``unpack`` gives identity quaternions.  ``frame`` is the
+    frame to run (``nh_pieces_frame_reference`` gives the plain twin on any
+    device)."""
 
     def pack(state: SimState, params: PhysicsParams):
         del params
@@ -426,10 +529,7 @@ def make_nh_pieces_stepper(arr: NHPiecesArrays, solve=nh_pieces_solve):
 
     def step(packed, params: PhysicsParams, controls: Controls):
         gid, gpos = common.norm_grabs(controls)
-        for _ in range(params.num_substeps):
-            packed = _substep_local(packed, arr, params, params.dt, gid, gpos,
-                                    solve)
-        return packed
+        return frame(packed, arr, params, gid, gpos)
 
     def unpack_pos(packed):
         return torch.stack([owned(packed[i], arr) for i in range(3)], dim=-1)
@@ -448,7 +548,7 @@ def make_nh_pieces_stepper(arr: NHPiecesArrays, solve=nh_pieces_solve):
 def step_frame(state: SimState, arr: NHPiecesArrays, params: PhysicsParams,
                controls: Controls):
     """One frame = num_substeps substeps (engine API; converts SimState to
-    piece planes and back).  The sweep computes no volume error, so the
+    piece planes and back).  The kernel computes no volume error, so the
     per-substep diagnostic is NaN."""
     pack, step, unpack, _ = make_nh_pieces_stepper(arr)
     new = unpack(step(pack(state, params), params, controls), params)

@@ -21,11 +21,18 @@ The state is kept in the kernel's layout: planes pos / prev / vel
 like ``SimState.quats``).  ``make_frame_stepper`` keeps a body in that
 layout across frames; ``step_frame`` converts a SimState each frame and
 reports NaN as its per-substep diagnostic, as K4 does.
+
+``make_grid_sharded_stepper`` runs the box in x-slabs (K4a): pass A and
+one vertex pass per substep on each device, the vertex pass completing
+each shared plane from the neighbour slab's sums
+(``folded_gather_reference`` writes that order out in plain torch);
+``acc_launch_count`` counts its launches.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -34,16 +41,17 @@ from ..params import PhysicsParams
 from ..state import SimState, Controls
 from ..solvers import common, polar_grid
 from ..solvers.polar_grid import GridArrays
-from ..parallel.slabs import device_groups, plane, ungroup
+from ..parallel.slabs import device_groups, ungroup
 from . import build
-from .batch import expect
+from .batch import cached_params, expect
 
 LAUNCHES_PER_SUBSTEP = 2  # as polar_stencil_launches_per_substep()
 STRIP = 32  # cubes per block of pass A, as polar_stencil_strip()
 NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # kernel launches since import (or reset)
-SLAB_LAUNCHES_PER_SUBSTEP = 3  # as polar_stencil_slab_launches_per_substep()
+SLAB_LAUNCHES_PER_SUBSTEP = 2  # K4a per device, as
+#                                 polar_stencil_slab_launches_per_substep()
 acc_launch_count = 0  # launches of the slab form (K4a) since import (or reset)
 
 
@@ -130,14 +138,10 @@ def library() -> ctypes.CDLL:
         if lib.polar_stencil_launches_per_substep() != LAUNCHES_PER_SUBSTEP:
             raise RuntimeError("csrc/polar_stencil.cu launches per substep != "
                                "polar_stencil.LAUNCHES_PER_SUBSTEP")
-        lib.polar_stencil_slab_accumulate.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int]
+        lib.polar_stencil_slab_launch.argtypes = (
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
             + [_GridPolarParams, ctypes.c_void_p])
-        lib.polar_stencil_slab_accumulate.restype = ctypes.c_int
-        lib.polar_stencil_slab_apply.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-            + [_GridPolarParams, ctypes.c_void_p])
-        lib.polar_stencil_slab_apply.restype = ctypes.c_int
+        lib.polar_stencil_slab_launch.restype = ctypes.c_int
         lib.polar_stencil_slab_launches_per_substep.restype = ctypes.c_int
         if (lib.polar_stencil_slab_launches_per_substep()
                 != SLAB_LAUNCHES_PER_SUBSTEP):
@@ -298,16 +302,14 @@ def slab_sums_reference(deltas, corner_slab):
     return out
 
 
-def gather24_reference(sums, dims):
-    """Pass B's numerators [B, 3, N] from the slab sums [B, 24, C], by the
-    kernel's index arithmetic: vertex v = (i*gy + j)*gz + k adds, in slab
-    order s = 0..7 from 0, the sums of slab s of cube (i - dx, j - dy,
-    k - dz), s = 4 dx + 2 dy + dz, where that cube exists."""
+def gather_reference(sums, dims, vi, vj, vk):
+    """Pass B's numerators [B, 3, V] at the vertices (vi, vj, vk) (int64
+    tensors [V]) from the slab sums [B, 24, C], by the kernel's index
+    arithmetic (``gather``): each adds, in slab order s = 0..7 from 0, the
+    sums of slab s of cube (vi - dx, vj - dy, vk - dz), s = 4 dx + 2 dy +
+    dz, where that cube exists."""
     nx, ny, nz = dims
-    gy, gz = ny + 1, nz + 1
-    v = torch.arange((nx + 1) * gy * gz, device=sums.device)
-    vi, vj, vk = v // (gy * gz), (v // gz) % gy, v % gz
-    num = sums.new_zeros((sums.shape[0], 3, v.numel()))
+    num = sums.new_zeros((sums.shape[0], 3, vi.numel()))
     for s, (dx, dy, dz) in enumerate(polar_grid.SLAB_OFFSETS):
         ci, cj, ck = vi - dx, vj - dy, vk - dz
         ok = ((ci >= 0) & (ci < nx) & (cj >= 0) & (cj < ny) & (ck >= 0)
@@ -319,7 +321,57 @@ def gather24_reference(sums, dims):
     return num
 
 
+def _vertices(dims, device):
+    nx, ny, nz = dims
+    gy, gz = ny + 1, nz + 1
+    v = torch.arange((nx + 1) * gy * gz, device=device)
+    return v // (gy * gz), (v // gz) % gy, v % gz
+
+
+def gather24_reference(sums, dims):
+    """Pass B's numerators [B, 3, N] from the slab sums [B, 24, C] at every
+    vertex v = (i*gy + j)*gz + k of the box (``gather_reference``)."""
+    return gather_reference(sums, dims, *_vertices(dims, sums.device))
+
+
+def folded_gather_reference(sums, dims):
+    """K4a's pass B numerators [k, 3, N] of k consecutive slabs from their
+    sums [k, 24, C] (``dims`` a slab's local dims), by the kernel's order:
+    each vertex gathers its own slab's sums; a vertex (0, j, k) of slab b >
+    0 then adds the gather of slab b - 1's sums at its mirror vertex (lx, j,
+    k), and a vertex (lx, j, k) of slab b + 1 < k the gather of slab b + 1's
+    sums at (0, j, k)."""
+    vi, vj, vk = _vertices(dims, sums.device)
+    lx = dims[0]
+    num = gather_reference(sums, dims, vi, vj, vk)
+    for plane, mirror, peer in ((0, lx, slice(None, -1)),
+                                (lx, 0, slice(1, None))):
+        at = vi == plane
+        m = gather_reference(sums[peer], dims, torch.full_like(vi[at], mirror),
+                             vj[at], vk[at])
+        own = slice(1, None) if plane == 0 else slice(None, -1)
+        num[own, :, at] = num[own, :, at] + m
+    return num
+
+
 # -- the slab form (K4a) ---------------------------------------------------------
+
+
+def slab_calls(num_substeps: int, one_device: bool) -> list:
+    """K4a's host calls of one frame on each device, as (begin, end,
+    exchange): each launches phases [begin, end) of the frame's 2 S phases,
+    a kernel each (pass A of substep s is phase 2s, its vertex pass 2s +
+    1).  Where the mesh's slabs lie on one device, one call runs the whole
+    frame.  Else a call ends after each pass A with exchange "halo": the
+    host copies the boundary cube column of the sums across each device cut
+    before the vertex pass that gathers it; None after the frame's last
+    call."""
+    total = 2 * num_substeps
+    if one_device:
+        return [(0, total, None)]
+    bounds = [0] + list(range(1, total, 2)) + [total]
+    return [(begin, end, None if end == total else "halo")
+            for begin, end in zip(bounds, bounds[1:])]
 
 
 def make_grid_sharded_stepper(mesh, garr: GridArrays, axis: str = "x"):
@@ -330,11 +382,14 @@ def make_grid_sharded_stepper(mesh, garr: GridArrays, axis: str = "x"):
     step(packed, params, controls) -> packed  (num_substeps substeps)
     unprepare(packed, params)      -> SimState
 
-    On CUDA slabs a substep is, per device, pass A and pass B1 of
-    ``csrc/polar_stencil.cu`` over that device's slabs, then the halo
-    (``SlabMesh`` adds of the numerators' boundary planes), then pass B2;
-    on CPU slabs it is ``polar_grid.make_grid_sharded_step``, the plain
-    ``_substep`` with the halo hook."""
+    On CUDA slabs a substep is two launches of K4a per device
+    (``csrc/polar_stencil.cu``), pass A and a vertex pass that completes
+    each shared plane from the neighbour slab's sums, a frame's launches
+    enqueued by one host call; over several devices, the sums' boundary
+    columns are copied across the device cuts between the two
+    (``slab_calls``).  On CPU slabs it is
+    ``polar_grid.make_grid_sharded_step``, the plain ``_substep`` with the
+    halo hook (``SlabMesh.add_halo``), whose bits K4a keeps."""
     del axis
     d = mesh.size
     lx = polar_grid.slab_width(garr.dims, d)
@@ -346,10 +401,13 @@ def make_grid_sharded_stepper(mesh, garr: GridArrays, axis: str = "x"):
         del params
         return polar_grid.grid_prepare(state, garr, mesh)[0]
 
+    struct = functools.partial(_grid_params, local)  # made once per params
+
     def step(packed, params: PhysicsParams, controls: Controls):
         if all(p.device.type == "cpu" for p in packed.pos):
             return twin(packed, slab_arr, params, controls)[0]
-        return _slab_frame_cuda(packed, slab_arr, mesh, local, params,
+        return _slab_frame_cuda(packed, slab_arr, mesh, local,
+                                cached_params(params, struct), params,
                                 controls)
 
     def unprepare(packed, params: PhysicsParams) -> SimState:
@@ -360,13 +418,13 @@ def make_grid_sharded_stepper(mesh, garr: GridArrays, axis: str = "x"):
 
 
 def _slab_frame_cuda(packed, slab_arr, mesh, local: GridArrays,
-                     params: PhysicsParams, controls: Controls):
+                     par: _GridPolarParams, params: PhysicsParams,
+                     controls: Controls):
     global acc_launch_count
     S = params.num_substeps
     if S < 1:
         raise ValueError(f"num_substeps must be at least 1, got {S}")
     lib = library()
-    par = _grid_params(local, params)
     lx, ny, nz = local.dims
     n, c = local.num_particles, local.num_tets // 6
     gyz = (ny + 1) * (nz + 1)
@@ -375,52 +433,61 @@ def _slab_frame_cuda(packed, slab_arr, mesh, local: GridArrays,
     groups = device_groups(mesh, pos=packed.pos, vel=packed.vel,
                            quats=packed.quats, im=slab_arr.inv_mass,
                            den=slab_arr.den)
+    many = len(groups) > 1
     for g in groups:
         k, dev = g["k"], g["dev"]
+        if 24 * k * c >= 2**31:
+            raise ValueError(f"{k} slabs of {c} cubes overflow K4a's indices")
         for name, shape in (("pos", (k, 3, n)), ("vel", (k, 3, n)),
                             ("quats", (k, 24, c)), ("im", (k, n)),
                             ("den", (k, n))):
             expect(g[name], name, f32, shape, dev)
-        g.update(gid=gid.to(dev).contiguous(), gpos=gpos.to(dev).contiguous(),
+        g.update(gid=gid.to(dev, torch.int32).contiguous(),
+                 gpos=gpos.to(dev, f32).contiguous(),
                  pos_out=torch.empty_like(g["pos"]),
                  prev_out=torch.empty_like(g["pos"]),
                  vel_out=torch.empty_like(g["pos"]),
                  quat_out=torch.empty_like(g["quats"]),
                  sums=scratch(k, c, dev),
-                 pred=torch.empty_like(g["pos"]),
-                 acc=torch.empty_like(g["pos"]))
-    acc = [a for g in groups for a in ungroup(g["acc"])]
-    lo = [plane(a, 0, gyz) for a in acc]
-    hi = [plane(a, lx, gyz) for a in acc]
-
-    def check(err):
-        if err != 0:
-            raise RuntimeError("polar_stencil slab launch failed: "
-                               f"{lib.polar_stencil_error_string(err).decode()}")
-
-    for s in range(S):
-        src = ("pos", "vel", "quats") if s == 0 else ("pos_out", "vel_out",
-                                                     "quat_out")
+                 left=scratch(1, c, dev)[0] if many and g["first"] else None,
+                 right=(scratch(1, c, dev)[0]
+                        if many and g["first"] + k < mesh.size else None))
+    calls = slab_calls(S, not many)
+    if many:  # the sums' boundary columns across the device cuts
+        cuts = mesh.device_cuts()
+        col = [slice((lx - 1) * ny * nz, lx * ny * nz), slice(0, ny * nz)]
+        sums = [x for g in groups for x in ungroup(g["sums"])]
+        ghost_lo, ghost_hi = [None] * mesh.size, [None] * mesh.size
+        for g in groups:
+            if g["left"] is not None:
+                ghost_lo[g["first"]] = g["left"][:, col[0]]
+            if g["right"] is not None:
+                ghost_hi[g["first"] + g["k"] - 1] = g["right"][:, col[1]]
+        hi_col = [x[:, col[0]] for x in sums]
+        lo_col = [x[:, col[1]] for x in sums]
+    for begin, end, exchange in calls:
         for g in groups:
             with torch.cuda.device(g["dev"]):
-                check(lib.polar_stencil_slab_accumulate(
-                    g[src[0]].data_ptr(), g[src[1]].data_ptr(),
-                    g[src[2]].data_ptr(), g["quat_out"].data_ptr(),
-                    g["sums"].data_ptr(), g["pred"].data_ptr(),
-                    g["acc"].data_ptr(), g["im"].data_ptr(), g["k"], par,
-                    g["stream"]))
-        mesh.add_halo(lo, hi)
-        for g in groups:
-            with torch.cuda.device(g["dev"]):
-                check(lib.polar_stencil_slab_apply(
-                    g[src[0]].data_ptr(), g["pred"].data_ptr(),
-                    g["acc"].data_ptr(), g["pos_out"].data_ptr(),
+                err = lib.polar_stencil_slab_launch(
+                    g["pos"].data_ptr(), g["vel"].data_ptr(),
+                    g["quats"].data_ptr(), g["pos_out"].data_ptr(),
                     g["prev_out"].data_ptr(), g["vel_out"].data_ptr(),
+                    g["quat_out"].data_ptr(), g["sums"].data_ptr(),
+                    None if g["left"] is None else g["left"].data_ptr(),
+                    None if g["right"] is None else g["right"].data_ptr(),
                     g["im"].data_ptr(), g["den"].data_ptr(),
                     g["gid"].data_ptr(), g["gpos"].data_ptr(), g["k"],
-                    g["gid"].shape[0], g["first"] * lx * gyz, lx * gyz, par,
-                    g["stream"]))
-    acc_launch_count += SLAB_LAUNCHES_PER_SUBSTEP * S * len(groups)
+                    g["gid"].shape[0], g["first"] * lx * gyz, lx * gyz,
+                    begin, end, par, g["stream"])
+            if err != 0:
+                raise RuntimeError(
+                    "polar_stencil slab launch failed: "
+                    f"{lib.polar_stencil_error_string(err).decode()}")
+        if exchange == "halo":
+            mesh.send_right(hi_col, ghost_lo, pairs=cuts)  # i - 1 -> i
+            mesh.send_left(lo_col, ghost_hi, pairs=cuts)  # i -> i - 1
+    acc_launch_count += sum(end - begin for begin, end, _ in calls) * len(
+        groups)
     return polar_grid.GridSlabState(
         **{f: [x for g in groups for x in ungroup(g[k])]
            for f, k in (("pos", "pos_out"), ("prev", "prev_out"),

@@ -231,8 +231,9 @@ def main() -> int:
         "state_bytes": nh_bytes,
         "hbm_stream_floor_ms": round(nh_floor, 4),
         "vs_hbm_floor": round(nh_ms / nh_floor, 1),
-        "note": "50 launches per substep (predict, 48 colours, collide); "
-                "two XPBD projections per tet and colour",
+        "note": "one cooperative launch per frame (predict, 48 colour "
+                "phases and collide per substep, a grid barrier between "
+                "phases); two XPBD projections per tet and colour",
     }
     print(f"nh_stencil: {nh_ms:.4f} ms/substep (copy floor {nh_floor:.4f} "
           "ms)", file=sys.stderr, flush=True)
