@@ -111,11 +111,13 @@ code is non-zero:
      memory) through gs_levels and polar_jacobi, 5 frames with a grab, each
      frame held to the twin (positions 2e-5, velocities 2e-3 / 2e-2,
      vol_err 1e-5, quaternions 2e-5 or twice the kernel's 1-ulp spread),
-     no host sync, K1 and K2 not launched, gs_levels once per frame (one
-     cluster launch); then gs_levels through levels_frame on 8 jittered
-     bodies with two grabs and on one body at cs = 1 (a cluster of one
-     block), 2 frames each at the same bars, cs = 1 bit for bit the body's
-     own cluster size;
+     no host sync, K1 and K2 not launched, gs_levels and polar_jacobi
+     once per frame (a cluster launch, a cooperative launch); then
+     gs_levels through levels_frame on 8 jittered bodies with two grabs
+     and on one body at cs = 1 (a cluster of one block), 2 frames each at
+     the same bars, cs = 1 bit for bit the body's own cluster size; and
+     polar_jacobi through jacobi_frame on 8 jittered bodies with two
+     grabs, 2 frames at the same bars;
  20. the flat Neo-Hookean batch: add_body_batch(dragon, 8, engine=
      "neohookean", backend="flat") with a grab, frame 1 within 2e-5 of the
      plain twin (velocities 2e-2, as phase 2 holds K1), 2 frames bitwise
@@ -1799,9 +1801,7 @@ def large_bodies(tt, kernels):
                     ("pos", body.state.pos, r[0][0], 2e-5, None),
                     ("vel", body.state.vel, r[2][0], vtol, None)] + extra))
         seconds = time.perf_counter() - t0
-        want = 2 * LARGE_FRAMES * (
-            gs_levels.LAUNCHES_PER_FRAME if not polar
-            else params.num_substeps * polar_jacobi.LAUNCHES_PER_SUBSTEP)
+        want = 2 * LARGE_FRAMES * mod.LAUNCHES_PER_FRAME
         others = {k: m.launch_count for k, m in kernels.items()
                   if m is not mod and m.launch_count}
         check(mod.launch_count == want and not others,
@@ -1870,6 +1870,57 @@ def levels_batches(tt, gs_levels):
     print(f"phase 19 gs_levels: B=8 and cs=1 within the twin's bars, cs=1 "
           f"bitwise cs={own(1)}; clusters the card runs "
           f"at once {waves}", flush=True)
+    return worst
+
+
+def jacobi_batches(tt, polar_jacobi):
+    """Phase 19, polar_jacobi beyond one body: 8 jittered polar bodies of
+    grid_mesh(20, 20, 20) with grabs on two of them through jacobi_frame, 2
+    frames, held after every frame to the twin at phase 19's bars (the
+    quaternions also at twice the kernel's spread from positions 1 ulp
+    apart), one launch per frame.  Returns the largest position
+    difference."""
+    mesh = tt.grid_mesh(*LARGE, **LARGE_BOX)
+    arr = tt.build_arrays(mesh, coloring=None, device="cuda")
+    params = tt.World().params
+    rng = np.random.RandomState(29)
+    rest = np.float32(mesh.verts)
+    pos = torch.tensor(rest + rng.normal(0, 0.002, (8,) + rest.shape)
+                       .astype(np.float32), device="cuda")
+    vel = torch.tensor(rng.uniform(-0.2, 0.2, pos.shape).astype(np.float32),
+                       device="cuda")
+    quats = torch.zeros((8, mesh.num_tets, 4), device="cuda")
+    quats[..., 3] = 1.0
+    gid = torch.full((8, 1), -1, dtype=torch.int32, device="cuda")
+    gid[2, 0], gid[5, 0] = 0, mesh.num_particles - 1
+    gpos = pos[torch.arange(8), gid[:, 0].clamp(min=0).long()][:, None] \
+        + torch.tensor([0.0, 0.02, 0.0], device="cuda")
+    kernel = [pos, vel, quats]
+    moved = [torch.nextafter(pos, torch.full_like(pos, 10.0)), vel, quats]
+    twin = list(kernel)
+    polar_jacobi.launch_count = 0
+    worst = 0.0
+    for f in range(1, 3):
+        got = polar_jacobi.jacobi_frame(*kernel, arr, params, gid, gpos)
+        near = polar_jacobi.jacobi_frame(*moved, arr, params, gid, gpos)
+        want = polar_jacobi.jacobi_frame_reference(*twin, arr, params, gid,
+                                                   gpos)
+        kernel, moved, twin = ([x[0], x[2], x[3]] for x in (got, near, want))
+        worst = max(worst, hold(
+            f"phase 19 polar_jacobi B=8 {LARGE} frame {f}", [
+                ("pos", got[0], want[0], 2e-5, None),
+                ("vel", got[2], want[2], 2e-2, None),
+                ("quat", got[3], want[3], 2e-5, max_diff(got[3], near[3]))]))
+    check(max_diff(kernel[0][[2, 5], gid[[2, 5], 0].long()], gpos[[2, 5], 0])
+          == 0.0, "phase 19 polar_jacobi B=8: grabs off target")
+    check(polar_jacobi.launch_count == 4 * polar_jacobi.LAUNCHES_PER_FRAME,
+          f"polar_jacobi B=8: {polar_jacobi.launch_count} launches for 2 "
+          "frames of two batches")
+    grid = polar_jacobi.frame_grid(pos.device)
+    print(f"phase 19 polar_jacobi: B=8 within the twin's bars, "
+          f"{polar_jacobi.LAUNCHES_PER_FRAME} cooperative launch per frame "
+          f"of {grid} blocks ({polar_jacobi.occupancy(pos.device)[0]} per "
+          "SM)", flush=True)
     return worst
 
 
@@ -2180,11 +2231,10 @@ def large_timings(tt, label):
         if engine == "polar":
             work = (mod.frame_flops(body.arrays, params, 1),
                     mod.frame_bytes(body.arrays, 1, 1))
-            per = mod.LAUNCHES_PER_SUBSTEP * params.num_substeps
         else:
             work = (mod.frame_flops(body.arrays, params, 1),
                     mod.frame_bytes(body.arrays, params, 1, 1))
-            per = mod.LAUNCHES_PER_FRAME
+        per = mod.LAUNCHES_PER_FRAME
         print(f"phase 23 [{label}] {mod.__name__.split('.')[-1]} Body "
               f"{LARGE}: {k_ms:.4f} ms/frame at {params.num_substeps} "
               f"substeps ({per} launches per frame), plain twin "
@@ -2330,6 +2380,10 @@ def main() -> int:
                        gs_levels)
     large[gs_levels] = (large[gs_levels][0],
                         max(large[gs_levels][1], levels_err))
+    jacobi_err = phase("phase 19 polar_jacobi batches done", jacobi_batches,
+                       tt, polar_jacobi)
+    large[polar_jacobi] = (large[polar_jacobi][0],
+                           max(large[polar_jacobi][1], jacobi_err))
     phase("phase 20 done", flat_nh_batch, tt, gs_fused, dragon)
     k4a_launches, k4a_err = phase("phase 21 done", polar_slabs, tt,
                                   polar_stencil)

@@ -73,9 +73,19 @@ B=1", "B=8"; 5 substeps) and K3s through each side's
 the box at cell 0.05, 5 substeps); K4a through each side's
 ``make_grid_sharded_stepper`` on its ``SlabMesh(d)`` ("slab polar 56^3 x1",
 "x2", "x4": the 56^3 box at cell 0.02 from velocities seeded in +-0.1, 5
-substeps); and nh_pieces through each side's ``make_nh_pieces_stepper`` on
+substeps); nh_pieces through each side's ``make_nh_pieces_stepper`` on
 the 987k blob ("pieces nh 987k" banded, "pieces nh 987k default" in the
-default lane layout, 5 substeps).  kernel_us is per launch (nh_stencil:
+default lane layout, 5 substeps); polar_jacobi through each side's
+``jacobi_frame`` on grid_mesh(20, 20, 20) at B = 1 and 8 ("large polar
+20^3 B=1", "B=8"; jittered bodies, body 0 and 5 holding a corner 2 cm
+up, 5 substeps) and one body from rest through each side's
+``World.step``, the user's path (``Body.step`` and its glue around
+``jacobi_frame``: "large polar 20^3 World.step", 5 substeps); and K9
+through each side's ``roofline.extract_rotation``
+("K9 1M lanes": a frame is one pass over ``random_planes``' 1,048,576
+lanes, a run of k frames one launch of k passes, so kernel_us is per
+launch of 20 passes and the bits are compared after 4 passes).
+kernel_us is per launch (nh_stencil:
 50 per substep in the first design, one per frame since; polar_pieces: 2
 per substep in the first design, one since; gs_levels: L + 2 per substep
 in the first design, one per frame since; K3s: 50 per substep and 12
@@ -83,14 +93,18 @@ plane copies per neighbour pair in the first design, one per frame
 since; K4a: 3 per substep and the halo's plane copies and adds in the
 first design, 2 per substep since; nh_pieces: one sweep per substep
 between torch ops in the first design, one launch per frame that carries
-the whole substep since); where a shape runs several
+the whole substep since; polar_jacobi: 2 per substep in the first
+design, one cooperative launch per frame since); where a shape runs several
 kernels, per_kernel gives each one's launches per frame and device us per
 launch; the polar_pieces rows add solve_event_ms, the solve alone by CUDA
 events on the packed state's predicted planes.  Before the timings it
 prints, for each side's polar_stencil and polar_pieces library, each
 kernel's registers, static shared and local (spill) bytes per thread
 (cuobjdump -res-usage) and the threads an SM holds at its launch's block
-size.  ``--only NAME ...`` times only the shapes of those names.
+size (and polar_jacobi's blocks per SM and cooperative grid).  ``--only
+NAME ...`` times only the shapes of those names (and, with --variants or
+--phases, runs only the entries of VARIANT_RUNS / PHASE_RUNS so named).
+``--pairs N`` repeats A B B A N times for each shape (default 1).
 
     python3 profile_frame.py --variants
 
@@ -99,7 +113,7 @@ columns: polar_stencil at strips of 32 and 64 cubes per pass-A block
 (``-DPOLAR_STENCIL_STRIP``) on the packed 56^3 box, A B B A, and
 polar_pieces at 256, 384 and 512 threads per block
 (``-DPOLAR_PIECES_THREADS``) on the packed 987k blob, A B C C B A, with
-each build's resource usage.
+each build's resource usage ("K4 K6").
 
     python3 profile_frame.py --phases
 
@@ -119,7 +133,15 @@ phases, its 48 colour phases and its 49 grid barriers
 (``-DNH_STENCIL_PHASES``), and the us of one grid barrier alone; then
 gs_levels on grid_mesh(20, 20, 20), one body at every cluster size the
 card runs and 8 bodies: SM cycles on block 0 per substep of its particle
-phases, per level and per cluster barrier (``-DGS_LEVELS_PHASES``).
+phases, per level and per cluster barrier (``-DGS_LEVELS_PHASES``); then
+polar_jacobi on grid_mesh(20, 20, 20) at B = 1 and 8: SM cycles on block
+0 of its predict phase, per substep of its tet pass and its particle pass,
+per grid barrier (``-DPOLAR_JACOBI_PHASES``), and one grid barrier alone;
+then K9's instruction stream ("K9") on 1,048,576 lanes: its SASS per
+iteration by class (a probe build, ``-DEXTRACT_ROTATION_PROBE``: all of
+the code, and the fast path that no slow path leaves, ``fast_path``), its
+ms per pass by CUDA events and the issue floor of its fast path at the SM
+clock read while it runs.
 """
 import argparse
 import contextlib
@@ -406,20 +428,27 @@ AB_SHAPES = (("gs ordered B=1", "gs", 1, "ordered", 20, 80),
              ("slab polar 56^3 x2", "slabpolar", 2, None, 5, 25),
              ("slab polar 56^3 x4", "slabpolar", 4, None, 5, 25),
              ("pieces nh 987k", "piecesnh", 1, True, 4, 24),
-             ("pieces nh 987k default", "piecesnh", 1, False, 4, 24))
+             ("pieces nh 987k default", "piecesnh", 1, False, 4, 24),
+             ("large polar 20^3 B=1", "largepolar", 1, None, 10, 50),
+             ("large polar 20^3 B=8", "largepolar", 8, None, 10, 50),
+             ("large polar 20^3 World.step", "worldpolar", 1, None, 10, 50),
+             ("K9 1M lanes", "k9", 1, None, 16, 64))
 LARGE_DIMS = (20, 20, 20)  # 9,261 particles: over one block's shared memory
 LARGE_BOX = dict(cell=0.05, origin=(-0.5, 0.3, -0.5))
 SLAB_BOX = dict(cell=0.05, origin=(-1.4, 0.1, -1.4))  # NH collapses at 0.02
-AB_KERNELS = {"gs": ("gs_fused", "gs_frame_kernel"),
-              "polar": ("polar_fused", "polar_frame_kernel"),
-              "ordered": ("gs_ordered", "gs_ordered_kernel"),
-              "grid": ("nh_stencil", "nh_grid_"),
-              "gridpolar": ("polar_stencil", "polar_grid_"),
-              "pieces": ("polar_pieces", "polar_pieces_"),
-              "large": ("gs_levels", "gs_levels_"),
-              "slab": ("nh_stencil", "nh_"),
-              "slabpolar": ("polar_stencil", "polar_"),
-              "piecesnh": ("nh_pieces", "nh_pieces_")}
+AB_KERNELS = {"gs": ("kernels.gs_fused", "gs_frame_kernel"),
+              "polar": ("kernels.polar_fused", "polar_frame_kernel"),
+              "ordered": ("kernels.gs_ordered", "gs_ordered_kernel"),
+              "grid": ("kernels.nh_stencil", "nh_grid_"),
+              "gridpolar": ("kernels.polar_stencil", "polar_grid_"),
+              "pieces": ("kernels.polar_pieces", "polar_pieces_"),
+              "large": ("kernels.gs_levels", "gs_levels_"),
+              "slab": ("kernels.nh_stencil", "nh_"),
+              "slabpolar": ("kernels.polar_stencil", "polar_"),
+              "piecesnh": ("kernels.nh_pieces", "nh_pieces_"),
+              "largepolar": ("kernels.polar_jacobi", "polar_jacobi_"),
+              "worldpolar": ("kernels.polar_jacobi", "polar_jacobi_"),
+              "k9": ("roofline", "extract_rotation_kernel")}
 
 
 class _Levels:
@@ -443,6 +472,61 @@ class _Levels:
             self.pos, self.prev, self.vel, self.vol_err = \
                 self.mod.levels_frame(self.pos, self.vel, self.arrays, params,
                                       self.gid, self.gpos)
+
+
+class _Jacobi(_Levels):
+    """B jittered polar bodies of one large mesh stepped by a version's
+    ``polar_jacobi.jacobi_frame``, body 0 (and body 5 of 8) holding a
+    corner 2 cm up."""
+
+    def __init__(self, mod, arrays, mesh, b):
+        super().__init__(mod, arrays, mesh, b)
+        self.quats = torch.zeros((b, mesh.num_tets, 4), device="cuda")
+        self.quats[..., 3] = 1.0
+        for body, pid in ((0, 0), (5, mesh.num_particles - 1))[:1 + (b > 5)]:
+            self.gid[body, 0] = pid
+            self.gpos[body, 0] = self.pos[body, pid] + torch.tensor(
+                [0.0, 0.02, 0.0], device="cuda")
+
+    def step(self, params, k):
+        for _ in range(k):
+            self.pos, self.prev, self.vel, self.quats = \
+                self.mod.jacobi_frame(self.pos, self.vel, self.quats,
+                                      self.arrays, params, self.gid,
+                                      self.gpos)
+
+
+class _World:
+    """One polar body of a large mesh, from rest, in a version's ``World``
+    and stepped by ``World.step``: the path a user runs, ``Body.step``'s
+    glue around ``polar_jacobi.jacobi_frame``."""
+
+    def __init__(self, pkg, mesh, params):
+        self.world = pkg.World(params=params)
+        self.body = self.world.add_body(mesh, engine="polar")
+        self.arrays = self.body.arrays
+
+    @property
+    def pos(self):
+        return self.body.state.pos
+
+    def step(self, params, k):
+        del params  # the world's own
+        self.world.step(k)
+
+
+class _K9:
+    """A version's extract_rotation micro-kernel as ``measure`` drives a
+    batch: a step of k frames is one launch of k passes on the 1,048,576
+    lanes of ``random_planes``."""
+
+    def __init__(self, mod):
+        self.mod, self.a, self.pos = mod, mod.random_planes(), None
+        self.lanes = self.a[0].numel()
+
+    def step(self, params, k):
+        del params
+        self.pos = self.mod.extract_rotation(self.a, k)
 
 
 class _Slabs:
@@ -531,9 +615,14 @@ def launch_threads(lib) -> dict:
         return {"polar_pieces_kernel": lib.polar_pieces_threads()}
     if hasattr(lib, "nh_pieces_slots"):
         return {"nh_pieces": lib.nh_pieces_slots()}
+    if hasattr(lib, "polar_jacobi_threads"):
+        return {"polar_jacobi": lib.polar_jacobi_threads()}
+    if hasattr(lib, "extract_rotation_threads"):
+        return {"extract_rotation": lib.extract_rotation_threads()}
     return {"polar_grid_tet": 128, "polar_grid_vertex": 256,
             "polar_grid_acc": 256, "polar_pieces_tet": 128,
-            "polar_pieces_lane": 256}
+            "polar_pieces_lane": 256, "polar_jacobi_tet": 128,
+            "polar_jacobi_particle": 256}
 
 
 def print_usage(label: str, lib, kernel: str, smem=None) -> None:
@@ -550,17 +639,18 @@ def print_usage(label: str, lib, kernel: str, smem=None) -> None:
         print(f"{label}: {name} {json.dumps(use)}", flush=True)
 
 
-def versions_ab(tt, parent_root: str, only=None) -> None:
-    """The dragon frame kernels, K7, K3, K4, K6, gs_levels and K3s of an
-    earlier version (A) and of this one (B), A B B A per shape (those named
-    in ``only``, if given), then their bits after 3 frames."""
+def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
+    """The dragon frame kernels, K7, K3, K4, K6, gs_levels, K3s, K4a, K5,
+    polar_jacobi and K9 of an earlier version (A) and of this one (B), A B
+    B A ``pairs`` times per shape (those named in ``only``, if given), then
+    their bits after 3 frames (K9: 4 passes)."""
     from chip_smoke import BLOB, PIECES_TPP, event_ms
 
     packages = {"A": load_version(parent_root, "parent_tetsim_torch"),
                 "B": tt}
-    kernels = {side: {k: importlib.import_module(
-        f"{pkg.__name__}.kernels.{m}") for k, (m, _) in AB_KERNELS.items()}
-        for side, pkg in packages.items()}
+    kernels = {side: {k: importlib.import_module(f"{pkg.__name__}.{m}")
+                      for k, (m, _) in AB_KERNELS.items()}
+               for side, pkg in packages.items()}
     shapes = [s for s in AB_SHAPES if not only or s[0] in only]
     dragon = tt.load_dragon()
     grid_mesh = tt.grid_mesh(*GRID_DIMS, **GRID_BOX)
@@ -568,26 +658,34 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
             if any(s[1] in ("pieces", "piecesnh") for s in shapes) else None)
     grids = {}  # each side's arrays of the 56^3 box, of either engine
     pieces = {}  # each side's arrays of the 987k blob
-    large = {}  # each side's mesh and ordered arrays of grid_mesh(20, 20, 20)
+    large = {}  # each side's mesh and arrays of grid_mesh(20, 20, 20)
     slab_mesh = tt.grid_mesh(*GRID_DIMS, **SLAB_BOX)
 
     def params_of(kind):
         if kind == "polar":
             return tt.default_gpu_params()
         if kind in ("grid", "gridpolar", "pieces", "slab", "slabpolar",
-                    "piecesnh"):
+                    "piecesnh", "worldpolar"):
             return tt.PhysicsParams(num_substeps=5)
         return tt.default_cpu_params()
 
     def body(side, kind, b, coloring):
         mod = kernels[side][kind]
         pkg = packages[side]
-        if kind == "large":
-            if side not in large:
+        if kind == "worldpolar":
+            return _World(pkg, pkg.grid_mesh(*LARGE_DIMS, **LARGE_BOX),
+                          params_of(kind))
+        if kind in ("large", "largepolar"):
+            if (side, kind) not in large:
                 mesh = pkg.grid_mesh(*LARGE_DIMS, **LARGE_BOX)
-                large[side] = mesh, pkg.build_arrays(mesh, coloring="ordered",
-                                                     device="cuda")
-            return _Levels(mod, large[side][1], large[side][0], b)
+                large[side, kind] = mesh, pkg.build_arrays(
+                    mesh, coloring="ordered" if kind == "large" else None,
+                    device="cuda")
+            mesh, arrays = large[side, kind]
+            return (_Levels if kind == "large" else _Jacobi)(mod, arrays,
+                                                             mesh, b)
+        if kind == "k9":
+            return _K9(mod)
         if kind == "slab":
             if (side, kind) not in grids:
                 solver = importlib.import_module(
@@ -659,6 +757,8 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
         if kind == "large":
             return (mod.frame_flops(bd.arrays, params, b),
                     mod.frame_bytes(bd.arrays, params, b, 1))
+        if kind == "k9":  # one pass: the planes read, the quaternions written
+            return mod.extract_rotation_flops(bd.lanes), (9 + 4) * 4 * bd.lanes
         if kind == "gridpolar":
             return (mod.frame_flops(bd.arrays, params, 1),
                     mod.frame_bytes(bd.arrays, 1, 1))
@@ -681,6 +781,13 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
             return [*p.pos, *p.prev, *p.vel, *p.quats]
         if kind == "large":
             return [bd.pos, bd.prev, bd.vel, bd.vol_err]
+        if kind == "largepolar":
+            return [bd.pos, bd.prev, bd.vel, bd.quats]
+        if kind == "worldpolar":
+            s = bd.body.state
+            return [s.pos, s.prev_pos, s.vel, s.quats]
+        if kind == "k9":
+            return [bd.pos]
         return [bd.pos, bd.prev_pos, bd.vel] + (
             [bd.last_diag] if kind == "gs" else
             [bd.quats] if kind == "polar" else [])
@@ -696,7 +803,8 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
                         50)
 
     for side in packages:
-        for kind in ("gridpolar", "pieces", "slabpolar", "piecesnh"):
+        for kind in ("gridpolar", "pieces", "slabpolar", "piecesnh",
+                     "largepolar", "k9"):
             if any(s[1] == kind for s in shapes):
                 mod = kernels[side][kind]
                 smem = getattr(mod, "smem_bytes", None)  # a one-block design
@@ -704,11 +812,16 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
                 print_usage(f"[{side}] {AB_KERNELS[kind][0]}", mod.library(),
                             AB_KERNELS[kind][1],
                             smem(*lanes) if smem else None)
+                if hasattr(mod, "frame_grid") and kind == "largepolar":
+                    dev = torch.device("cuda", 0)
+                    print(f"[{side}] {AB_KERNELS[kind][0]}: (blocks per SM, "
+                          f"SMs) {mod.occupancy(dev)}, cooperative grid "
+                          f"{mod.frame_grid(dev)} blocks", flush=True)
     pending = []
     for name, kind, b, coloring, k1, k2 in shapes:
         mod = kernels["B"][kind]
         params = params_of(kind)
-        for side in "ABBA":
+        for side in "ABBA" * pairs:
             bd = body(side, kind, b, coloring)
             pos_sum = ((lambda bd=bd: bd.packed[0].sum())
                        if hasattr(bd, "packed")
@@ -725,16 +838,18 @@ def versions_ab(tt, parent_root: str, only=None) -> None:
         print(name, json.dumps(profile()), flush=True)
     for name, kind, b, coloring, _, _ in shapes:
         params = params_of(kind)
+        frames = 4 if kind == "k9" else 3  # K9: one launch of 4 passes
         out = {}
         for side in "AB":
             bd = body(side, kind, b, coloring)
-            bd.step(params, 3)
+            bd.step(params, frames)
             out[side] = state(kind, bd)
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for x, y in zip(out["A"], out["B"]))
         worst = max(max_diff(x, y) for x, y in zip(out["A"], out["B"]))
-        print(f"{name}: A vs B after 3 frames, bitwise {same} (largest "
-              f"difference {worst:.3e})", flush=True)
+        print(f"{name}: A vs B after {frames} "
+              f"{'passes' if kind == 'k9' else 'frames'}, bitwise {same} "
+              f"(largest difference {worst:.3e})", flush=True)
 
 
 def variants(tt) -> None:
@@ -836,27 +951,35 @@ def polar_phases(tt) -> None:
                   + f"; total {sum(per):.0f}", flush=True)
 
 
-SASS_OPS = ("FFMA", "FMUL", "FADD", "MUFU", "SHFL", "LDS", "STS", "LDG")
-
-
-def sass_counts(lib, kernel: str) -> dict:
-    """SASS instructions of the function whose name holds ``kernel`` in the
-    library ``lib`` (cuobjdump -sass beside nvcc): the total and a few
-    opcodes."""
+def sass_listing(lib, kernel: str) -> list:
+    """(address, predicate, opcode, operands) of each SASS instruction of
+    the function whose name holds ``kernel`` in ``lib`` (cuobjdump -sass
+    beside nvcc)."""
     from tetsim_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", lib._name], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    ops, inside = [], False
+    out, inside = [], False
     for line in text.splitlines():
         if "Function :" in line:
             inside = kernel in line
         elif inside:
-            m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
-                          line)
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Z0-9._]*)\s*([^;]*);", line)
             if m:
-                ops.append(m.group(1))
+                out.append((int(m.group(1), 16), m.group(2) or "",
+                            m.group(3), m.group(4)))
+    return out
+
+
+SASS_OPS = ("FFMA", "FMUL", "FADD", "MUFU", "SHFL", "LDS", "STS", "LDG")
+
+
+def sass_counts(lib, kernel: str) -> dict:
+    """SASS instructions of the function whose name holds ``kernel`` in the
+    library ``lib`` (``sass_listing``): the total and a few opcodes."""
+    ops = [op.split(".")[0] for _, _, op, _ in sass_listing(lib, kernel)]
     out = {"total": len(ops)}
     out.update({op: ops.count(op) for op in SASS_OPS})
     return out
@@ -1030,15 +1153,188 @@ def levels_phases(tt) -> None:
                   f"cluster barrier alone {probe_us:.3f} us", flush=True)
 
 
+def jacobi_phases(tt) -> None:
+    """polar_jacobi on grid_mesh(20, 20, 20) at B = 1 and 8 (the _Jacobi
+    bodies of --parent): SM cycles on block 0 of the launch per substep of
+    its tet pass and its particle pass, per frame of its predict phase, and
+    per grid barrier (an instrumented build, 20 frames after 3), and the us
+    of one grid barrier alone at the frame's grid (1,000 in one launch, CUDA
+    events)."""
+    import ctypes
+
+    from tetsim_torch.kernels import polar_jacobi as pj
+
+    mesh = tt.grid_mesh(*LARGE_DIMS, **LARGE_BOX)
+    params = tt.default_cpu_params()
+    with flags_build(pj, ("-DPOLAR_JACOBI_PHASES",)) as lib:
+        lib.polar_jacobi_phase_cycles.argtypes = [ctypes.c_void_p]
+        lib.polar_jacobi_sync_probe.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        arr = tt.build_arrays(mesh, coloring=None, device="cuda")
+        dev = arr.inv_mass.device
+        grid = pj.frame_grid(dev)
+        print(f"polar_jacobi [-DPOLAR_JACOBI_PHASES]: (blocks per SM, SMs) "
+              f"{pj.occupancy(dev)}, grid {grid}", flush=True)
+        print_usage("polar_jacobi [-DPOLAR_JACOBI_PHASES]", lib,
+                    "polar_jacobi_frame")
+        cycles = (ctypes.c_ulonglong * 5)()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for b in (1, 8):
+            bd = _Jacobi(pj, arr, mesh, b)
+            bd.step(params, 3)
+            torch.cuda.synchronize()
+            lib.polar_jacobi_phase_cycles(cycles)
+            bd.step(params, 20)
+            torch.cuda.synchronize()
+            if lib.polar_jacobi_phase_cycles(cycles):
+                raise RuntimeError("polar_jacobi_phase_cycles failed")
+            substeps = cycles[4]
+            frames = substeps / params.num_substeps
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            for iters in (10, 1010):
+                start.record()
+                if lib.polar_jacobi_sync_probe(grid, iters, stream):
+                    raise RuntimeError("polar_jacobi_sync_probe failed")
+                end.record()
+                end.synchronize()
+                if iters == 10:
+                    t10 = start.elapsed_time(end)
+            probe_us = (start.elapsed_time(end) - t10) * 1e3 / 1000
+            print(f"polar_jacobi B={b} {LARGE_DIMS}: SM cycles on block 0: "
+                  f"predict {cycles[0] / frames:.0f} per frame, tet pass "
+                  f"{cycles[1] / substeps:.0f} and particle pass "
+                  f"{cycles[2] / substeps:.0f} per substep, barriers "
+                  f"{cycles[3] / (2 * substeps):.0f} per barrier (2 per "
+                  f"substep); one grid barrier alone {probe_us:.3f} us",
+                  flush=True)
+
+
+SLOW_OPS = ("CALL", "STL", "LDL", "LDG")  # slow-path calls and local memory
+
+
+def fast_path(listing) -> list:
+    """The opcodes one thread issues through straight-line code from the
+    first instruction to EXIT when no slow path is taken: a conditional
+    forward branch around a region that holds a slow-path call or local or
+    global memory (``SLOW_OPS``) and no MUFU is taken, every other one
+    falls through; a backward branch is not taken."""
+    at = {ins[0]: k for k, ins in enumerate(listing)}
+    ops, k = [], 0
+    while k < len(listing):
+        addr, pred, op, args = listing[k]
+        ops.append(op)
+        if op == "EXIT" and not pred:
+            break
+        if op.startswith("BRA"):
+            target = int(re.findall(r"0x([0-9a-f]+)", args)[-1], 16)
+            if target > addr:
+                skipped = [x[2] for x in listing[k + 1:at[target]]]
+                if not pred or (
+                        any(o.startswith(SLOW_OPS) for o in skipped)
+                        and not any(o.startswith("MUFU") for o in skipped)):
+                    k = at[target]
+                    continue
+        k += 1
+    return ops
+
+
+def sass_classes(ops) -> dict:
+    """Counts of ``ops`` by class: the FP32 pipe's FFMA / FMUL / FADD, the
+    MUFU pipe, slow-path CALLs, branches (BRA, BSSY, BSYNC), local-memory
+    LDL / STL, and the total."""
+    def n(*prefixes):
+        return sum(op.startswith(prefixes) for op in ops)
+
+    return {"total": len(ops), "FFMA/FMUL/FADD": n("FFMA", "FMUL", "FADD"),
+            "MUFU": n("MUFU"), "CALL": n("CALL"),
+            "BRA/BSSY/BSYNC": n("BRA", "BSSY", "BSYNC"),
+            "LDL/STL": n("LDL", "STL")}
+
+
+def sm_clock_during(run) -> str:
+    """nvidia-smi's SM clock (and its maximum) read while ``run()``, an
+    enqueued stretch of device work, runs."""
+    run()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    torch.cuda.synchronize()
+    return out.strip().splitlines()[0]
+
+
+def k9_stream(tt) -> None:
+    """K9's instruction stream on the 1,048,576 lanes of
+    ``roofline.random_planes``: the library's resource usage, its SASS per
+    iteration by class (a probe build, two iterations less one: all of the
+    code, and the fast path alone), its ms per pass by CUDA events (64
+    passes less 16 in one launch each, best of 3) and the issue floor of
+    the fast path: its instructions per pass and lane over 4 warp
+    instructions per SM and cycle (the MUFU pipe's 16 lanes per SM and
+    cycle beside it) at the SM clock read while K9 runs."""
+    del tt
+    from tetsim_torch import roofline
+
+    a = roofline.random_planes()
+    lanes = a[0].numel()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print_usage("extract_rotation", roofline.library(),
+                "extract_rotation_kernel")
+    with flags_build(roofline, ("-DEXTRACT_ROTATION_PROBE",)) as lib:
+        one, two = (sass_listing(lib, f"extract_rotation_probe{n}")
+                    for n in (1, 2))
+    whole = {k: v - sass_classes([x[2] for x in one])[k]
+             for k, v in sass_classes([x[2] for x in two]).items()}
+    fast = {k: v - sass_classes(fast_path(one))[k]
+            for k, v in sass_classes(fast_path(two)).items()}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    roofline.extract_rotation(a, 4)  # warm
+    best = float("inf")
+    for _ in range(3):
+        t = {}
+        for k in (16, 64):
+            start.record()
+            roofline.extract_rotation(a, k)
+            end.record()
+            end.synchronize()
+            t[k] = start.elapsed_time(end)
+        best = min(best, (t[64] - t[16]) / 48)
+    clock = sm_clock_during(lambda: roofline.extract_rotation(a, 10000))
+    mhz = float(clock.split(",")[0].split()[0])
+    cycles = roofline.EXTRACT_ITERS * lanes / sms
+    issue_ms = cycles * fast["total"] / 32 / 4 / (mhz * 1e3)
+    mufu_ms = cycles * fast["MUFU"] / 16 / (mhz * 1e3)
+    print(f"extract_rotation: SASS per iteration, all code "
+          f"{json.dumps(whole)}, fast path {json.dumps(fast)}; "
+          f"{best:.5f} ms per pass; issue floor {issue_ms:.5f} ms "
+          f"({fast['total']} fast-path instructions per iteration at "
+          f"{mhz:.0f} MHz on {sms} SMs), MUFU floor {mufu_ms:.5f} ms; SM "
+          f"clock while it runs {clock}", flush=True)
+
+
+VARIANT_RUNS = (("K4 K6", variants),)
+PHASE_RUNS = (("polar_frame", polar_phases), ("gs_ordered", ordered_phases),
+              ("nh_stencil", grid_phases), ("gs_levels", levels_phases),
+              ("polar_jacobi", jacobi_phases), ("K9", k9_stream))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="an earlier version to time "
                         "against (see the module docstring)")
-    parser.add_argument("--only", nargs="+", metavar="SHAPE",
-                        help="with --parent, only these shapes (names of "
-                        "AB_SHAPES)")
+    parser.add_argument("--only", nargs="+", metavar="NAME",
+                        help="only these shapes (names of AB_SHAPES) with "
+                        "--parent, these kernels (names of PHASE_RUNS) "
+                        "with --phases, these builds (names of "
+                        "VARIANT_RUNS) with --variants")
+    parser.add_argument("--pairs", type=int, default=1,
+                        help="with --parent, A B B A this many times per "
+                        "shape")
     parser.add_argument("--phases", action="store_true",
-                        help="polar_frame's cycles per phase of a substep")
+                        help="SM cycles per phase of polar_frame, "
+                        "gs_ordered, nh_stencil, gs_levels, polar_jacobi; "
+                        "K9's SASS per iteration and issue floor")
     parser.add_argument("--variants", action="store_true",
                         help="K4's strip widths and K6's block sizes")
     args = parser.parse_args()
@@ -1050,14 +1346,15 @@ def main() -> int:
     if args.parent or args.phases or args.variants:
         print(card(), flush=True)
         if args.parent:
-            versions_ab(tt, args.parent, args.only)
-        if args.variants:
-            variants(tt)
-        if args.phases:
-            polar_phases(tt)
-            ordered_phases(tt, args.parent)
-            grid_phases(tt)
-            levels_phases(tt)
+            versions_ab(tt, args.parent, args.only, args.pairs)
+        runs = ((VARIANT_RUNS if args.variants else ())
+                + (PHASE_RUNS if args.phases else ()))
+        for name, run in runs:
+            if not args.only or name in args.only:
+                if run is ordered_phases:
+                    run(tt, args.parent)
+                else:
+                    run(tt)
         print(card(), flush=True)
         return 0
     from tetsim_torch.kernels import gs_fused, gs_ordered, polar_fused

@@ -25,7 +25,8 @@ several slabs to a card if need be) through
 one host call per frame) and ``kernels/nh_stencil.py`` (K3s: one
 cooperative launch per frame and card); a body too large for one
 block's shared memory runs through ``kernels/csrc/gs_levels.cu`` (one
-launch per frame) or ``kernels/csrc/polar_jacobi.cu`` (two per substep).
+launch per frame) or ``kernels/csrc/polar_jacobi.cu`` (one cooperative
+launch per frame).
 ``World.save`` / ``load`` write and read scene checkpoints in the JAX
 package's format, and ``python -m tetsim_torch.viewer.server``
 serves the browser viewer.  The entry points run on the card unless the

@@ -11,11 +11,11 @@
   gs_levels     — the Neo-Hookean frame of a body too large for one block,
                   one launch per frame on a thread-block cluster per body
                   (csrc/gs_levels.cu)
-  polar_jacobi  — the polar frame of a body too large for one block, two
-                  launches per substep (csrc/polar_jacobi.cu)
+  polar_jacobi  — the polar frame of a body too large for one block, one
+                  cooperative launch per frame (csrc/polar_jacobi.cu)
 
-polar_stencil and nh_stencil also carry the grid boxes' x-slab forms (K4a,
-K4a: two launches per substep and card; K3s: one cooperative launch per
+polar_stencil and nh_stencil also carry the grid boxes' x-slab forms (K4a:
+two launches per substep and card; K3s: one cooperative launch per
 frame and card), driven over a ``parallel.SlabMesh``.
 
 (``tetsim_torch/roofline.py`` wraps the extract_rotation micro-kernel,

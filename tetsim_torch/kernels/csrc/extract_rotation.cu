@@ -10,12 +10,20 @@
 // data-dependent feedback so no pass can be folded away; it writes the last
 // pass's quaternion as four planes.
 //
-// What bounds it: operations.  After the one read of its 36 bytes a lane
-// touches no memory until it writes 16: a pass is 9 iterations of about 136
-// flops with a square root, three divides, a sine and a cosine, a
-// dependent chain per lane.  The design gives every lane its own thread
-// and keeps the planes in registers, so a two-point fit over the pass
-// count k measures that chain alone, across the whole card.
+// What bounds it: the instruction stream.  After the one read of its 36
+// bytes a lane touches no memory until it writes 16: a pass is 9
+// iterations of about 136 flops with a square root, three divides, a sine
+// and a cosine, a dependent chain per lane.  At IEEE rounding each divide
+// is a reciprocal, Newton steps and a check that calls a slow path (never
+// taken on these planes), the sine and cosine a range reduction whose
+// Payne-Hanek branch (|x| >= 105615) keeps a local-memory frame; the fast
+// path of one iteration is about 190 SASS instructions, so the card's
+// issue rate (4 warp instructions per SM and cycle) and not its flop rate
+// sets the floor (profile_frame.py --phases counts them).  The design
+// gives every lane its own thread and keeps the planes in registers, so a
+// two-point fit over the pass count k measures that stream alone, across
+// the whole card.  It runs polar_math.cuh's iteration itself, so that it
+// stays the floor of the code K4 runs.
 
 #include <cuda_runtime.h>
 
@@ -45,6 +53,34 @@ extract_rotation_kernel(const float* __restrict__ a_in,  // [9, L]
   q_out[(size_t)2 * L + i] = q.z;
   q_out[(size_t)3 * L + i] = q.w;
 }
+
+#ifdef EXTRACT_ROTATION_PROBE
+// For profile_frame.py's SASS counts only: n of the kernel's iterations,
+// one after another, from a quaternion the compiler cannot see;
+// probe<2> less probe<1> is one iteration's code.
+template <int n>
+__device__ __forceinline__ void probe(const float* a_in, float4 q,
+                                      float* q_out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  float a[3][3];
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c) a[r][c] = a_in[9 * i + 3 * r + c];
+#pragma unroll
+  for (int it = 0; it < n; ++it)
+    q = polar::extract_rotation<polar::AxisForm::kReciprocal>(a, q, 1);
+  reinterpret_cast<float4*>(q_out)[i] = q;
+}
+
+__global__ void extract_rotation_probe1(const float* a_in, float4 q0,
+                                        float* q_out) {
+  probe<1>(a_in, q0, q_out);
+}
+
+__global__ void extract_rotation_probe2(const float* a_in, float4 q0,
+                                        float* q_out) {
+  probe<2>(a_in, q0, q_out);
+}
+#endif
 
 }  // namespace
 

@@ -49,13 +49,14 @@ from .solvers.polar_grid import EXTRACT_ITERS, _extract_rotation
 N = 56  # 56^3 cubes = 1,053,696 tets / 185,193 particles
 M_ROWS = 8192  # 8192 x 128 = 1,048,576 lanes, about the 56^3 box's tets
 FLOPS_PER_ITER = 136  # one extract_rotation iteration, as polar_fused counts
+NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # launches of the micro-kernel since import (or reset)
 
 
 def library() -> ctypes.CDLL:
     """The micro-kernel's library, built at first use."""
-    lib = build.load("extract_rotation")
+    lib = build.load("extract_rotation", NVCC_FLAGS)
     if lib.extract_rotation_launch.argtypes is None:
         lib.extract_rotation_launch.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
