@@ -136,7 +136,28 @@ code is non-zero:
  23. ms per substep at 56^3 of both slab forms at 1, 2 and 4 slabs beside
      the unsharded kernels, with launches per frame and the sharded
      twins' ms; ms per frame of gs_levels and polar_jacobi on
-     grid_mesh(20, 20, 20) and of their twins.
+     grid_mesh(20, 20, 20) and of their twins;
+ 24. the body axis (parallel.DeviceMesh of the one card repeated 2 and 4
+     times, and of distinct cards where the host has several):
+     FusedGSBody(dragon, 8) greedy and FusedPolarBody(dragon, 8), jittered,
+     with a grab on body 5, shard()ed, bit for bit the unsharded batch
+     after each of 3 frames, one launch per shard and frame, no host sync;
+     make_sharded_step's body axis (both engines) bit for bit the engine's
+     step_frame body by body over 3 frames; ms per frame of both batches
+     at 1, 2 and 4 shards on one card;
+ 25. the tet axis, the dragon in 2 and 4 shards on one card from seeded
+     velocities with a gentle grab: the polar engine (plain torch, the
+     shards' sums added once per solve) against K2 after each of 2 frames
+     and nh_shard on the greedy schedule against K1 after 1 frame, both
+     within 2e-5 or twice the engine's 1-ulp spread, no fused launch, with
+     nh_shard's exchange bytes per substep beside the dense exchange and
+     each form's ms per frame;
+ 26. the rest of the public surface: the dragon through a 1-based TetGen
+     .node/.ele pair and an npz round trip, equal, and 3 polar frames of
+     it; diag.trace around 3 polar frames (the Chrome trace names
+     polar_frame_kernel 3 times); examples/torch_drop_dragon.py,
+     torch_cantilever.py and torch_scale_grid.py for 3 frames each, their
+     kernels' launch counts held.
 Then a JSON line with every kernel's numbers, the card's name and power
 limit, and, last, the device line.  It exits non-zero, printing no result,
 where CUDA is unavailable.
@@ -2243,6 +2264,287 @@ def large_timings(tt, label):
     return out
 
 
+# -- the multi-device surface and the rest of the public surface -------------
+
+
+def body_meshes(DeviceMesh):
+    """The body axis on the one card repeated 2 and 4 times, and, where the
+    host has several cards, over distinct cards."""
+    out = [(f"{d} shards on one card", DeviceMesh(["cuda"] * d, "body"))
+           for d in (2, 4)]
+    n = torch.cuda.device_count()
+    if n > 1:
+        d = max(k for k in (2, 4, 8) if k <= n)
+        out.append((f"{d} distinct cards",
+                    DeviceMesh([f"cuda:{i}" for i in range(d)], "body")))
+    return out
+
+
+def sharded_batches(tt, gs_fused, polar_fused, dragon, label):
+    """Phase 24: returns ms per frame {batch: [1, 2, 4 shards on one
+    card]}."""
+    from tetsim_torch.parallel import (DeviceMesh, batch_controls,
+                                       batch_state, make_sharded_step,
+                                       prepare)
+
+    where = ("one card" if torch.cuda.device_count() == 1
+             else f"{torch.cuda.device_count()} cards")
+    nh, gpu = tt.default_cpu_params(), tt.default_gpu_params()
+    target = dragon.verts[100] + np.float32([0.0, 0.3, 0.1])
+    kinds = (("FusedGSBody greedy", gs_fused, nh, ("last_diag",),
+              lambda: gs_fused.FusedGSBody(dragon, 8, jitter=0.3, seed=5)),
+             ("FusedPolarBody", polar_fused, gpu, ("quats",),
+              lambda: polar_fused.FusedPolarBody(dragon, 8, jitter=0.3,
+                                                 seed=5)))
+    times = {}
+    for name, mod, params, extra, make in kinds:
+        for mlabel, mesh in body_meshes(DeviceMesh):
+            ref, sh = make(), make().shard(mesh, "body")
+            for b in (ref, sh):
+                b.set_grab(5, 100, target)
+            d = len(sh.parts)
+            for f in range(3):
+                ref.step(params)
+                mod.launch_count = 0
+                with no_host_sync():
+                    sh.step(params)
+                check(mod.launch_count == d,
+                      f"{name} on {mlabel}: {mod.launch_count} launches")
+                for fld in ("pos", "prev_pos", "vel") + extra:
+                    check(torch.equal(getattr(sh, fld), getattr(ref, fld)),
+                          f"{name} on {mlabel}: {fld} differs at frame {f}")
+            check(max_diff(sh.pos[5, 100], torch.as_tensor(target).cuda())
+                  <= 1e-6, f"{name} on {mlabel}: grab off target")
+            print(f"phase 24 {name} B=8 on {mlabel}: 3 frames bit for bit "
+                  f"the unsharded batch (positions, prev, velocities, "
+                  f"{extra[0]}), {d} launches per frame, no host sync, the "
+                  "grab on body 5 at its target", flush=True)
+        ms = []
+        for d in (1, 2, 4):
+            b = make()
+            if d > 1:
+                b.shard(DeviceMesh(["cuda"] * d, "body"))
+            ms.append(per_frame(lambda k, b=b: b.step(params, k),
+                                lambda b=b: b.pos.sum(), 20, 120) * 1e3)
+        times[name] = ms
+        print(f"phase 24 [{label}] {name} B=8 ms per frame at 1 / 2 / 4 "
+              f"shards on one card: {ms[0]:.4f} / {ms[1]:.4f} / {ms[2]:.4f}",
+              flush=True)
+
+    for engine, params, coloring, mod in (
+            ("neohookean", nh, "ordered", gs_fused),
+            ("polar", gpu, None, polar_fused)):
+        arr = tt.build_arrays(dragon, coloring=coloring, device="cuda")
+        start = batch_state(tt.init_state(dragon, "cuda"), 8, jitter=0.3,
+                            seed=5)
+        ctl = batch_controls(8, "cuda")
+        ctl.grab_id[5] = 100
+        ctl.grab_pos[5] = torch.as_tensor(target)
+        refs, s = [], start
+        for _ in range(3):
+            bodies = [tt.get_engine(engine).step_frame(
+                tt.SimState(*(x[i] for x in (s.pos, s.prev_pos, s.vel,
+                                             s.quats))),
+                arr, params, tt.Controls(ctl.grab_id[i], ctl.grab_pos[i]))
+                for i in range(8)]
+            s = tt.SimState(*(torch.stack([getattr(b, f) for b, _ in bodies])
+                              for f in ("pos", "prev_pos", "vel", "quats")))
+            refs.append((s, torch.stack([dg for _, dg in bodies])))
+        for mlabel, mesh in body_meshes(DeviceMesh):
+            s, tables = prepare(start, arr, mesh, engine, tet_axis=None,
+                                body_axis="body")
+            step = make_sharded_step(mesh, engine, tet_axis=None,
+                                     body_axis="body")
+            mod.launch_count = 0
+            for f, (ref, rdiag) in enumerate(refs):
+                s, diag = step(s, tables, params, ctl)
+                for fld in ("pos", "prev_pos", "vel", "quats"):
+                    check(torch.equal(getattr(s, fld), getattr(ref, fld)),
+                          f"make_sharded_step {engine} on {mlabel}: {fld} "
+                          f"differs from the engine at frame {f}")
+                check(torch.equal(diag, rdiag), f"{engine} diags differ")
+            d = mesh.shape["body"]
+            check(mod.launch_count == 3 * d,
+                  f"{engine} body axis: {mod.launch_count} launches")
+            print(f"phase 24 make_sharded_step {engine} body axis, 8 "
+                  f"jittered dragons with a grab on {mlabel}: 3 frames bit "
+                  f"for bit the engine's step_frame body by body, {d} "
+                  "launches per frame", flush=True)
+    print(f"phase 24 ran on {where}", flush=True)
+    return times
+
+
+def spread_frames(step, start, frames):
+    """Positions after each of ``frames`` frames from ``start`` and from
+    positions one ulp above it."""
+    out = []
+    for pos in (start.pos, torch.nextafter(start.pos,
+                                           torch.full_like(start.pos, 1e9))):
+        s, run = start.replace(pos=pos), []
+        for _ in range(frames):
+            s = step(s)
+            run.append(s.pos)
+        out.append(run)
+    return out[0], [max_diff(a, b) for a, b in zip(*out)]
+
+
+def tet_axis(tt, dragon, label):
+    """Phase 25: returns the largest position difference from the
+    unsharded engine."""
+    from tetsim_torch.kernels import gs_fused, polar_fused
+    from tetsim_torch.parallel import DeviceMesh, make_sharded_step, prepare
+    from tetsim_torch.parallel import nh_shard
+
+    rng = np.random.RandomState(13)
+    vel = rng.uniform(-0.3, 0.3, (dragon.num_particles, 3)).astype(np.float32)
+    start = tt.init_state(dragon, "cuda")
+    start = start.replace(vel=torch.as_tensor(vel).cuda())
+    # a gentle grab: a pull of 0.3 makes the polar frame chaotic (a 1-ulp
+    # spread of 1e-3 in a frame), 0.05 keeps it near 1e-6
+    target = torch.as_tensor(dragon.verts[100] + np.float32([0.0, 0.05, 0.0]))
+    ctl = tt.Controls(torch.tensor(100, dtype=torch.int32, device="cuda"),
+                      target.cuda())
+    worst = 0.0
+    for engine, params, coloring, frames, mod in (
+            ("polar", tt.default_gpu_params(), None, 2, polar_fused),
+            ("neohookean", tt.default_cpu_params(), "greedy", 1, gs_fused)):
+        arr = tt.build_arrays(dragon, coloring=coloring, device="cuda")
+        eng = tt.get_engine(engine)
+        ref, spread = spread_frames(
+            lambda s: eng.step_frame(s, arr, params, ctl)[0], start, frames)
+        for d in (2, 4):
+            mesh = DeviceMesh(["cuda"] * d, "tet")
+            s, tables = prepare(start, arr, mesh, engine, "tet")
+            step = make_sharded_step(mesh, engine, "tet")
+            mod.launch_count = 0
+            errs = []
+            for f in range(frames):
+                s, _ = step(s, tables, params, ctl)
+                errs.append(max_diff(s.pos, ref[f]))
+                bar = max(2e-5, 2 * spread[f])
+                check(errs[-1] <= bar, f"{engine} tet axis x{d} frame {f}: "
+                      f"{errs[-1]:.3e} > {bar:.3e}")
+            check(mod.launch_count == 0, f"{engine} tet axis launched "
+                  "the fused kernel: it runs plain torch")
+            check(max_diff(s.pos[100], target.cuda()) <= 1e-6, "grab off")
+            worst = max(worst, *errs)
+            box = {"s": s}
+
+            def advance(k):
+                for _ in range(k):
+                    box["s"], _ = step(box["s"], tables, params, ctl)
+
+            ms = per_frame(advance, lambda: box["s"].pos.sum(), 1, 2) * 1e3
+            extra = ""
+            if engine == "neohookean":
+                t = tables.shares[0].tables
+                extra = (f"; exchange {nh_shard.comm_bytes_per_substep(t):,} "
+                         f"bytes per substep ({t.L} levels x Eb {t.Eb} x 12) "
+                         f"against the dense {t.L * t.num_particles * 12:,} "
+                         f"(levels x N x 12), plus the ownership combine "
+                         f"{36 * t.num_particles:,} per frame")
+            print(f"phase 25 [{label}] {engine} tet axis, the dragon in {d} "
+                  f"shards on one card, {frames} frame(s) with a grab from "
+                  f"seeded velocities: max |dpos| "
+                  + ", ".join(f"{e:.3e}" for e in errs)
+                  + " vs the unsharded engine (1-ulp spread "
+                  + ", ".join(f"{e:.3e}" for e in spread)
+                  + f"), plain torch, {ms:.2f} ms per frame{extra}",
+                  flush=True)
+    return worst
+
+
+def run_example(name, argv):
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.main(argv)
+
+
+def surface(tt, gs_fused, polar_fused, polar_stencil, dragon):
+    """Phase 26: TetGen and npz round trips of the dragon, diag.trace on
+    the card, the three examples."""
+    import json
+    import os
+    import tempfile
+
+    from tetsim_torch import diag
+
+    with tempfile.TemporaryDirectory() as tmp:
+        node, ele = os.path.join(tmp, "d.node"), os.path.join(tmp, "d.ele")
+        with open(node, "w") as f:
+            f.write(f"# the dragon\n{dragon.num_particles} 3 0 0\n")
+            for i, (x, y, z) in enumerate(dragon.verts):
+                f.write(f"{i + 1} {float(x)!r} {float(y)!r} "
+                        f"{float(z)!r}\n")
+        with open(ele, "w") as f:
+            f.write(f"{dragon.num_tets} 4 0\n")
+            for i, t in enumerate(dragon.tets):
+                f.write(f"{i + 1} " + " ".join(str(v + 1) for v in t) + "\n")
+        m = tt.load_tetgen(node, ele)
+        check(np.array_equal(m.verts, dragon.verts), "TetGen vertices")
+        check(np.array_equal(np.sort(m.tets, 1), np.sort(dragon.tets, 1)),
+              "TetGen tets")
+        flipped = int((m.tets != dragon.tets).any(axis=1).sum())
+        npz = os.path.join(tmp, "d.npz")
+        tt.save_npz(npz, dragon)
+        back = tt.load_npz(npz)
+        check(all(np.array_equal(getattr(back, f), getattr(dragon, f))
+                  for f in ("verts", "tets", "edges", "vis_tet_ids",
+                            "vis_bary", "tris")), "npz round trip")
+        world = tt.World(tt.default_gpu_params())
+        body = world.add_body(m, engine="polar")
+        world.step(3)
+        check(np.isfinite(body.positions).all(), "TetGen dragon not finite")
+        print(f"phase 26 mesh IO: the dragon through a 1-based .node/.ele "
+              f"pair ({m.num_particles} nodes, {m.num_tets} tets, "
+              f"{flipped} reoriented, {len(m.edges)} edges) and an npz round "
+              "trip, equal; 3 polar frames of it on the card", flush=True)
+
+        world = tt.World(tt.default_gpu_params())
+        world.add_body(dragon, engine="polar")
+        world.step(1)
+        sync()
+        with diag.trace(os.path.join(tmp, "trace")) as t:
+            world.step(3)
+            sync()
+        with open(t.path) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events
+                 if e.get("cat") == "kernel"]
+        hits = sum("polar_frame_kernel" in n for n in names)
+        check(hits == 3, f"trace: {hits} polar_frame_kernel events of "
+              f"{len(names)} kernel events")
+        print(f"phase 26 diag.trace: {os.path.getsize(t.path):,} bytes, "
+              f"{len(events)} events, {len(names)} kernel events, "
+              f"polar_frame_kernel x{hits} for 3 frames", flush=True)
+
+        gs_fused.launch_count = polar_fused.launch_count = 0
+        run_example("torch_drop_dragon",
+                    ["--frames", "3", "--checkpoint",
+                     os.path.join(tmp, "dragon.npz")])
+        check((gs_fused.launch_count, polar_fused.launch_count) == (3, 3),
+              "drop_dragon launches")
+        polar_stencil.launch_count = 0
+        beam = run_example("torch_cantilever", ["--frames", "3"])
+        check(polar_stencil.launch_count == 3 * 8 * 2, "cantilever launches")
+        check(bool(torch.isfinite(beam.pos).all()), "cantilever not finite")
+        polar_stencil.launch_count = 0
+        world = run_example("torch_scale_grid", ["--frames", "3"])
+        check(polar_stencil.launch_count == 6 * 5 * 2, "scale_grid launches")
+        check(not world.diagnostics()["body0"]["nan"], "scale_grid NaN")
+        print("phase 26 examples on the card: torch_drop_dragon (3 frames "
+              "each engine, K1 x3, K2 x3, a checkpoint), torch_cantilever "
+              "(3 frames, K4 x48, pins held, tip sagging), "
+              "torch_scale_grid (16^3 packed, 3 + 3 frames, K4 x60)",
+              flush=True)
+
+
 def sync():
     torch.cuda.synchronize()
 
@@ -2392,6 +2694,11 @@ def main() -> int:
                        nh_stencil, label)
     large_times = phase("phase 23 large bodies done", large_timings, tt,
                         label)
+    phase("phase 24 done", sharded_batches, tt, gs_fused, polar_fused, dragon,
+          label)
+    phase("phase 25 done", tet_axis, tt, dragon, label)
+    phase("phase 26 done", surface, tt, gs_fused, polar_fused, polar_stencil,
+          dragon)
     sched = gs_ordered.build_ordered_schedule(dragon)
     ordered_bound, ordered_by = bound(
         gs_ordered.frame_flops(sched, params, 8),

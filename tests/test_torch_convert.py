@@ -80,10 +80,15 @@ def test_arrays_from_numpy_equals_build_arrays():
 
 def test_import_leaves_out_jax_and_tetsim_tpu():
     code = (
-        "import importlib, pkgutil, sys, tetsim_torch\n"
+        "import importlib, importlib.util, pkgutil, sys, tetsim_torch\n"
         "for m in pkgutil.walk_packages(tetsim_torch.__path__, 'tetsim_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "tetsim_torch.World\n"
+        "for name in ('torch_drop_dragon', 'torch_cantilever', "
+        "'torch_scale_grid'):\n"
+        "    spec = importlib.util.spec_from_file_location(name, "
+        "'examples/' + name + '.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tetsim_tpu'))\n"
         "assert not bad, bad\n"
@@ -91,7 +96,8 @@ def test_import_leaves_out_jax_and_tetsim_tpu():
         "'kernels.polar_stencil', 'kernels.nh_stencil', "
         "'kernels.polar_pieces', 'kernels.nh_pieces', 'kernels.gs_ordered', "
         "'checkpoint', 'viewer.server', 'roofline', 'kernels.gs_levels', "
-        "'kernels.polar_jacobi', 'parallel', 'parallel.slabs')\n"
+        "'kernels.polar_jacobi', 'parallel', 'parallel.slabs', "
+        "'parallel.sharding', 'parallel.nh_shard')\n"
         "missed = [m for m in grid if 'tetsim_torch.' + m not in sys.modules]\n"
         "assert not missed, missed\n"
         "print('ok')\n"

@@ -26,10 +26,15 @@ one host call per frame) and ``kernels/nh_stencil.py`` (K3s: one
 cooperative launch per frame and card); a body too large for one
 block's shared memory runs through ``kernels/csrc/gs_levels.cu`` (one
 launch per frame) or ``kernels/csrc/polar_jacobi.cu`` (one cooperative
-launch per frame).
-``World.save`` / ``load`` write and read scene checkpoints in the JAX
-package's format, and ``python -m tetsim_torch.viewer.server``
-serves the browser viewer.  The entry points run on the card unless the
+launch per frame).  ``parallel.DeviceMesh`` holds devices on named
+axes, as ``jax.sharding.Mesh`` does: ``parallel.make_sharded_step`` splits
+a batch of bodies (the body axis, K1 / K2 on each device) or one mesh's
+tets (the tet axis, in plain torch, as the JAX package runs it in XLA)
+over them, and ``FusedGSBody.shard`` / ``FusedPolarBody.shard`` split a
+fused batch.  ``World.save`` / ``load`` write and read scene checkpoints
+in the JAX package's format, ``save_npz`` / ``load_npz`` / ``load_tetgen``
+read and write meshes, ``diag.trace`` writes a timeline, and ``python -m
+tetsim_torch.viewer.server`` serves the browser viewer.  The entry points run on the card unless the
 caller passes ``device="cpu"``.  The package imports neither jax nor
 tetsim_tpu; it reads the dragon asset and the viewer's page of
 ``tetsim_tpu/`` by path.
@@ -37,7 +42,8 @@ tetsim_tpu; it reads the dragon asset and the viewer's page of
 from .params import PhysicsParams, default_cpu_params, default_gpu_params
 from .state import SimState, Controls, init_state
 from .mesh import (TetMesh, TetArrays, load_dragon, grid_mesh, build_arrays,
-                   masked_grid_mesh, ellipsoid_mesh, with_boundary_surface)
+                   masked_grid_mesh, ellipsoid_mesh, with_boundary_surface,
+                   replicate_mesh, load_npz, save_npz, load_tetgen)
 from .solvers import get_engine
 from . import parallel  # noqa: F401
 
@@ -58,6 +64,10 @@ __all__ = [
     "ellipsoid_mesh",
     "with_boundary_surface",
     "build_arrays",
+    "replicate_mesh",
+    "load_npz",
+    "save_npz",
+    "load_tetgen",
     "get_engine",
     "parallel",
     "World",

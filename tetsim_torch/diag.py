@@ -1,6 +1,7 @@
 """Diagnostics (counterpart of ``tetsim_tpu/diag.py``): volume error,
 kinetic energy, speed and height of a body, as device tensors;
-``summarize`` brings them to the host in one transfer.  Grid bodies
+``summarize`` brings them to the host in one transfer; ``trace`` writes
+a timeline of what runs inside it.  Grid bodies
 (``GridArrays``, ``NHGridArrays``) carry no tet table: their volume error
 is read from the stencil's corner offsets.  Pieces bodies (``PiecesArrays``,
 ``NHPiecesArrays``) carry no global tet table either, and report no volume
@@ -8,6 +9,7 @@ error."""
 from __future__ import annotations
 
 import math
+import os
 import time
 
 import torch
@@ -61,6 +63,39 @@ def max_speed(state: SimState):
 
 def min_height(state: SimState):
     return state.pos[..., 1].min()
+
+
+class trace:
+    """Context manager around ``torch.profiler`` for a timeline of the CPU
+    work and, where CUDA is available, the card's kernels:
+
+        with diag.trace("traces"):
+            world.step(30)
+
+    On exit it writes a Chrome trace, ``trace_<pid>_<n>.json``, into
+    ``log_dir`` (made if missing) and keeps its path in ``path``; open it
+    in Perfetto or ``chrome://tracing``."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.path = None
+        self._prof = None
+
+    def __enter__(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=acts)
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._prof.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        n = len([f for f in os.listdir(self.log_dir) if f.startswith("trace_")])
+        self.path = os.path.join(self.log_dir, f"trace_{os.getpid()}_{n}.json")
+        self._prof.export_chrome_trace(self.path)
+        return False
 
 
 class Timer:

@@ -14,6 +14,8 @@
   polar_jacobi  — the polar frame of a body too large for one block, one
                   cooperative launch per frame (csrc/polar_jacobi.cu)
 
+``FusedGSBody`` and ``FusedPolarBody`` split their batch over the devices
+of a ``parallel.DeviceMesh`` axis with ``shard``: one launch per device.
 polar_stencil and nh_stencil also carry the grid boxes' x-slab forms (K4a:
 two launches per substep and card; K3s: one cooperative launch per
 frame and card), driven over a ``parallel.SlabMesh``.

@@ -27,7 +27,8 @@ from ..mesh import TetArrays, TetMesh, build_arrays
 from ..params import PhysicsParams
 from ..solvers import neohookean
 from . import build
-from .batch import SMEM_LIMIT, FusedBatch, cached_params, expect, prepared
+from .batch import (SMEM_LIMIT, BodyField, FusedBatch, cached_params, expect,
+                    prepared)
 
 THREADS = 256  # threads per block, as kThreads in csrc/gs_frame.cu
 WARP = 32  # the widest level the warp walk takes: a lane per slot
@@ -216,8 +217,11 @@ def gs_frame(pos, vel, arr: TetArrays, params: PhysicsParams, grab_id,
 
 class FusedGSBody(FusedBatch):
     """A batch of bodies of one mesh stepped by the fused frame kernel, one
-    launch per frame for the whole batch, each body with its own grab
-    (state and grab API: ``FusedBatch``)."""
+    launch per frame for the whole batch (or for each part of a sharded
+    batch), each body with its own grab (state and grab API:
+    ``FusedBatch``)."""
+
+    last_diag = BodyField()
 
     def __init__(
         self,
@@ -232,14 +236,20 @@ class FusedGSBody(FusedBatch):
         check_fits(mesh.num_particles)
         super().__init__(mesh, num_bodies, jitter, seed, device)
         self.arrays = build_arrays(mesh, density, coloring, device=self.device)
-        self.last_diag: Optional[torch.Tensor] = None
+        self.last_diag = None
+
+    def shard(self, mesh, axis="body"):
+        """Split the batch over the devices of ``mesh``'s ``axis`` (a
+        ``parallel.DeviceMesh``; a name or a tuple of names): one contiguous
+        sub-batch per device, the tables replicated.  ``step`` then
+        launches the kernel once per device and frame; bodies are
+        independent, so nothing passes between devices."""
+        return self._shard(mesh, axis)
 
     def step(self, params: PhysicsParams, frames: int = 1):
         """Advance every body by ``frames`` frames; returns the last frame's
         vol_err [num_bodies, num_substeps] (a device tensor, no sync)."""
         for _ in range(frames):
-            self.pos, self.prev_pos, self.vel, self.last_diag = gs_frame(
-                self.pos, self.vel, self.arrays, params, self.grab_id,
-                self.grab_pos,
-            )
+            self._step_parts(gs_frame, params, ("pos", "vel"),
+                             ("pos", "prev_pos", "vel", "last_diag"))
         return self.last_diag

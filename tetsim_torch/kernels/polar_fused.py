@@ -28,7 +28,8 @@ from ..mesh import TetArrays, TetMesh, build_arrays
 from ..params import PhysicsParams
 from ..solvers import polar
 from . import build
-from .batch import SMEM_LIMIT, FusedBatch, cached_params, expect, prepared
+from .batch import (SMEM_LIMIT, BodyField, FusedBatch, cached_params, expect,
+                    prepared)
 
 THREADS = 512  # threads per block, as kThreads in csrc/polar_frame.cu
 CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16: Hopper's largest (non-portable)
@@ -273,9 +274,12 @@ def polar_frame(pos, vel, quats, arr: TetArrays, params: PhysicsParams,
 
 class FusedPolarBody(FusedBatch):
     """A batch of bodies of one mesh stepped by the fused polar frame
-    kernel, one launch per frame for the whole batch, each body with its
-    own grab (state and grab API: ``FusedBatch``).  The quaternions are
-    quats [B,M,4] (xyzw) in the mesh's tet order."""
+    kernel, one launch per frame for the whole batch (or for each part of a
+    sharded batch), each body with its own grab (state and grab API:
+    ``FusedBatch``).  The quaternions are quats [B,M,4] (xyzw) in the
+    mesh's tet order."""
+
+    quats = BodyField()
 
     def __init__(
         self,
@@ -291,17 +295,24 @@ class FusedPolarBody(FusedBatch):
         super().__init__(mesh, num_bodies, jitter, seed, device)
         self.arrays = build_arrays(mesh, density, coloring=None, pinned=pinned,
                                    device=self.device)
-        self.quats = torch.zeros((num_bodies, mesh.num_tets, 4),
-                                 dtype=torch.float32, device=self.device)
-        self.quats[..., 3] = 1.0
+        quats = torch.zeros((num_bodies, mesh.num_tets, 4),
+                            dtype=torch.float32, device=self.device)
+        quats[..., 3] = 1.0
+        self.quats = quats
+
+    def shard(self, mesh, axis="body"):
+        """Split the batch over the devices of ``mesh``'s ``axis`` (a
+        ``parallel.DeviceMesh``; a name or a tuple of names): one contiguous
+        sub-batch per device, the tables replicated.  ``step`` then
+        launches the kernel once per device and frame; bodies are
+        independent, so nothing passes between devices."""
+        return self._shard(mesh, axis)
 
     def step(self, params: PhysicsParams, frames: int = 1):
         """Advance every body by ``frames`` frames (no sync)."""
         for _ in range(frames):
-            self.pos, self.prev_pos, self.vel, self.quats = polar_frame(
-                self.pos, self.vel, self.quats, self.arrays, params,
-                self.grab_id, self.grab_pos,
-            )
+            self._step_parts(polar_frame, params, ("pos", "vel", "quats"),
+                             ("pos", "prev_pos", "vel", "quats"))
 
     def quaternions(self) -> np.ndarray:
         """[num_bodies, M, 4] per-tet quaternions in the mesh's tet order."""

@@ -457,3 +457,84 @@ def with_boundary_surface(mesh: TetMesh) -> TetMesh:
     vis_bary[cb < 3, cb[cb < 3]] = 1.0  # corner 3 -> all zeros
     return dataclasses.replace(mesh, vis_tet_ids=tet_of[surf_pids].astype(np.int32),
                                vis_bary=vis_bary, tris=tris)
+
+
+def single_tet_mesh() -> TetMesh:
+    """One tet on the unit axes, for small checks."""
+    verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32)
+    return TetMesh(verts=verts, tets=np.array([[0, 1, 2, 3]], np.int32))
+
+
+# ---------------------------------------------------------------------------
+# Mesh I/O: npz files with the dragon asset's keys, and TetGen .node/.ele
+# pairs
+# ---------------------------------------------------------------------------
+
+
+def save_npz(path: str, mesh: TetMesh) -> None:
+    """Write a TetMesh with the keys of the bundled dragon asset."""
+    data = {"verts": mesh.verts, "tet_ids": mesh.tets}
+    if mesh.edges is not None:
+        data["edge_ids"] = mesh.edges
+    if mesh.vis_tet_ids is not None:
+        data["vis_tet_ids"] = mesh.vis_tet_ids
+        data["vis_bary"] = mesh.vis_bary
+        data["tri_ids"] = mesh.tris
+    np.savez_compressed(path, **data)
+
+
+def load_npz(path: str) -> TetMesh:
+    """Read a TetMesh written by ``save_npz`` (or the dragon asset)."""
+    with np.load(path) as z:
+        def opt(key, dtype):
+            return z[key].astype(dtype) if key in z else None
+
+        return TetMesh(
+            verts=z["verts"].astype(np.float32),
+            tets=z["tet_ids"].astype(np.int32),
+            edges=opt("edge_ids", np.int32),
+            vis_tet_ids=opt("vis_tet_ids", np.int32),
+            vis_bary=opt("vis_bary", np.float32),
+            tris=opt("tri_ids", np.int32),
+        )
+
+
+def _read_tetgen_table(path: str) -> list:
+    """The rows of a TetGen whitespace table, header first, as lists of
+    floats (rows may differ in length); ``#`` starts a comment."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if line:
+                rows.append([float(x) for x in line.split()])
+    if not rows:
+        raise ValueError(f"{path}: empty TetGen file")
+    return rows
+
+
+def load_tetgen(node_path: str, ele_path: str) -> TetMesh:
+    """Read a TetGen .node/.ele pair.  Node numbering may start at 0 or 1
+    and rows may carry attribute columns; tets are reoriented to positive
+    volume, and the wireframe edges are the tets' unique edges."""
+    nodes = _read_tetgen_table(node_path)
+    n_nodes = int(nodes[0][0])
+    body = nodes[1:1 + n_nodes]
+    ids = np.array([r[0] for r in body])
+    verts = np.array([r[1:4] for r in body], np.float32)
+    base = int(ids.min())
+
+    eles = _read_tetgen_table(ele_path)
+    n_tets = int(eles[0][0])
+    tets = np.array([r[1:5] for r in eles[1:1 + n_tets]], np.int64) - base
+    if tets.min() < 0 or tets.max() >= n_nodes:
+        raise ValueError("TetGen .ele references nodes outside the .node file")
+    tets = tets.astype(np.int32)
+
+    # positive orientation, as grid_mesh's
+    p = verts[tets]
+    d = np.stack([p[:, 1] - p[:, 0], p[:, 2] - p[:, 0], p[:, 3] - p[:, 0]],
+                 axis=-1)
+    neg = np.linalg.det(d) < 0
+    tets[neg] = tets[neg][:, [0, 2, 1, 3]]
+    return TetMesh(verts=verts, tets=tets, edges=_derive_edges(tets))

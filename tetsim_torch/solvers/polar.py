@@ -100,13 +100,11 @@ def extract_rotation(a, q0, iters: int = EXTRACT_ITERS):
     return q
 
 
-def solve_shape_match(pos, quats, arr: TetArrays, iters: int = EXTRACT_ITERS):
-    """One Jacobi shape-matching iteration on pos [..., N, 3] and quats
-    [..., M, 4] (a leading body axis is allowed).  Returns (pos, quats).
-
-    The particles' sums come from the incidence table (a gather, in the
-    column order of ``inc_idx``) or, when ``arr.inc_idx`` is None, from
-    ``index_add_`` over the corners."""
+def goal_deltas(pos, quats, arr: TetArrays, iters: int = EXTRACT_ITERS):
+    """The tets' half of a Jacobi solve on pos [..., N, 3] and quats
+    [..., M, 4]: every corner's goal delta weighted by its tet's rest
+    volume, [..., M*4, 3] in corner order ``tet*4 + k``, and the new
+    quaternions."""
     p = pos[..., arr.tets.long(), :]  # [..., M, 4, 3]
     centroid = (((p[..., 0, :] + p[..., 1, :]) + p[..., 2, :])
                 + p[..., 3, :])[..., None, :] * 0.25
@@ -122,24 +120,42 @@ def solve_shape_match(pos, quats, arr: TetArrays, iters: int = EXTRACT_ITERS):
     # goal - corner, so a body at rest is an exact fixed point
     delta = quat_rotate(arr.rest_centered, quats[..., None, :]) - pc
     w = arr.rest_volume
-    weighted = (delta * w[..., None, None]).flatten(-3, -2)  # [..., M*4, 3]
+    return (delta * w[..., None, None]).flatten(-3, -2), quats
+
+
+def particle_sums(weighted, pos, arr: TetArrays):
+    """Each particle's sum of its corners' weighted deltas, [..., N, 3],
+    and of their rest volumes, [N]: from the incidence table (a gather, in
+    the column order of ``inc_idx``) or, when ``arr.inc_idx`` is None, by
+    ``index_add_`` over the corners."""
     if arr.inc_idx is not None:
         live = (arr.inc_idx >= 0)[..., None]  # [N, K, 1]
         contrib = weighted[..., arr.inc_idx.clamp(min=0).long(), :]
         num = torch.zeros_like(pos)
         for k in range(arr.inc_idx.shape[1]):
             num = num + torch.where(live[:, k], contrib[..., k, :], 0.0)
-        den = arr.inc_den
-    else:
-        seg = arr.tets.reshape(-1).long()
-        num = torch.zeros_like(pos).index_add_(-2, seg, weighted)
-        den = torch.zeros_like(arr.inv_mass).index_add_(
-            0, seg, w.repeat_interleave(4))
-    # pinned particles (inv_mass == 0) never move
-    movable = (arr.inv_mass > 0.0)[..., None]
-    new_pos = torch.where(
+        return num, arr.inc_den
+    seg = arr.tets.reshape(-1).long()
+    num = torch.zeros_like(pos).index_add_(-2, seg, weighted)
+    den = torch.zeros_like(arr.inv_mass).index_add_(
+        0, seg, arr.rest_volume.repeat_interleave(4))
+    return num, den
+
+
+def move_to_goals(pos, num, den, inv_mass):
+    """Every movable particle moves by its weighted mean goal delta;
+    pinned particles (inv_mass == 0) never move."""
+    movable = (inv_mass > 0.0)[..., None]
+    return torch.where(
         movable, pos + num / torch.clamp(den[..., None], min=EPS), pos)
-    return new_pos, quats
+
+
+def solve_shape_match(pos, quats, arr: TetArrays, iters: int = EXTRACT_ITERS):
+    """One Jacobi shape-matching iteration on pos [..., N, 3] and quats
+    [..., M, 4] (a leading body axis is allowed).  Returns (pos, quats)."""
+    weighted, quats = goal_deltas(pos, quats, arr, iters)
+    num, den = particle_sums(weighted, pos, arr)
+    return move_to_goals(pos, num, den, arr.inv_mass), quats
 
 
 def substep_positions(pos, vel, quats, arr: TetArrays, params: PhysicsParams,
