@@ -157,7 +157,21 @@ code is non-zero:
      it; diag.trace around 3 polar frames (the Chrome trace names
      polar_frame_kernel 3 times); examples/torch_drop_dragon.py,
      torch_cantilever.py and torch_scale_grid.py for 3 frames each, their
-     kernels' launch counts held.
+     kernels' launch counts held;
+ 27. the dense engine (run before phase 26, whose torch.profiler run would
+     slow its timed launches on the host): World -> add_body_batch(
+     load_dragon(), 128, engine="neohookean", backend="dense", jitter=0.5)
+     on the greedy colouring with a grab on body 5, 3 frames with no host
+     sync, each held to the plain twin (the frame with the level kernel's
+     twin) at positions 2e-5 and velocities 2e-3 or twice the kernel
+     path's spread from a start 1 ulp apart; one level-kernel launch per
+     level and substep (160 a frame) and the twin never called; one level
+     alone, kernel vs twin, and its scatter bitwise pos + delta; the step
+     refused with TF32 on; save -> World.load(device="cuda") bitwise after
+     one more frame; ms per frame at B = 8 and 128 (two-point fit),
+     body-substeps/s, the kernel's us per launch and its twin's, a
+     frame's products alone; a trace of one frame at each B: its
+     kernels, their device time and the products' share.
 Then a JSON line with every kernel's numbers, the card's name and power
 limit, and, last, the device line.  It exits non-zero, printing no result,
 where CUDA is unavailable.
@@ -2545,6 +2559,215 @@ def surface(tt, gs_fused, polar_fused, polar_stencil, dragon):
               flush=True)
 
 
+# -- the dense engine (dense_level) --------------------------------------------
+
+DENSE_B = 128  # the dense dragon batch measured on the TPU (BENCHNOTES.md)
+DENSE_FRAMES = 3
+
+
+def dense_engine(tt, dense_level, dragon, label):
+    """Phase 27: World -> add_body_batch(dragon, 128, engine="neohookean",
+    backend="dense", jitter=0.5) on the card, greedy colouring, a grab on
+    body 5; 3 frames with no host sync, held after each to the plain twin
+    (the same frame with ``dense_level_reference`` for the kernel) at
+    positions 2e-5 and velocities 2e-3 or twice the kernel path's own
+    spread from a start 1 ulp apart; L x num_substeps kernel launches a
+    frame and the twin never called; a level's scatter bitwise pos +
+    delta; the TF32 refusal; save -> World.load(device="cuda") bitwise
+    after one more frame; then ms per frame at B = 8 and 128, the kernel's
+    us per launch, the products' share and the kernels a frame launches.
+    Returns the kernel's JSON row."""
+    import json
+    import os
+    import tempfile
+
+    from tetsim_torch import diag
+    from tetsim_torch._compile import BUILD_DIR
+    from tetsim_torch.solvers import dense
+    from tetsim_torch.world import DenseBody
+
+    params = tt.default_cpu_params()
+    S = params.num_substeps
+    world = tt.World(tt.default_cpu_params())
+    batch = world.add_body_batch(dragon, DENSE_B, engine="neohookean",
+                                 backend="dense", jitter=0.5)
+    check(type(batch) is DenseBody, "backend='dense' is not DenseBody")
+    arr = batch.arrays
+    L, C = arr.num_levels, arr.slots_per_level
+    pid = batch.start_grab(5, batch.positions()[5].mean(axis=0))
+    target = batch.positions()[5, pid] + np.float32([0.0, 0.05, 0.0])
+    batch.move_grabbed(5, target)
+    start = batch.state
+
+    twin, dense_level.dense_level_reference = \
+        dense_level.dense_level_reference, None  # a call would raise
+    dense_level.launch_count = 0
+    try:
+        got = []
+        with no_host_sync():
+            for _ in range(DENSE_FRAMES):
+                world.step(1)
+                got.append(batch.state)
+    finally:
+        dense_level.dense_level_reference = twin
+    launches = dense_level.launch_count
+    check(launches == DENSE_FRAMES * L * S,
+          f"{launches} level launches for {DENSE_FRAMES} frames of {L} levels "
+          f"x {S} substeps")
+    sync()
+
+    def ulp(x, to):
+        return torch.nextafter(x, torch.full_like(x, to))
+
+    def frames(s, level=dense_level.dense_level):
+        """Each state of ``DENSE_FRAMES`` frames from s."""
+        out = []
+        for _ in range(DENSE_FRAMES):
+            s = dense.step_frame(s, arr, params, batch.grab_id,
+                                 batch.grab_pos, level)
+            out.append(s)
+        return out
+
+    t0 = time.perf_counter()
+    want = frames(start, twin)
+    sync()
+    twin_s = (time.perf_counter() - t0) / DENSE_FRAMES
+    moved = [frames(st) for st in (start.replace(pos=ulp(start.pos, 10.0)),
+                                   start.replace(pos=ulp(start.pos, -10.0)),
+                                   start.replace(vel=ulp(start.vel, 10.0)))]
+    err = 0.0
+    for f, (k, r, *m) in enumerate(zip(got, want, *moved), 1):
+        sp = max(max_diff(k.pos, x.pos) for x in m)
+        sv = max(max_diff(k.vel, x.vel) for x in m)
+        err = max(err, hold(
+            f"phase 27 dense B={DENSE_B} frame {f} of {DENSE_FRAMES}",
+            [("pos", k.pos, r.pos, 2e-5, sp), ("vel", k.vel, r.vel, 2e-3, sv)]))
+    last = got[-1].pos
+    check(torch.equal(last[pid, :, 5], batch.grab_pos[:, 5]), "grab off target")
+    check(bool(torch.isfinite(last).all()) and last.is_contiguous()
+          and tuple(last.shape) == (dragon.num_particles, 3, DENSE_B),
+          "positions")
+    diag_ = world.diagnostics()["body0"]
+    check(diag_["batch"] == DENSE_B and not diag_["nan"], f"diagnostics {diag_}")
+    print(f"phase 27 add_body_batch(dragon, {DENSE_B}, backend='dense'): L = "
+          f"{L} levels of C = {C} slots, {launches} level launches for "
+          f"{DENSE_FRAMES} frames ({launches // DENSE_FRAMES} a frame), the "
+          f"twin not called, grab pid {pid} of body 5 at target, diagnostics "
+          f"{diag_}; the twin {twin_s:.3f} s per frame", flush=True)
+
+    # one level alone: the kernel vs its twin, the scatter bitwise pos + delta
+    flat = last.reshape(dragon.num_particles, 3 * DENSE_B)
+    lv = (arr.irp[0], arr.irv[0], arr.imc[0])
+    g = arr.onehot[0].T @ flat
+    delta = dense_level.dense_level(g, *lv, params)
+    level_err = max_diff(delta, twin(g, *lv, params))
+    rows = arr.onehot[0].argmax(dim=0)  # the particle of each corner slot
+    used = arr.onehot[0].sum(dim=0) > 0
+    expect = flat.clone()
+    expect[rows[used]] = expect[rows[used]] + delta[used]
+    same = torch.equal(flat.clone().addmm_(arr.onehot[0], delta), expect)
+    print(f"phase 27 level 0: kernel vs twin max|d| {level_err:.3e} (tol "
+          f"1e-6); scatter addmm_ bitwise pos + delta: {same}", flush=True)
+    check(level_err <= 1e-6 and same, "phase 27 level 0 disagrees")
+    err = max(err, level_err)
+
+    torch.set_float32_matmul_precision("high")
+    try:
+        world.step(1)
+        refused = False
+    except RuntimeError as e:
+        refused = "TF32" in str(e)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    print(f"phase 27 TF32 on: the step refuses {refused}", flush=True)
+    check(refused, "the dense step ran with TF32 on")
+
+    path = f"{BUILD_DIR}/phase27_scene.npz"  # inside the checkout, ignored
+    world.save(path)
+    loaded = tt.World.load(path, device="cuda")
+    world.step(1)
+    loaded.step(1)
+    a, b = world.bodies[0], loaded.bodies[0]
+    keys = ("pos", "prev_pos", "vel", "grab_id", "grab_pos")
+    same = (type(b) is DenseBody
+            and all(getattr(b, k).is_contiguous() for k in keys)
+            and all(torch.equal(getattr(a, k), getattr(b, k)) for k in keys))
+    print(f"phase 27 save -> World.load(device='cuda'), one more frame in "
+          f"each: bitwise equal {same}", flush=True)
+    check(same, "the loaded dense world steps differently")
+
+    # times at B = 8 and 128: the frame by the host's clock; the level
+    # kernel, its twin and a frame's products alone by CUDA events; then a
+    # trace of one frame, its kernels and their device time (last: a
+    # torch.profiler run slows later launches on the host)
+    out, bodies = {}, {}
+    for b in (8, DENSE_B):
+        body = bodies[b] = DenseBody(dragon, b, jitter=0.5)
+        ms = per_frame(lambda k: body.step(params, k), lambda: body.pos.sum(),
+                       5, 25) * 1e3
+        fl = body.pos.view(dragon.num_particles, 3 * b)
+        g = arr.onehot[0].T @ fl
+        k_ms = event_ms(lambda: dense_level.dense_level(g, *lv, params), 200)
+        p_ms = event_ms(lambda: twin(g, *lv, params), 20)
+        scratch = fl.clone()
+
+        def products():  # a frame's gathers from fl, scatters into scratch
+            for _ in range(S):
+                for l in range(L):
+                    scratch.addmm_(arr.onehot[l], arr.onehot[l].T @ fl)
+
+        out[b] = (ms, k_ms, p_ms, event_ms(products, 5))
+    for b, body in bodies.items():
+        body.step(params)
+        sync()
+        with tempfile.TemporaryDirectory() as tmp:
+            with diag.trace(os.path.join(tmp, "trace")) as t:
+                body.step(params)
+                sync()
+            with open(t.path) as f:
+                kern = [e for e in json.load(f)["traceEvents"]
+                        if e.get("cat") == "kernel"]
+        kinds = {"dense_level": 0, "gemm": 0, "other": 0}
+        us = dict.fromkeys(kinds, 0.0)
+        gemms = {}  # the products' kernels by name
+        for e in kern:
+            name = e.get("name", "")
+            kind = ("dense_level" if "dense_level_kernel" in name else
+                    "gemm" if "gemm" in name.lower() else "other")
+            kinds[kind] += 1
+            us[kind] += float(e.get("dur", 0.0))
+            if kind == "gemm":
+                gemms[name[:80]] = gemms.get(name[:80], 0) + 1
+        check(kinds["dense_level"] == L * S, "the trace's level launches")
+        ms, k_ms, p_ms, prod_ms = out[b]
+        busy = sum(us.values()) / 1e3
+        gflop = 2 * 2 * dragon.num_particles * 4 * C * 3 * b * L * S / 1e9
+        print(f"phase 27 [{label}] dense dragon B={b}: {ms:.4f} ms per frame "
+              f"(two-point fit over 5 and 25 frames, {b * S / ms * 1e3:.1f} "
+              f"body-substeps/s); one frame (traced) launches {len(kern)} "
+              f"kernels, {busy:.4f} ms of them on the card ({busy / ms:.1%} "
+              f"of the frame): " + ", ".join(
+                  f"{k} {n} ({us[k] / 1e3:.4f} ms, {us[k] / 1e3 / busy:.1%})"
+                  for k, n in kinds.items())
+              + f"; the products alone {prod_ms:.4f} ms by CUDA events "
+              f"({gflop:.1f} GFLOP, {gflop / prod_ms:.2f} TFLOP/s, "
+              f"{gflop / PEAK_FLOPS * 1e12:.4f} ms at 67 TFLOP/s); the level "
+              f"kernel {k_ms * 1e3:.3f} us per launch by CUDA events, its "
+              f"twin {p_ms * 1e3:.1f} us; the products' kernels " + "; ".join(
+                  f"{n} x {name}" for name, n in gemms.items()), flush=True)
+
+    ms, k_ms, p_ms, _ = out[DENSE_B]
+    tets = int((arr.irv[0] != 0).sum())
+    b_ms, b_by = bound(dense_level.level_flops(tets, DENSE_B),
+                       dense_level.level_bytes(C, DENSE_B))
+    return {"name": "dense_level", "route": "cuda",
+            "source": "tetsim_torch/kernels/csrc/dense_level.cu",
+            "replaces": "none: the XLA engine (tetsim_tpu/solvers/dense.py:123)",
+            "launches": launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
 def sync():
     torch.cuda.synchronize()
 
@@ -2609,9 +2832,9 @@ def main() -> int:
         return 1
     import tetsim_torch as tt
     from tetsim_torch import roofline
-    from tetsim_torch.kernels import (gs_fused, gs_levels, gs_ordered,
-                                      nh_pieces, nh_stencil, polar_fused,
-                                      polar_jacobi, polar_pieces,
+    from tetsim_torch.kernels import (dense_level, gs_fused, gs_levels,
+                                      gs_ordered, nh_pieces, nh_stencil,
+                                      polar_fused, polar_jacobi, polar_pieces,
                                       polar_stencil)
 
     t_start = time.perf_counter()
@@ -2624,7 +2847,8 @@ def main() -> int:
                "polar_stencil": polar_stencil, "nh_stencil": nh_stencil,
                "polar_pieces": polar_pieces, "nh_pieces": nh_pieces,
                "gs_ordered": gs_ordered, "extract_rotation": roofline,
-               "gs_levels": gs_levels, "polar_jacobi": polar_jacobi}
+               "gs_levels": gs_levels, "polar_jacobi": polar_jacobi,
+               "dense_level": dense_level}
     phase("phase 1 done", build_all, kernels)
 
     dragon = tt.load_dragon()
@@ -2697,6 +2921,9 @@ def main() -> int:
     phase("phase 24 done", sharded_batches, tt, gs_fused, polar_fused, dragon,
           label)
     phase("phase 25 done", tet_axis, tt, dragon, label)
+    # before phase 26: its torch.profiler run slows later launches on the host
+    dense_row = phase("phase 27 done", dense_engine, tt, dense_level, dragon,
+                      label)
     phase("phase 26 done", surface, tt, gs_fused, polar_fused, polar_stencil,
           dragon)
     sched = gs_ordered.build_ordered_schedule(dragon)
@@ -2795,7 +3022,7 @@ def main() -> int:
          "launches": er_launches, "max_abs_err": er_err,
          "ms": er_ms, "plain_ms": er_plain_ms,
          "bound_ms": er_bound, "bound_by": er_by, "library_ms": None},
-    ] + slab_lines + large_lines}), flush=True)
+    ] + slab_lines + large_lines + [dense_row]}), flush=True)
     print(f"chip_smoke finished {stamp()}, "
           f"{time.perf_counter() - t_start:.1f} s after it started",
           flush=True)

@@ -97,7 +97,8 @@ def test_import_leaves_out_jax_and_tetsim_tpu():
         "'kernels.polar_pieces', 'kernels.nh_pieces', 'kernels.gs_ordered', "
         "'checkpoint', 'viewer.server', 'roofline', 'kernels.gs_levels', "
         "'kernels.polar_jacobi', 'parallel', 'parallel.slabs', "
-        "'parallel.sharding', 'parallel.nh_shard')\n"
+        "'parallel.sharding', 'parallel.nh_shard', 'solvers.dense', "
+        "'kernels.dense_level')\n"
         "missed = [m for m in grid if 'tetsim_torch.' + m not in sys.modules]\n"
         "assert not missed, missed\n"
         "print('ok')\n"

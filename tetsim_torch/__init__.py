@@ -26,7 +26,10 @@ one host call per frame) and ``kernels/nh_stencil.py`` (K3s: one
 cooperative launch per frame and card); a body too large for one
 block's shared memory runs through ``kernels/csrc/gs_levels.cu`` (one
 launch per frame) or ``kernels/csrc/polar_jacobi.cu`` (one cooperative
-launch per frame).  ``parallel.DeviceMesh`` holds devices on named
+launch per frame).  ``add_body_batch(..., backend="dense")`` batches bodies
+in columns through the dense engine (``solvers/dense.py``, ``DenseBody``):
+each colour level one-hot gather and scatter products around one launch
+of ``kernels/csrc/dense_level.cu``.  ``parallel.DeviceMesh`` holds devices on named
 axes, as ``jax.sharding.Mesh`` does: ``parallel.make_sharded_step`` splits
 a batch of bodies (the body axis, K1 / K2 on each device) or one mesh's
 tets (the tet axis, in plain torch, as the JAX package runs it in XLA)

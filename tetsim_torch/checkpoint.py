@@ -17,7 +17,8 @@ rebuilds the scene from the file alone.  The file is the JAX package's
 format, shapes and padding included: a fused batch's state is its
 [9, B_pad, R] planes (pos, prev, vel; x, y, z), B padded to a multiple of
 8 and R to the JAX kernel's lanes, its grabs [B_pad, 1] and [B_pad, 4];
-a flat ``BatchedBody`` is one flat SimState with flat grab ids.  The port
+a flat ``BatchedBody`` is one flat SimState with flat grab ids; a
+``DenseBody`` its [N, 3, B] columns with grabs [B] and [3, B].  The port
 converts at this boundary, so a scene saved by either package resumes in
 the other.
 """
@@ -249,7 +250,8 @@ def _capture_body(body) -> dict:
     from .kernels.gs_ordered import OrderedGSBody
     from .kernels.polar_fused import FusedPolarBody
     from .solvers.polar_grid import quats_from_kernel, unplanes
-    from .world import BatchedBody, Body, GridBodyBatch, PackedGridBody
+    from .world import (BatchedBody, Body, DenseBody, GridBodyBatch,
+                        PackedGridBody)
 
     if isinstance(body, (Body, PackedGridBody)):
         s, c = body.state, body.controls  # PackedGridBody: unpacked here
@@ -296,6 +298,9 @@ def _capture_body(body) -> dict:
                 _host(body.quats)[:, _polar_perm(body.mesh)], -1, 0)
             d["quats"] = q
         return d
+    if isinstance(body, DenseBody):  # columns: [N, 3, B], grabs [B], [3, B]
+        return {k: _host(getattr(body, k))
+                for k in ("pos", "prev_pos", "vel", "grab_id", "grab_pos")}
     raise TypeError(f"cannot checkpoint body type {type(body).__name__}")
 
 
@@ -305,7 +310,8 @@ def _restore_body(body, d: dict, params: PhysicsParams) -> None:
     from .kernels.gs_ordered import OrderedGSBody
     from .kernels.polar_fused import FusedPolarBody
     from .solvers.polar_grid import planes, quats_to_kernel
-    from .world import BatchedBody, Body, GridBodyBatch, PackedGridBody
+    from .world import (BatchedBody, Body, DenseBody, GridBodyBatch,
+                        PackedGridBody)
 
     def t(x, dtype=np.float32):
         # C-contiguous for the kernels; np.array keeps a 0-d grab id 0-d
@@ -351,6 +357,11 @@ def _restore_body(body, d: dict, params: PhysicsParams) -> None:
             q[:, _polar_perm(body.mesh)] = np.moveaxis(
                 d["quats"][:, :b, :m], 0, -1)
             body.quats = t(q)
+    elif isinstance(body, DenseBody):
+        body.pos, body.prev_pos, body.vel = (
+            t(d[k]) for k in ("pos", "prev_pos", "vel"))
+        body.grab_id = t(d["grab_id"], np.int32)
+        body.grab_pos = t(d["grab_pos"])
     else:
         raise TypeError(f"cannot restore body type {type(body).__name__}")
 

@@ -1,6 +1,7 @@
 // The stable Neo-Hookean XPBD projection of one tet, shared by the CUDA
 // kernels that run it: gs_frame.cu (coloured GS over a mesh's level
-// schedule) and nh_stencil.cu (the 48-colour grid sweep).  It is the device
+// schedule), nh_stencil.cu (the 48-colour grid sweep), the other
+// Neo-Hookean kernels and dense_level.cu (the dense engine's level).  It is the device
 // function _solve_level of tetsim_tpu/kernels/gs_fused.py and _solve_color
 // of tetsim_tpu/solvers/neohookean_grid.py: a deviatoric step C = ||F||_F,
 // then a hydrostatic step C = det F - 1 - gamma on the corners the first
@@ -51,17 +52,16 @@ __device__ __forceinline__ void deformation(const float p[4][3],
 }
 
 // Both constraints on one tet with rest pose ir (row-major), inverse rest
-// volume irv, corner inverse masses w and the scales compliance / dt^2.  p
-// is updated in place: p + (d_dev + d_vol) (the generic engine's order)
-// or, with kInOrder, (p + d_dev) + d_vol (the grid engine's, which applies
-// each step to the corners in turn).  Returns det F - 1 on the corners the
-// hydrostatic step saw.
-template <bool kInOrder = false>
-__device__ __forceinline__ float solve_tet(float p[4][3], const float ir[9],
-                                           float irv, const float w[4],
-                                           float dev_scale, float vol_scale,
-                                           float gamma) {
-  float f[3][3], g[3][3], d_dev[4][3], d_vol[4][3], q[4][3];
+// volume irv, corner inverse masses w and the scales compliance / dt^2:
+// the deviatoric step's delta on p into d_dev, the hydrostatic step's on
+// p + d_dev into d_vol.  Returns det F - 1 on the corners the hydrostatic
+// step saw.
+__device__ __forceinline__ float project(const float p[4][3], const float ir[9],
+                                         float irv, const float w[4],
+                                         float dev_scale, float vol_scale,
+                                         float gamma, float d_dev[4][3],
+                                         float d_vol[4][3]) {
+  float f[3][3], g[3][3], q[4][3];
 
   // deviatoric: C = ||F||_F
   deformation(p, ir, f);
@@ -95,11 +95,40 @@ __device__ __forceinline__ float solve_tet(float p[4][3], const float ir[9],
                     f[2][0] * df[2][0];
   const float c_vol = (det - 1.0f) - gamma;
   xpbd(g, c_vol, vol_scale, irv, w, d_vol);
+  return det - 1.0f;
+}
+
+// ``project`` applied to p in place: p + (d_dev + d_vol) (the generic
+// engine's order) or, with kInOrder, (p + d_dev) + d_vol (the grid
+// engine's, which applies each step to the corners in turn).  Returns det
+// F - 1 on the corners the hydrostatic step saw.
+template <bool kInOrder = false>
+__device__ __forceinline__ float solve_tet(float p[4][3], const float ir[9],
+                                           float irv, const float w[4],
+                                           float dev_scale, float vol_scale,
+                                           float gamma) {
+  float d_dev[4][3], d_vol[4][3];
+  const float err = project(p, ir, irv, w, dev_scale, vol_scale, gamma,
+                            d_dev, d_vol);
   for (int i = 0; i < 4; ++i)
     for (int r = 0; r < 3; ++r)
-      p[i][r] = kInOrder ? q[i][r] + d_vol[i][r]
+      p[i][r] = kInOrder ? (p[i][r] + d_dev[i][r]) + d_vol[i][r]
                          : p[i][r] + (d_dev[i][r] + d_vol[i][r]);
-  return det - 1.0f;
+  return err;
+}
+
+// The delta d_dev + d_vol of ``project`` into d, p left as it is (the
+// dense engine's level solve, dense_level.cu, which scatters the delta).
+__device__ __forceinline__ void solve_tet_delta(const float p[4][3],
+                                                const float ir[9], float irv,
+                                                const float w[4],
+                                                float dev_scale,
+                                                float vol_scale, float gamma,
+                                                float d[4][3]) {
+  float d_dev[4][3], d_vol[4][3];
+  project(p, ir, irv, w, dev_scale, vol_scale, gamma, d_dev, d_vol);
+  for (int i = 0; i < 4; ++i)
+    for (int r = 0; r < 3; ++r) d[i][r] = d_dev[i][r] + d_vol[i][r];
 }
 
 }  // namespace nh

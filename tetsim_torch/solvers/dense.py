@@ -1,0 +1,214 @@
+"""The dense Neo-Hookean engine: each colour level's gather and scatter as
+products with a one-hot matrix (counterpart of
+``tetsim_tpu/solvers/dense.py``).
+
+Bodies are batched in columns: the state is [N, 3, B], so one product
+``onehot[l].T @ pos.view(N, 3B)`` gathers the corners of a level's C slots
+for all B bodies ([4C, 3B], row ``c*C + t`` is corner c of slot t, column
+``r*B + b`` coordinate r of body b), and ``pos.view(N, 3B).addmm_(onehot[l],
+delta)`` scatters the deltas back.  Both products are exact in FP32: a
+column of the one-hot holds one 1, and within a level a particle is a
+corner of one slot at most, so every output sums one product with zeros.
+TF32 would round every position to 10 mantissa bits, so on CUDA ``substep``
+refuses to run while it is on (``check_precision``).  The products also
+spread a NaN or inf in any particle to its whole column (0 * inf = NaN), as
+the JAX package's do.
+
+Between the products a level is solved by ``kernels/dense_level.py``: on
+CUDA one launch of ``csrc/dense_level.cu``, on the CPU its plain twin.  The
+substep is the JAX package's dense one, which differs from
+``solvers/common.py``: the prediction is not gated by the inverse mass,
+and the grab overrides its particle after the collision step, so the solve
+does not pin it.
+
+The one-hot is f32 [L, N, 4C]: 161.7 MB for the dragon on the greedy
+colouring (L = 32, C = 256), 1.78 GB on the ordered one (L = 703, C =
+128); ``build_dense_arrays`` refuses a mesh whose slab passes
+``max_bytes``.  The tables are the JAX package's: the level's slots in the
+order of their tets' first corners, C rounded up to 128.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels import dense_level
+from ..mesh import TetMesh, color_slots, greedy_color, level_schedule, rest_state
+from ..params import PhysicsParams
+from . import common
+
+
+@dataclasses.dataclass
+class DenseState:
+    pos: torch.Tensor  # f32 [N, 3, B], contiguous
+    prev_pos: torch.Tensor  # f32 [N, 3, B]
+    vel: torch.Tensor  # f32 [N, 3, B]
+
+    def replace(self, **changes) -> "DenseState":
+        return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass
+class DenseArrays:
+    """Per-mesh constants of the dense engine, as tensors on one device."""
+
+    onehot: torch.Tensor  # f32 [L, N, 4C] scatter matrix (gather: transposed)
+    irp: torch.Tensor  # f32 [L, 9, C] inverse rest pose, row-major
+    irv: torch.Tensor  # f32 [L, C] inverse rest volume (0: padded slot)
+    imc: torch.Tensor  # f32 [L, 4, C] inverse mass of each corner
+    num_particles: int
+    slots_per_level: int
+
+    @property
+    def num_levels(self) -> int:
+        return self.onehot.shape[0]
+
+
+def _round_up(x: int, k: int) -> int:
+    return -(-x // k) * k
+
+
+def level_tables(mesh: TetMesh, density: float = 1000.0,
+                 coloring: str = "greedy"):
+    """The JAX package's per-level tables of a colouring, as numpy arrays:
+    (ids int32 [L, 4C] corner slot -> particle, irp f32 [L, 9, C], irv f32
+    [L, C], imc f32 [L, 4, C]).  C is the largest level rounded up to 128;
+    a level's tets take its first slots in the order of their first
+    corner's particle id (stable), the other slots hold zeros."""
+    ir, irv_t, _, im, _ = rest_state(mesh, density)
+    tets, n = mesh.tets, mesh.num_particles
+    if coloring == "greedy":
+        colors = greedy_color(tets, n)
+    elif coloring == "ordered":
+        colors = level_schedule(tets, n)
+    else:
+        raise ValueError(f"unknown coloring {coloring!r}")
+    slots = color_slots(colors)  # [L, Cmax] of tet ids, -1 padded
+    L, cmax = slots.shape
+    C = _round_up(max(cmax, 1), 128)
+    ids = np.zeros((L, 4 * C), np.int32)
+    irp = np.zeros((L, 9, C), np.float32)
+    irv = np.zeros((L, C), np.float32)
+    imc = np.zeros((L, 4, C), np.float32)
+    for l in range(L):
+        e = slots[l][slots[l] >= 0]
+        e = e[np.argsort(tets[e, 0], kind="stable")]
+        t = np.arange(len(e))
+        for c in range(4):
+            ids[l, c * C + t] = tets[e, c]
+            imc[l, c, t] = im[tets[e, c]]
+        irp[l, :, t] = ir[e].reshape(-1, 9)
+        irv[l, t] = irv_t[e]
+    return ids, irp, irv, imc
+
+
+def build_dense_arrays(mesh: TetMesh, density: float = 1000.0,
+                       coloring: str = "greedy",
+                       max_bytes: int = 2_000_000_000, *, device) -> DenseArrays:
+    """The one-hot slab and the level tables on ``device``; raises
+    ValueError where the slab would pass ``max_bytes``."""
+    ids, irp, irv, imc = level_tables(mesh, density, coloring)
+    n, (L, C) = mesh.num_particles, irv.shape
+    nbytes = L * n * 4 * C * 4
+    if nbytes > max_bytes:
+        raise ValueError(
+            f"dense GS one-hot slab would need {nbytes/1e9:.1f} GB "
+            f"(L={L}, N={n}, 4C={4*C}); use the classic neohookean engine "
+            "for meshes this large"
+        )
+    # a slot's column holds its corner's 1 where the slot holds a tet
+    # (irv != 0, as the JAX package tells them apart)
+    lev, slot = np.nonzero(np.tile(irv != 0.0, (1, 4)))
+    onehot = torch.zeros((L, n, 4 * C), dtype=torch.float32, device=device)
+    onehot[torch.as_tensor(lev), torch.as_tensor(ids[lev, slot]).long(),
+           torch.as_tensor(slot)] = 1.0
+    return DenseArrays(
+        onehot=onehot, irp=torch.as_tensor(irp).to(device),
+        irv=torch.as_tensor(irv).to(device),
+        imc=torch.as_tensor(imc).to(device),
+        num_particles=n, slots_per_level=C,
+    )
+
+
+def init_dense_state(mesh: TetMesh, num_bodies: int, jitter: float = 0.0,
+                     seed: int = 0, *, device) -> DenseState:
+    """B copies of the rest shape in columns, each body offset by a seeded
+    random translation (y kept non-negative), drawn as the JAX package
+    draws it."""
+    pos = np.broadcast_to(mesh.verts.astype(np.float32)[:, :, None],
+                          (mesh.num_particles, 3, num_bodies)).copy()
+    if jitter:
+        rng = np.random.RandomState(seed)
+        off = rng.uniform(-jitter, jitter, (1, 3, num_bodies)).astype(np.float32)
+        off[:, 1] = np.abs(off[:, 1])
+        pos = pos + off
+    pos = torch.as_tensor(pos).to(device)
+    return DenseState(pos=pos, prev_pos=pos, vel=torch.zeros_like(pos))
+
+
+def check_precision() -> None:
+    """Raise unless CUDA float32 products run in full FP32: the one-hot
+    products are exact only there (the JAX package asks for HIGHEST)."""
+    if (torch.get_float32_matmul_precision() != "highest"
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "the dense engine needs full-FP32 matrix products, but TF32 is "
+            f"on (float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()!r}, "
+            f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}): its "
+            "one-hot gather and scatter would round every position; call "
+            "torch.set_float32_matmul_precision('highest')")
+
+
+def project_constraints(pos, arr: DenseArrays, params: PhysicsParams,
+                        level=dense_level.dense_level):
+    """The coloured Gauss-Seidel sweep on pos [N, 3, B] (contiguous),
+    updated in place level by level; ``level`` solves one level
+    (``dense_level.dense_level``, or its plain twin for a check)."""
+    n, _, B = pos.shape
+    flat = pos.view(n, 3 * B)
+    for l in range(arr.num_levels):
+        g = arr.onehot[l].T @ flat  # [4C, 3B] corners
+        delta = level(g, arr.irp[l], arr.irv[l], arr.imc[l], params)
+        flat.addmm_(arr.onehot[l], delta)  # exact: one term per row
+    return pos
+
+
+def substep(state: DenseState, arr: DenseArrays, params: PhysicsParams,
+            grab_id, grab_pos, level=dense_level.dense_level) -> DenseState:
+    """One XPBD substep on [N, 3, B]: grab_id int32 [B] (-1 inactive),
+    grab_pos f32 [3, B]."""
+    if state.pos.device.type == "cuda":
+        check_precision()
+    dt = params.dt
+    vel = state.vel.clone()
+    vel[:, 1] += params.gravity * dt
+    prev = state.pos
+    pos = prev + vel * dt  # a new tensor: the sweep updates it in place
+    project_constraints(pos, arr, params, level)
+
+    # collide: the world bounds, then the ground with friction
+    for r in range(3):
+        pos[:, r].clamp_(float(params.world_min[r]), float(params.world_max[r]))
+    below = pos[:, 1] < 0.0
+    pos[:, 1] = torch.where(below, 0.0, pos[:, 1])
+    k = np.minimum(np.float32(1.0), dt * params.friction)
+    for ax in (0, 2):
+        pos[:, ax] += torch.where(below, (prev[:, ax] - pos[:, ax]) * k, 0.0)
+
+    # per-body grab override
+    hit = torch.arange(pos.shape[0], device=pos.device)[:, None] == grab_id
+    pos = torch.where(hit[:, None, :], grab_pos, pos)
+    return DenseState(pos=pos, prev_pos=prev,
+                      vel=common.velocity_update(pos, prev, dt))
+
+
+def step_frame(state: DenseState, arr: DenseArrays, params: PhysicsParams,
+               grab_id, grab_pos, level=dense_level.dense_level) -> DenseState:
+    """``params.num_substeps`` substeps: on CUDA L launches of the level
+    kernel each."""
+    for _ in range(params.num_substeps):
+        state = substep(state, arr, params, grab_id, grab_pos, level)
+    return state

@@ -5,8 +5,9 @@ serve the same page) renders whatever the server exports and sends grab
 rays back.
 
 Every body in the World is rendered: ``Body`` and ``PackedGridBody``, the
-flat batches (``BatchedBody``, ``GridBodyBatch``) and the fused batches
-(``FusedGSBody``, ``FusedPolarBody``, ``OrderedGSBody``).  Geometry is
+flat batches (``BatchedBody``, ``GridBodyBatch``), the fused batches
+(``FusedGSBody``, ``FusedPolarBody``, ``OrderedGSBody``) and the dense
+column batch (``DenseBody``).  Geometry is
 concatenated into one set of buffers with per-body index offsets; a grab
 ray goes to the nearest particle across all bodies.
 
@@ -56,9 +57,9 @@ from ..mesh import replicate_mesh
 from ..params import PhysicsParams
 from ..solvers.polar_grid import quats_from_kernel, unplanes
 from ..state import Controls
-from ..world import (BatchedBody, Body, GridBodyBatch, PackedGridBody, World,
-                     _POLAR_ENGINES, _Surface, _surface_render_data,
-                     _surface_render_data_rotated)
+from ..world import (BATCHES, BatchedBody, Body, DenseBody, GridBodyBatch,
+                     PackedGridBody, World, _POLAR_ENGINES, _Surface,
+                     _surface_render_data, _surface_render_data_rotated)
 
 _STATIC = os.path.join(TPU_PKG_DIR, "viewer", "static")
 
@@ -131,8 +132,8 @@ class _View:
             self.edges = body.flat_mesh.edges
             if self.surface is not None:
                 body.enable_render_export()
-        elif isinstance(body, FusedBatch):
-            self.kind = "packed"  # the fused batches: one block per body
+        elif isinstance(body, (FusedBatch, DenseBody)):
+            self.kind = "packed"  # the fused and the dense batches
             self._n_per = body.mesh.num_particles
             flat = replicate_mesh(body.mesh, body.num_bodies)
             self.n_particles = flat.num_particles
@@ -166,6 +167,8 @@ class _View:
             return b.pos_device() if self._packed_grid else b.state.pos
         if isinstance(b, GridBodyBatch):
             return unplanes(b.pos).reshape(-1, 3)
+        if isinstance(b, DenseBody):  # [N, 3, B] columns
+            return b.pos.movedim(-1, 0).reshape(-1, 3)
         return b.pos.reshape(-1, 3)
 
     def quats_device(self):
@@ -478,7 +481,7 @@ class ViewerServer:
             if getattr(b, "_many_export", None) is not None:
                 vns[i] = b.step_many_export(params, frames,
                                             normals=self.normals_mode)
-            elif isinstance(b, (FusedBatch, GridBodyBatch)):
+            elif isinstance(b, BATCHES):
                 b.step(params, frames)
             else:
                 b.step_many(params, frames)

@@ -21,7 +21,9 @@ large unstructured mesh runs through ``Body`` with the pieces engines
 (``engine="polar_pieces"`` or ``"nh_pieces"``, the kernels of
 ``kernels/polar_pieces.py`` and ``kernels/nh_pieces.py``), and
 ``add_body_batch(..., backend="fused_ordered")`` steps 8 bodies in the
-reference's exact constraint order (``OrderedGSBody``).
+reference's exact constraint order (``OrderedGSBody``), and
+``add_body_batch(..., backend="dense")`` B bodies batched in columns
+through the dense engine (``DenseBody``, ``solvers/dense.py``).
 
 ``enable_render_export`` / ``step_many_export`` run a body's frames and
 then its surface export ([2, S, 3]: skinned vertices and normals) as one
@@ -47,7 +49,7 @@ from .kernels.polar_fused import FusedPolarBody
 from .mesh import (TetArrays, TetMesh, build_arrays, grid_mesh, replicate_mesh,
                    with_boundary_surface)
 from .params import PhysicsParams
-from .solvers import GRID_ENGINES, get_engine
+from .solvers import GRID_ENGINES, dense, get_engine
 from .solvers.neohookean_grid import build_nh_grid_arrays
 from .solvers.polar import quat_rotate
 from .solvers.polar_grid import (build_grid_arrays, planes, quats_from_kernel,
@@ -733,6 +735,106 @@ class GridBodyBatch:
         self.grab_id[body, 0] = -1
 
 
+class DenseBody:
+    """B bodies of one mesh stepped by the dense Neo-Hookean engine
+    (``solvers/dense.py``): bodies batched in columns, pos / prev_pos / vel
+    [N, 3, B] (``state``), each colour level gathered and scattered by
+    one-hot products around one launch of ``kernels/csrc/dense_level.cu``
+    on CUDA.  One grab per body: grab_id int32 [B] (-1 inactive), grab_pos
+    [3, B].  The per-body grab API of the other batches; ``positions`` and
+    ``velocities`` are [B, N, 3]."""
+
+    def __init__(
+        self,
+        mesh: TetMesh,
+        num_bodies: int,
+        density: float = 1000.0,
+        coloring: str = "greedy",
+        jitter: float = 0.0,
+        seed: int = 0,
+        device="cuda",
+    ):
+        self.mesh = mesh
+        self.engine = "dense"
+        self.num_bodies = num_bodies
+        self.device = check_device(device)
+        self.arrays = dense.build_dense_arrays(mesh, density, coloring,
+                                               device=self.device)
+        self.state = dense.init_dense_state(mesh, num_bodies, jitter, seed,
+                                            device=self.device)
+        self.grab_id = torch.full((num_bodies,), -1, dtype=torch.int32,
+                                  device=self.device)
+        self.grab_pos = torch.zeros((3, num_bodies), dtype=torch.float32,
+                                    device=self.device)
+        self.last_diag = None
+
+    @property
+    def state(self) -> dense.DenseState:
+        return dense.DenseState(pos=self.pos, prev_pos=self.prev_pos,
+                                vel=self.vel)
+
+    @state.setter
+    def state(self, s: dense.DenseState):
+        self.pos, self.prev_pos, self.vel = s.pos, s.prev_pos, s.vel
+
+    def step(self, params: PhysicsParams, frames: int = 1):
+        """Advance every body by ``frames`` frames (no sync)."""
+        for _ in range(frames):
+            self.state = dense.step_frame(self.state, self.arrays, params,
+                                          self.grab_id, self.grab_pos)
+
+    # -- views ---------------------------------------------------------------
+    def positions(self) -> np.ndarray:
+        """[num_bodies, N, 3]."""
+        return self.pos.movedim(-1, 0).cpu().numpy()
+
+    def velocities(self) -> np.ndarray:
+        return self.vel.movedim(-1, 0).cpu().numpy()
+
+    def summary(self) -> dict:
+        """Batch size, lowest particle, fastest particle and NaN flag, in
+        one device-to-host transfer."""
+        h = torch.stack([
+            self.pos[:, 1].min(),
+            torch.linalg.vector_norm(self.vel, dim=1).max(),
+            torch.isnan(self.pos).any().to(torch.float32),
+        ]).tolist()
+        return {"batch": self.num_bodies, "min_height": h[0],
+                "max_speed": h[1], "nan": bool(h[2])}
+
+    # -- per-body interaction -----------------------------------------------
+    def _check_body(self, body: int):
+        if not 0 <= body < self.num_bodies:
+            raise IndexError(
+                f"body index {body} out of range (batch has {self.num_bodies})"
+            )
+
+    def set_grab(self, body: int, particle: int, point):
+        self._check_body(body)
+        self.grab_id[body] = particle
+        self.grab_pos[:, body] = _point(point, self.device)
+
+    def start_grab(self, body: int, point) -> int:
+        """Grab the body's particle nearest to ``point``; returns its id."""
+        self._check_body(body)
+        pid = int(_nearest_particle(self.pos[..., body],
+                                    _point(point, self.device)))
+        self.set_grab(body, pid, point)
+        return pid
+
+    def move_grabbed(self, body: int, point):
+        self._check_body(body)
+        self.grab_pos[:, body] = _point(point, self.device)
+
+    def end_grab(self, body: int):
+        self._check_body(body)
+        self.grab_id[body] = -1
+
+
+# the batches: step(params, frames) advances them, summary() reports them
+BATCHES = (FusedBatch, GridBodyBatch, DenseBody)
+
+
 class World:
     """Scene container + frame loop on one device ("cuda" or "cpu")."""
 
@@ -860,7 +962,11 @@ class World:
         backend="fused_ordered" — ``OrderedGSBody``: the neohookean engine in
                           the reference's exact constraint order, exactly 8
                           bodies, one launch of the exact-order kernel per
-                          frame.
+                          frame;
+        backend="dense" — ``DenseBody``: the neohookean engine with bodies
+                          batched in columns, each level's gather and
+                          scatter one-hot products around one launch of
+                          the level kernel.
         """
         d = float(self.params.density) if density is None else density
         kw = dict(density=d, jitter=jitter, seed=seed, device=self.device)
@@ -886,13 +992,15 @@ class World:
                     "the fused backend implements the neohookean and polar "
                     f"engines, not {engine!r}"
                 )
+        elif backend == "dense":
+            if engine != "neohookean":
+                raise ValueError(
+                    "the dense backend implements the neohookean engine")
+            batch = DenseBody(mesh, num_bodies, **kw)
         elif backend == "flat":
             batch = BatchedBody(mesh, num_bodies, engine=engine, **kw)
         else:
-            raise ValueError(
-                f"backend {backend!r} is not ported (see ROADMAP.md); the "
-                "port has 'flat', 'fused' and 'fused_ordered'"
-            )
+            raise ValueError(f"unknown backend {backend!r}")
         self.bodies.append(batch)
         self._specs.append({
             "add": "body_batch", "num_bodies": num_bodies, "engine": engine,
@@ -928,7 +1036,7 @@ class World:
         """Advance all bodies by ``frames`` frames (bodies are independent,
         so each runs its frames in turn)."""
         for body in self.bodies:
-            if isinstance(body, (FusedBatch, GridBodyBatch)):
+            if isinstance(body, BATCHES):
                 body.step(self.params, frames)
             else:
                 body.step_many(self.params, frames)
@@ -936,11 +1044,11 @@ class World:
     def diagnostics(self) -> dict:
         """Per body, as Python numbers: a batch (``FusedGSBody``,
         ``FusedPolarBody``, ``OrderedGSBody``, ``BatchedBody``,
-        ``GridBodyBatch``) its size, lowest particle, fastest particle and
+        ``GridBodyBatch``, ``DenseBody``) its size, lowest particle, fastest particle and
         NaN flag; any other body ``diag.summarize``."""
         out = {}
         for i, b in enumerate(self.bodies):
-            if isinstance(b, (FusedBatch, GridBodyBatch)):
+            if isinstance(b, BATCHES):
                 out[f"body{i}"] = b.summary()
             else:
                 out[f"body{i}"] = diag.summarize(b.state, b.arrays, b.last_diag)
