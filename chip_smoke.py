@@ -154,24 +154,32 @@ code is non-zero:
      each form's ms per frame;
  26. the rest of the public surface: the dragon through a 1-based TetGen
      .node/.ele pair and an npz round trip, equal, and 3 polar frames of
-     it; diag.trace around 3 polar frames (the Chrome trace names
-     polar_frame_kernel 3 times); examples/torch_drop_dragon.py,
+     it; examples/torch_drop_dragon.py,
      torch_cantilever.py and torch_scale_grid.py for 3 frames each, their
      kernels' launch counts held;
- 27. the dense engine (run before phase 26, whose torch.profiler run would
-     slow its timed launches on the host): World -> add_body_batch(
+ 27. the dense engine: World -> add_body_batch(
      load_dragon(), 128, engine="neohookean", backend="dense", jitter=0.5)
      on the greedy colouring with a grab on body 5, 3 frames with no host
-     sync, each held to the plain twin (the frame with the level kernel's
-     twin) at positions 2e-5 and velocities 2e-3 or twice the kernel
-     path's spread from a start 1 ulp apart; one level-kernel launch per
-     level and substep (160 a frame) and the twin never called; one level
-     alone, kernel vs twin, and its scatter bitwise pos + delta; the step
-     refused with TF32 on; save -> World.load(device="cuda") bitwise after
-     one more frame; ms per frame at B = 8 and 128 (two-point fit),
-     body-substeps/s, the kernel's us per launch and its twin's, a
-     frame's products alone; a trace of one frame at each B: its
-     kernels, their device time and the products' share.
+     sync, each held to the plain twin (the one-hot products and the plain
+     level solve) at positions 2e-5 and velocities 2e-3 or twice the kernel
+     path's spread from a start 1 ulp apart; one frame-kernel launch a
+     frame and the twin never called; a NaN, an inf and 1e30 planted in one
+     particle of body 0, the twin's NaN masks after each frame and the
+     other bodies' bits unmoved; with TF32 on, the kernel's bits unchanged
+     and the twin refused; save -> World.load(device="cuda") bitwise after
+     one more frame; one substep of 1/300 s of 8 dragons on the ordered
+     colouring (703 levels, C = 128) and a frame of 8 grid_mesh(12, 12,
+     12) boxes (2,197 particles, C = 512) against the twin, within the same
+     bars; the refusal of a body over a block's shared memory;
+     ms per frame at B = 8 and 128 (two-point fit and CUDA events),
+     body-substeps/s, the twin's frame;
+ 28. the script's one torch.profiler session, last, since a session slows
+     later launches on the host: diag.trace around one dense frame at B = 8,
+     one at B = 128 and 3 polar World frames, each in a record_function
+     range, every kernel put in the range that launched it: one
+     dense_frame kernel and no gemm a dense frame, with the busy share,
+     and polar_frame_kernel 3 times in the polar range (the Chrome trace
+     diag.trace writes).
 Then a JSON line with every kernel's numbers, the card's name and power
 limit, and, last, the device line.  It exits non-zero, printing no result,
 where CUDA is unavailable.
@@ -2481,13 +2489,10 @@ def run_example(name, argv):
 
 
 def surface(tt, gs_fused, polar_fused, polar_stencil, dragon):
-    """Phase 26: TetGen and npz round trips of the dragon, diag.trace on
-    the card, the three examples."""
-    import json
+    """Phase 26: TetGen and npz round trips of the dragon, the three
+    examples.  Its diag.trace check is phase 28's."""
     import os
     import tempfile
-
-    from tetsim_torch import diag
 
     with tempfile.TemporaryDirectory() as tmp:
         node, ele = os.path.join(tmp, "d.node"), os.path.join(tmp, "d.ele")
@@ -2520,24 +2525,6 @@ def surface(tt, gs_fused, polar_fused, polar_stencil, dragon):
               f"{flipped} reoriented, {len(m.edges)} edges) and an npz round "
               "trip, equal; 3 polar frames of it on the card", flush=True)
 
-        world = tt.World(tt.default_gpu_params())
-        world.add_body(dragon, engine="polar")
-        world.step(1)
-        sync()
-        with diag.trace(os.path.join(tmp, "trace")) as t:
-            world.step(3)
-            sync()
-        with open(t.path) as f:
-            events = json.load(f)["traceEvents"]
-        names = [e.get("name", "") for e in events
-                 if e.get("cat") == "kernel"]
-        hits = sum("polar_frame_kernel" in n for n in names)
-        check(hits == 3, f"trace: {hits} polar_frame_kernel events of "
-              f"{len(names)} kernel events")
-        print(f"phase 26 diag.trace: {os.path.getsize(t.path):,} bytes, "
-              f"{len(events)} events, {len(names)} kernel events, "
-              f"polar_frame_kernel x{hits} for 3 frames", flush=True)
-
         gs_fused.launch_count = polar_fused.launch_count = 0
         run_example("torch_drop_dragon",
                     ["--frames", "3", "--checkpoint",
@@ -2559,35 +2546,115 @@ def surface(tt, gs_fused, polar_fused, polar_stencil, dragon):
               flush=True)
 
 
-# -- the dense engine (dense_level) --------------------------------------------
+# -- the one torch.profiler session ---------------------------------------------
 
-DENSE_B = 128  # the dense dragon batch measured on the TPU (BENCHNOTES.md)
-DENSE_FRAMES = 3
-
-
-def dense_engine(tt, dense_level, dragon, label):
-    """Phase 27: World -> add_body_batch(dragon, 128, engine="neohookean",
-    backend="dense", jitter=0.5) on the card, greedy colouring, a grab on
-    body 5; 3 frames with no host sync, held after each to the plain twin
-    (the same frame with ``dense_level_reference`` for the kernel) at
-    positions 2e-5 and velocities 2e-3 or twice the kernel path's own
-    spread from a start 1 ulp apart; L x num_substeps kernel launches a
-    frame and the twin never called; a level's scatter bitwise pos +
-    delta; the TF32 refusal; save -> World.load(device="cuda") bitwise
-    after one more frame; then ms per frame at B = 8 and 128, the kernel's
-    us per launch, the products' share and the kernels a frame launches.
-    Returns the kernel's JSON row."""
+def traced(tt, dragon, params, dense_bodies, dense_times, label):
+    """Phase 28, the script's only torch.profiler session (one session
+    leaves later launches slower on the host, so it comes last): diag.trace
+    around one dense frame at B = 8, one at B = 128 and 3 polar World
+    frames, each in its own ``record_function`` range that ends with a
+    sync.  Each kernel is put in the range that launched it (the kernel's
+    correlation id names its launch call on the host's clock).  The dense
+    frames launch one dense_frame kernel each and no gemm; the polar frames
+    polar_frame_kernel 3 times; no kernel falls outside the ranges."""
     import json
     import os
     import tempfile
 
     from tetsim_torch import diag
+
+    world = tt.World(tt.default_gpu_params())
+    world.add_body(dragon, engine="polar")
+    world.step(1)
+    steps = {f"dense B={b}": (lambda body=body: body.step(params))
+             for b, body in dense_bodies.items()}
+    steps["polar 3 frames"] = lambda: world.step(3)
+    for fn in steps.values():
+        fn()
+    sync()
+    with tempfile.TemporaryDirectory() as tmp:
+        with diag.trace(os.path.join(tmp, "trace")) as t:
+            for name, fn in steps.items():
+                with torch.profiler.record_function(name):
+                    fn()
+                    sync()
+        size = os.path.getsize(t.path)
+        with open(t.path) as f:
+            events = json.load(f)["traceEvents"]
+
+    ranges = {e["name"]: (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+              for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") in steps}
+    check(set(ranges) == set(steps), f"trace: ranges {sorted(ranges)}")
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    by_range = {name: [] for name in steps}
+    for e in kern:
+        ts = launch_ts.get(e.get("args", {}).get("correlation"),
+                           float(e["ts"]))
+        inside = [n for n, (t0, t1) in ranges.items() if t0 <= ts <= t1]
+        check(len(inside) == 1, f"trace: kernel {e.get('name')} at {ts} "
+              f"in ranges {inside}")
+        by_range[inside[0]].append(e)
+    polar = sum("polar_frame_kernel" in e.get("name", "")
+                for e in by_range["polar 3 frames"])
+    check(polar == 3, f"trace: {polar} polar_frame_kernel events of "
+          f"{len(by_range['polar 3 frames'])} kernel events in 3 polar frames")
+    print(f"phase 28 diag.trace: {size:,} bytes, {len(events)} events, "
+          f"{len(kern)} kernel events, polar_frame_kernel x{polar} for 3 "
+          "polar frames", flush=True)
+    for b in dense_bodies:
+        kinds = {"dense_frame": 0, "gemm": 0, "other": 0}
+        us = dict.fromkeys(kinds, 0.0)
+        for e in by_range[f"dense B={b}"]:
+            name = e.get("name", "")
+            kind = ("dense_frame" if "dense_frame_kernel" in name else
+                    "gemm" if "gemm" in name.lower() else "other")
+            kinds[kind] += 1
+            us[kind] += float(e.get("dur", 0.0))
+        check(kinds["dense_frame"] == 1 and kinds["gemm"] == 0,
+              f"the dense B={b} frame's kernels {kinds}")
+        ms = dense_times[b][0]
+        busy = sum(us.values()) / 1e3
+        print(f"phase 28 [{label}] dense dragon B={b}: one frame (traced) "
+              f"launches {sum(kinds.values())} kernels, {busy:.4f} ms of "
+              f"them on the card ({busy / ms:.1%} of the frame's "
+              f"{ms:.4f} ms): " + ", ".join(
+                  f"{k} {n} ({us[k] / 1e3:.4f} ms)" for k, n in kinds.items()),
+              flush=True)
+
+
+# -- the dense engine (dense_frame) --------------------------------------------
+
+DENSE_B = 128  # the dense dragon batch measured on the TPU (BENCHNOTES.md)
+DENSE_FRAMES = 3
+
+
+def dense_engine(tt, dense_frame, dragon, label):
+    """Phase 27: World -> add_body_batch(dragon, 128, engine="neohookean",
+    backend="dense", jitter=0.5) on the card, greedy colouring, a grab on
+    body 5; 3 frames with no host sync, held after each to the plain twin
+    (``dense.frame_reference``: the products and the plain level solve) at
+    positions 2e-5 and velocities 2e-3 or twice the kernel path's own
+    spread from a start 1 ulp apart; one frame-kernel launch a frame and
+    the twin never called; a NaN, an inf and 1e30 planted in one particle
+    of body 0, the twin's NaN masks after each frame and the other bodies'
+    bits unmoved; with TF32 on the kernel's bits and the twin's refusal;
+    save -> World.load(device="cuda") bitwise after one more frame; one
+    substep of 8 dragons on the ordered colouring and a frame of 8 boxes
+    of 2,197 particles (C = 512) against the twin, within the same bars;
+    the shared-memory refusal; then ms per frame at B = 8 and 128 by the host's
+    clock and by CUDA events, and the twin's.  Returns the kernel's JSON
+    row, the bodies of B = 8 and 128 and their (ms, event ms, twin ms), from
+    which phase 28 traces a frame each."""
     from tetsim_torch._compile import BUILD_DIR
+    from tetsim_torch.kernels import dense_level
     from tetsim_torch.solvers import dense
     from tetsim_torch.world import DenseBody
 
     params = tt.default_cpu_params()
-    S = params.num_substeps
     world = tt.World(tt.default_cpu_params())
     batch = world.add_body_batch(dragon, DENSE_B, engine="neohookean",
                                  backend="dense", jitter=0.5)
@@ -2598,10 +2665,12 @@ def dense_engine(tt, dense_level, dragon, label):
     target = batch.positions()[5, pid] + np.float32([0.0, 0.05, 0.0])
     batch.move_grabbed(5, target)
     start = batch.state
+    gid, gpos = batch.grab_id, batch.grab_pos
+    twin = dense.frame_reference
 
-    twin, dense_level.dense_level_reference = \
-        dense_level.dense_level_reference, None  # a call would raise
-    dense_level.launch_count = 0
+    saved = dense.frame_reference, dense_level.dense_level_reference
+    dense.frame_reference = dense_level.dense_level_reference = None  # raise
+    dense_frame.launch_count = 0
     try:
         got = []
         with no_host_sync():
@@ -2609,22 +2678,20 @@ def dense_engine(tt, dense_level, dragon, label):
                 world.step(1)
                 got.append(batch.state)
     finally:
-        dense_level.dense_level_reference = twin
-    launches = dense_level.launch_count
-    check(launches == DENSE_FRAMES * L * S,
-          f"{launches} level launches for {DENSE_FRAMES} frames of {L} levels "
-          f"x {S} substeps")
+        dense.frame_reference, dense_level.dense_level_reference = saved
+    launches = dense_frame.launch_count
+    check(launches == DENSE_FRAMES,
+          f"{launches} frame-kernel launches for {DENSE_FRAMES} frames")
     sync()
 
     def ulp(x, to):
         return torch.nextafter(x, torch.full_like(x, to))
 
-    def frames(s, level=dense_level.dense_level):
+    def frames(s, step=dense.step_frame):
         """Each state of ``DENSE_FRAMES`` frames from s."""
         out = []
         for _ in range(DENSE_FRAMES):
-            s = dense.step_frame(s, arr, params, batch.grab_id,
-                                 batch.grab_pos, level)
+            s = step(s, arr, params, gid, gpos)
             out.append(s)
         return out
 
@@ -2643,44 +2710,55 @@ def dense_engine(tt, dense_level, dragon, label):
             f"phase 27 dense B={DENSE_B} frame {f} of {DENSE_FRAMES}",
             [("pos", k.pos, r.pos, 2e-5, sp), ("vel", k.vel, r.vel, 2e-3, sv)]))
     last = got[-1].pos
-    check(torch.equal(last[pid, :, 5], batch.grab_pos[:, 5]), "grab off target")
+    check(torch.equal(last[pid, :, 5], gpos[:, 5]), "grab off target")
     check(bool(torch.isfinite(last).all()) and last.is_contiguous()
           and tuple(last.shape) == (dragon.num_particles, 3, DENSE_B),
           "positions")
     diag_ = world.diagnostics()["body0"]
     check(diag_["batch"] == DENSE_B and not diag_["nan"], f"diagnostics {diag_}")
     print(f"phase 27 add_body_batch(dragon, {DENSE_B}, backend='dense'): L = "
-          f"{L} levels of C = {C} slots, {launches} level launches for "
-          f"{DENSE_FRAMES} frames ({launches // DENSE_FRAMES} a frame), the "
-          f"twin not called, grab pid {pid} of body 5 at target, diagnostics "
-          f"{diag_}; the twin {twin_s:.3f} s per frame", flush=True)
+          f"{L} levels of C = {C} slots, {launches} frame-kernel launches for "
+          f"{DENSE_FRAMES} frames, the twin not called, grab pid {pid} of "
+          f"body 5 at target, diagnostics {diag_}; the twin {twin_s:.3f} s "
+          "per frame", flush=True)
 
-    # one level alone: the kernel vs its twin, the scatter bitwise pos + delta
-    flat = last.reshape(dragon.num_particles, 3 * DENSE_B)
-    lv = (arr.irp[0], arr.irv[0], arr.imc[0])
-    g = arr.onehot[0].T @ flat
-    delta = dense_level.dense_level(g, *lv, params)
-    level_err = max_diff(delta, twin(g, *lv, params))
-    rows = arr.onehot[0].argmax(dim=0)  # the particle of each corner slot
-    used = arr.onehot[0].sum(dim=0) > 0
-    expect = flat.clone()
-    expect[rows[used]] = expect[rows[used]] + delta[used]
-    same = torch.equal(flat.clone().addmm_(arr.onehot[0], delta), expect)
-    print(f"phase 27 level 0: kernel vs twin max|d| {level_err:.3e} (tol "
-          f"1e-6); scatter addmm_ bitwise pos + delta: {same}", flush=True)
-    check(level_err <= 1e-6 and same, "phase 27 level 0 disagrees")
-    err = max(err, level_err)
+    # NaN and inf spread as the products spread them: body 0 NaN, the other
+    # bodies' bits those of the main run
+    for name, plant, coords in (("a NaN", float("nan"), 1),
+                                ("an inf", float("inf"), 1),
+                                ("1e30", 1e30, slice(None))):
+        s0 = start.replace(pos=start.pos.clone())
+        s0.pos[11, coords, 0] = plant
+        ks, rs = frames(s0), frames(s0, twin)
+        masks = all(torch.equal(torch.isnan(getattr(k, a)),
+                                torch.isnan(getattr(r, a)))
+                    for k, r in zip(ks, rs) for a in ("pos", "prev_pos", "vel"))
+        rest = all(torch.equal(getattr(k, a)[..., 1:], getattr(g, a)[..., 1:])
+                   for k, g in zip(ks, got) for a in ("pos", "prev_pos", "vel"))
+        body0 = int(torch.isnan(ks[-1].pos[..., 0]).sum())
+        print(f"phase 27 {name} in particle 11 of body 0 (y; 1e30 in each "
+              f"coordinate): the twin's NaN masks after each of "
+              f"{DENSE_FRAMES} frames {masks}, the other bodies bitwise the "
+              f"main run {rest}, body 0 NaN in {body0} of "
+              f"{3 * dragon.num_particles} coordinates", flush=True)
+        check(masks and rest and body0 == 3 * dragon.num_particles,
+              f"phase 27 {name} spreads otherwise than in the twin")
 
     torch.set_float32_matmul_precision("high")
     try:
-        world.step(1)
-        refused = False
-    except RuntimeError as e:
-        refused = "TF32" in str(e)
+        tf32 = dense.step_frame(start, arr, params, gid, gpos)
+        same = all(torch.equal(getattr(tf32, a), getattr(got[0], a))
+                   for a in ("pos", "prev_pos", "vel"))
+        try:
+            twin(start, arr, params, gid, gpos)
+            refused = False
+        except RuntimeError as e:
+            refused = "TF32" in str(e)
     finally:
         torch.set_float32_matmul_precision("highest")
-    print(f"phase 27 TF32 on: the step refuses {refused}", flush=True)
-    check(refused, "the dense step ran with TF32 on")
+    print(f"phase 27 TF32 on: the kernel's frame bitwise the frame with it "
+          f"off {same}, the twin refuses {refused}", flush=True)
+    check(same and refused, "phase 27 TF32")
 
     path = f"{BUILD_DIR}/phase27_scene.npz"  # inside the checkout, ignored
     world.save(path)
@@ -2696,76 +2774,76 @@ def dense_engine(tt, dense_level, dragon, label):
           f"each: bitwise equal {same}", flush=True)
     check(same, "the loaded dense world steps differently")
 
-    # times at B = 8 and 128: the frame by the host's clock; the level
-    # kernel, its twin and a frame's products alone by CUDA events; then a
-    # trace of one frame, its kernels and their device time (last: a
-    # torch.profiler run slows later launches on the host)
+    def other_mesh(label, body, prm):
+        """One frame of ``body`` against the twin, within 2e-5 / 2e-3 or
+        twice the kernel's spread from starts 1 ulp apart."""
+        s, a = body.state, body.arrays
+        k, *m = (dense.step_frame(x, a, prm, body.grab_id, body.grab_pos)
+                 for x in (s, s.replace(pos=ulp(s.pos, 10.0)),
+                           s.replace(pos=ulp(s.pos, -10.0))))
+        r = twin(s, a, prm, body.grab_id, body.grab_pos)
+        return hold(label, [
+            ("pos", k.pos, r.pos, 2e-5, max(max_diff(k.pos, x.pos) for x in m)),
+            ("vel", k.vel, r.vel, 2e-3, max(max_diff(k.vel, x.vel) for x in m))])
+
+    # the ordered colouring (C = 128: half the block solves), one substep at
+    # the default substep's dt (one of 1/60 s is chaotic over 703 levels:
+    # a start 1 ulp apart moves positions by 1.3), the twin taking seconds
+    ordered = DenseBody(dragon, 8, coloring="ordered", jitter=0.5)
+    err = max(err, other_mesh(
+        f"phase 27 dense ordered B=8 ({ordered.arrays.num_levels} levels of "
+        f"C = {ordered.arrays.slots_per_level}), one substep of 1/300 s",
+        ordered, tt.PhysicsParams(num_substeps=1, time_step=1.0 / 300.0)))
+    del ordered
+    # a mesh past the block's width (C = 512: two slots a thread) and past
+    # the particles whose prev a thread keeps in registers (2,197 > 2,048)
+    box = DenseBody(tt.grid_mesh(12, 12, 12, cell=0.1,
+                                 origin=(-0.5, 0.3, -0.5)), 8, jitter=0.5)
+    err = max(err, other_mesh(
+        f"phase 27 dense grid_mesh(12, 12, 12) B=8 ({box.mesh.num_particles} "
+        f"particles, {box.arrays.num_levels} levels of C = "
+        f"{box.arrays.slots_per_level}), one frame", box, params))
+    del box
+
+    big = torch.zeros((19_371, 3, 1), device="cuda")
+    try:
+        dense_frame.dense_frame(big, big, arr, params, gid[:1], gpos[:, :1])
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"phase 27 19,371 particles a body: {refused}", flush=True)
+    check("232452" in refused and "232448" in refused,
+          "the shared-memory refusal")
+
+    # times at B = 8 and 128: the frame by the host's clock and by CUDA
+    # events, the twin's frame; the trace of one frame is phase 28's
     out, bodies = {}, {}
     for b in (8, DENSE_B):
         body = bodies[b] = DenseBody(dragon, b, jitter=0.5)
         ms = per_frame(lambda k: body.step(params, k), lambda: body.pos.sum(),
-                       5, 25) * 1e3
-        fl = body.pos.view(dragon.num_particles, 3 * b)
-        g = arr.onehot[0].T @ fl
-        k_ms = event_ms(lambda: dense_level.dense_level(g, *lv, params), 200)
-        p_ms = event_ms(lambda: twin(g, *lv, params), 20)
-        scratch = fl.clone()
-
-        def products():  # a frame's gathers from fl, scatters into scratch
-            for _ in range(S):
-                for l in range(L):
-                    scratch.addmm_(arr.onehot[l], arr.onehot[l].T @ fl)
-
-        out[b] = (ms, k_ms, p_ms, event_ms(products, 5))
-    for b, body in bodies.items():
-        body.step(params)
-        sync()
-        with tempfile.TemporaryDirectory() as tmp:
-            with diag.trace(os.path.join(tmp, "trace")) as t:
-                body.step(params)
-                sync()
-            with open(t.path) as f:
-                kern = [e for e in json.load(f)["traceEvents"]
-                        if e.get("cat") == "kernel"]
-        kinds = {"dense_level": 0, "gemm": 0, "other": 0}
-        us = dict.fromkeys(kinds, 0.0)
-        gemms = {}  # the products' kernels by name
-        for e in kern:
-            name = e.get("name", "")
-            kind = ("dense_level" if "dense_level_kernel" in name else
-                    "gemm" if "gemm" in name.lower() else "other")
-            kinds[kind] += 1
-            us[kind] += float(e.get("dur", 0.0))
-            if kind == "gemm":
-                gemms[name[:80]] = gemms.get(name[:80], 0) + 1
-        check(kinds["dense_level"] == L * S, "the trace's level launches")
-        ms, k_ms, p_ms, prod_ms = out[b]
-        busy = sum(us.values()) / 1e3
-        gflop = 2 * 2 * dragon.num_particles * 4 * C * 3 * b * L * S / 1e9
+                       20, 200) * 1e3
+        k_ms = event_ms(lambda: body.step(params), 100)
+        p_ms = event_ms(lambda: twin(body.state, arr, params, body.grab_id,
+                                     body.grab_pos), 1)
+        out[b] = (ms, k_ms, p_ms)
+        b_ms, b_by = bound(dense_frame.frame_flops(arr, params, b),
+                           dense_frame.frame_bytes(arr, b))
         print(f"phase 27 [{label}] dense dragon B={b}: {ms:.4f} ms per frame "
-              f"(two-point fit over 5 and 25 frames, {b * S / ms * 1e3:.1f} "
-              f"body-substeps/s); one frame (traced) launches {len(kern)} "
-              f"kernels, {busy:.4f} ms of them on the card ({busy / ms:.1%} "
-              f"of the frame): " + ", ".join(
-                  f"{k} {n} ({us[k] / 1e3:.4f} ms, {us[k] / 1e3 / busy:.1%})"
-                  for k, n in kinds.items())
-              + f"; the products alone {prod_ms:.4f} ms by CUDA events "
-              f"({gflop:.1f} GFLOP, {gflop / prod_ms:.2f} TFLOP/s, "
-              f"{gflop / PEAK_FLOPS * 1e12:.4f} ms at 67 TFLOP/s); the level "
-              f"kernel {k_ms * 1e3:.3f} us per launch by CUDA events, its "
-              f"twin {p_ms * 1e3:.1f} us; the products' kernels " + "; ".join(
-                  f"{n} x {name}" for name, n in gemms.items()), flush=True)
+              f"(two-point fit over 20 and 200 frames, "
+              f"{b * params.num_substeps / ms * 1e3:.1f} body-substeps/s), "
+              f"{k_ms:.4f} ms by CUDA events; bound {b_ms * 1e3:.3f} us "
+              f"({b_by}, {b_ms / k_ms:.1%} of it); the twin {p_ms:.1f} ms "
+              "per frame", flush=True)
 
-    ms, k_ms, p_ms, _ = out[DENSE_B]
-    tets = int((arr.irv[0] != 0).sum())
-    b_ms, b_by = bound(dense_level.level_flops(tets, DENSE_B),
-                       dense_level.level_bytes(C, DENSE_B))
-    return {"name": "dense_level", "route": "cuda",
-            "source": "tetsim_torch/kernels/csrc/dense_level.cu",
-            "replaces": "none: the XLA engine (tetsim_tpu/solvers/dense.py:123)",
+    _, k_ms, p_ms = out[DENSE_B]
+    b_ms, b_by = bound(dense_frame.frame_flops(arr, params, DENSE_B),
+                       dense_frame.frame_bytes(arr, DENSE_B))
+    return {"name": "dense_frame", "route": "cuda",
+            "source": "tetsim_torch/kernels/csrc/dense_frame.cu",
+            "replaces": "none: the XLA engine (tetsim_tpu/solvers/dense.py:184)",
             "launches": launches, "max_abs_err": err, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": None}, bodies, out
 
 
 def sync():
@@ -2832,7 +2910,7 @@ def main() -> int:
         return 1
     import tetsim_torch as tt
     from tetsim_torch import roofline
-    from tetsim_torch.kernels import (dense_level, gs_fused, gs_levels,
+    from tetsim_torch.kernels import (dense_frame, gs_fused, gs_levels,
                                       gs_ordered, nh_pieces, nh_stencil,
                                       polar_fused, polar_jacobi, polar_pieces,
                                       polar_stencil)
@@ -2848,7 +2926,7 @@ def main() -> int:
                "polar_pieces": polar_pieces, "nh_pieces": nh_pieces,
                "gs_ordered": gs_ordered, "extract_rotation": roofline,
                "gs_levels": gs_levels, "polar_jacobi": polar_jacobi,
-               "dense_level": dense_level}
+               "dense_frame": dense_frame}
     phase("phase 1 done", build_all, kernels)
 
     dragon = tt.load_dragon()
@@ -2921,11 +2999,12 @@ def main() -> int:
     phase("phase 24 done", sharded_batches, tt, gs_fused, polar_fused, dragon,
           label)
     phase("phase 25 done", tet_axis, tt, dragon, label)
-    # before phase 26: its torch.profiler run slows later launches on the host
-    dense_row = phase("phase 27 done", dense_engine, tt, dense_level, dragon,
-                      label)
     phase("phase 26 done", surface, tt, gs_fused, polar_fused, polar_stencil,
           dragon)
+    dense_row, dense_bodies, dense_times = phase(
+        "phase 27 done", dense_engine, tt, dense_frame, dragon, label)
+    phase("phase 28 done", traced, tt, dragon, params, dense_bodies,
+          dense_times, label)
     sched = gs_ordered.build_ordered_schedule(dragon)
     ordered_bound, ordered_by = bound(
         gs_ordered.frame_flops(sched, params, 8),

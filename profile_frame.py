@@ -84,7 +84,12 @@ up, 5 substeps) and one body from rest through each side's
 through each side's ``roofline.extract_rotation``
 ("K9 1M lanes": a frame is one pass over ``random_planes``' 1,048,576
 lanes, a run of k frames one launch of k passes, so kernel_us is per
-launch of 20 passes and the bits are compared after 4 passes).
+launch of 20 passes and the bits are compared after 4 passes); and the
+dense engine on the dragon through each side's ``solvers.dense.step_frame``
+at B = 8 and 128 ("dense B=8", "dense B=128": jittered 0.5, body 5 holding
+a particle 5 cm up, 5 substeps; kernel_us and device_ms over every kernel
+of the frame, per_kernel by name; the bits also from a start with a NaN,
+then an inf, planted in bodies 0 and 1, NaN masks compared).
 kernel_us is per launch (nh_stencil:
 50 per substep in the first design, one per frame since; polar_pieces: 2
 per substep in the first design, one since; gs_levels: L + 2 per substep
@@ -204,22 +209,27 @@ def synced_run(step, state_sum, k) -> float:
 def kernel_device_time(step, kernel):
     """(device us per launch, device ms per frame, {kernel: [launches per
     frame, device us per launch]}) of the kernels whose names contain
-    ``kernel``, torch.profiler over PROFILED_FRAMES frames; (None, None, {})
-    where it records no device time."""
+    ``kernel`` (None: every kernel on the card), torch.profiler over
+    PROFILED_FRAMES frames; (None, None, {}) where it records no device
+    time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step(PROFILED_FRAMES)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
+    events = [e for e in prof.key_averages()
+              if (e.device_type == DeviceType.CUDA if kernel is None
+                  else kernel in e.key)]
     launches = sum(e.count for e in events)
     device_us = sum(e.self_device_time_total for e in events)
     if not (launches and device_us):
         return None, None, {}
-    each = {re.search(rf"\w*{kernel}\w*", e.key).group(0): [
+    each = {(e.key[:60] if kernel is None else
+             re.search(rf"\w*{kernel}\w*", e.key).group(0)): [
         e.count / PROFILED_FRAMES, e.self_device_time_total / e.count]
-        for e in events} if kernel else {}
+        for e in events} if kernel != "" else {}
     return device_us / launches, device_us / PROFILED_FRAMES / 1e3, each
 
 
@@ -432,7 +442,9 @@ AB_SHAPES = (("gs ordered B=1", "gs", 1, "ordered", 20, 80),
              ("large polar 20^3 B=1", "largepolar", 1, None, 10, 50),
              ("large polar 20^3 B=8", "largepolar", 8, None, 10, 50),
              ("large polar 20^3 World.step", "worldpolar", 1, None, 10, 50),
-             ("K9 1M lanes", "k9", 1, None, 16, 64))
+             ("K9 1M lanes", "k9", 1, None, 16, 64),
+             ("dense B=8", "dense", 8, None, 10, 60),
+             ("dense B=128", "dense", 128, None, 10, 60))
 LARGE_DIMS = (20, 20, 20)  # 9,261 particles: over one block's shared memory
 LARGE_BOX = dict(cell=0.05, origin=(-0.5, 0.3, -0.5))
 SLAB_BOX = dict(cell=0.05, origin=(-1.4, 0.1, -1.4))  # NH collapses at 0.02
@@ -448,7 +460,8 @@ AB_KERNELS = {"gs": ("kernels.gs_fused", "gs_frame_kernel"),
               "piecesnh": ("kernels.nh_pieces", "nh_pieces_"),
               "largepolar": ("kernels.polar_jacobi", "polar_jacobi_"),
               "worldpolar": ("kernels.polar_jacobi", "polar_jacobi_"),
-              "k9": ("roofline", "extract_rotation_kernel")}
+              "k9": ("roofline", "extract_rotation_kernel"),
+              "dense": ("solvers.dense", None)}
 
 
 class _Levels:
@@ -556,6 +569,37 @@ class _Slabs:
     def step(self, params, k):
         for _ in range(k):
             self.packed = self._step(self.packed, params, self.controls)
+
+
+class _Dense:
+    """B dense dragons, jittered 0.5 as chip_smoke.py's phase 27, stepped by
+    a version's ``solvers.dense.step_frame``, body 5 holding particle 7
+    5 cm up."""
+
+    def __init__(self, mod, arrays, mesh, b):
+        self.mod, self.arrays = mod, arrays
+        s = mod.init_dense_state(mesh, b, jitter=0.5, device="cuda")
+        self.pos, self.prev_pos, self.vel = s.pos, s.prev_pos, s.vel
+        self.gid = torch.full((b,), -1, dtype=torch.int32, device="cuda")
+        self.gpos = torch.zeros((3, b), device="cuda")
+        self.gid[5] = 7
+        self.gpos[:, 5] = self.pos[7, :, 5] + torch.tensor(
+            [0.0, 0.05, 0.0], device="cuda")
+
+    def step(self, params, k):
+        for _ in range(k):
+            s = self.mod.step_frame(
+                self.mod.DenseState(self.pos, self.prev_pos, self.vel),
+                self.arrays, params, self.gid, self.gpos)
+            self.pos, self.prev_pos, self.vel = s.pos, s.prev_pos, s.vel
+
+
+def same_bits(a, b) -> bool:
+    """torch.equal with NaN equal to NaN: equal NaN masks, and every other
+    value bitwise (+0 and -0 equal)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan], b[~nan]))
 
 
 def load_version(root: str, name: str):
@@ -669,9 +713,17 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
             return tt.PhysicsParams(num_substeps=5)
         return tt.default_cpu_params()
 
+    def dense_arrays(side):
+        if (side, "dense") not in large:
+            large[side, "dense"] = kernels[side]["dense"].build_dense_arrays(
+                dragon, device="cuda")
+        return large[side, "dense"]
+
     def body(side, kind, b, coloring):
         mod = kernels[side][kind]
         pkg = packages[side]
+        if kind == "dense":
+            return _Dense(mod, dense_arrays(side), dragon, b)
         if kind == "worldpolar":
             return _World(pkg, pkg.grid_mesh(*LARGE_DIMS, **LARGE_BOX),
                           params_of(kind))
@@ -745,6 +797,11 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
         return mod.FusedPolarBody(dragon, num_bodies=b, jitter=0.2)
 
     def work(mod, kind, bd, params, b):
+        if kind == "dense":  # this version's counts (the parent's arrays
+            from tetsim_torch.kernels import dense_frame  # have no ids)
+            arr = dense_arrays("B")
+            return (dense_frame.frame_flops(arr, params, b),
+                    dense_frame.frame_bytes(arr, b))
         if kind == "gs":
             return (mod.frame_flops(bd.arrays, params, b),
                     mod.frame_bytes(bd.arrays, params, b, 1))
@@ -850,6 +907,19 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
         print(f"{name}: A vs B after {frames} "
               f"{'passes' if kind == 'k9' else 'frames'}, bitwise {same} "
               f"(largest difference {worst:.3e})", flush=True)
+        if kind == "dense":  # a NaN and an inf planted in particle 11 of
+            for plant in (float("nan"), float("inf")):  # bodies 0 and 1
+                for side in "AB":
+                    bd = body(side, kind, b, coloring)
+                    bd.pos = bd.pos.clone()
+                    bd.pos[11, 1, :2] = plant
+                    bd.step(params, frames)
+                    out[side] = state(kind, bd)
+                same = all(same_bits(x, y)
+                           for x, y in zip(out["A"], out["B"]))
+                print(f"{name} with {plant} planted in bodies 0 and 1: A vs "
+                      f"B after {frames} frames, bitwise with equal NaN "
+                      f"masks {same}", flush=True)
 
 
 def variants(tt) -> None:

@@ -1,8 +1,8 @@
 """tetsim_torch's dense Neo-Hookean engine (``solvers/dense.py``,
 ``kernels/dense_level.py``, ``DenseBody``) on the CPU against
-tetsim_tpu.solvers.dense: the tables, the level solve, frames, the World
-path, the scene checkpoint and the viewer; and the refusals (the size
-gate, TF32 on the card, no CUDA)."""
+tetsim_tpu.solvers.dense: the tables, the twin's level solve, frames, the
+World path, the scene checkpoint and the viewer; and the refusals (the
+size gate, TF32 for the twin on the card, no CUDA)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -15,7 +15,7 @@ from tests.test_torch_checkpoint import _assert_files_alike
 from tests.test_torch_viewer import _get, _post, _split, _wait_frames
 from tetsim_tpu.solvers import dense as jdense
 from tetsim_tpu.viewer import ViewerServer as JaxViewerServer
-from tetsim_torch.kernels import dense_level
+from tetsim_torch.kernels import dense_frame, dense_level
 from tetsim_torch.solvers import dense
 from tetsim_torch.viewer import ViewerServer
 from tetsim_torch.world import DenseBody
@@ -77,7 +77,7 @@ def _jax_level(g, irp, irv, imc, params):
 
 @pytest.mark.parametrize("vol_compliance", [0.0, 1e-6])
 def test_level_twin_matches_jax(vol_compliance):
-    """The twin of the level kernel on random corners (each level of the
+    """The twin's level solve on random corners (each level of the
     dragon's greedy schedule, B = 5): within 1e-6 of
     ``_solve_level_planes`` (both round each operation in f32; XLA may
     order a few differently), padded slots exactly 0."""
@@ -93,7 +93,7 @@ def test_level_twin_matches_jax(vol_compliance):
             0, 0.01, (mesh.num_particles, 3, B))).astype(np.float32)
         g = pos[ids[l]].reshape(4 * C, 3 * B)
         want = _jax_level(g, irp[l], irv[l], imc[l], jp)
-        got = dense_level.dense_level(*(torch.as_tensor(x) for x in (
+        got = dense_level.dense_level_reference(*(torch.as_tensor(x) for x in (
             g, irp[l], irv[l], imc[l])), tp).numpy()
         assert got.shape == (4 * C, 3 * B)
         worst = max(worst, float(np.abs(got - want).max()))
@@ -308,9 +308,9 @@ def test_viewer_serves_dense_batch():
 
 
 def test_cuda_step_refuses_tf32(monkeypatch):
-    """The one-hot products are exact only in full FP32: with TF32 on, by
-    either switch, the CUDA step's precision check raises and names the
-    fix; at torch's default it passes."""
+    """The twin's one-hot products are exact only in full FP32: with TF32
+    on, by either switch, the precision check the twin runs on CUDA raises
+    and names the fix; at torch's default it passes."""
     dense.check_precision()
     monkeypatch.setattr(torch, "get_float32_matmul_precision", lambda: "high")
     with pytest.raises(RuntimeError, match="set_float32_matmul_precision"):
@@ -329,15 +329,18 @@ def test_cuda_step_refuses_tf32(monkeypatch):
 
 def test_entry_point_defaults_to_cuda_and_kernel_refuses_cpu():
     """DenseBody with no device asks for the card (on a host without CUDA
-    it raises rather than run on the CPU); the kernel's launcher refuses
-    CPU tensors."""
+    it raises rather than run on the CPU); the frame kernel's CUDA entry
+    refuses CPU tensors."""
     mesh = tt.grid_mesh(1, 1, 1)
     if torch.cuda.is_available():
         assert DenseBody(mesh, 2).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             DenseBody(mesh, 2)
+    arr = dense.build_dense_arrays(mesh, device="cpu")
+    n = mesh.num_particles
     with pytest.raises(ValueError, match="runs on CUDA"):
-        dense_level._dense_level_cuda(torch.zeros(512, 6), torch.zeros(9, 128),
-                                      torch.zeros(128), torch.zeros(4, 128),
-                                      tt.PhysicsParams())
+        dense_frame.dense_frame(torch.zeros(n, 3, 2), torch.zeros(n, 3, 2),
+                                arr, tt.PhysicsParams(),
+                                torch.full((2,), -1, dtype=torch.int32),
+                                torch.zeros(3, 2))

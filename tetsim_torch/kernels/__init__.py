@@ -13,9 +13,11 @@
                   (csrc/gs_levels.cu)
   polar_jacobi  — the polar frame of a body too large for one block, one
                   cooperative launch per frame (csrc/polar_jacobi.cu)
-  dense_level   — the level solve of the dense Neo-Hookean engine
-                  (solvers/dense.py) between its one-hot products, one
-                  launch per level and substep (csrc/dense_level.cu)
+  dense_frame   — the frame of the dense Neo-Hookean engine
+                  (solvers/dense.py): a block per body, each level
+                  gathered and scattered by index, one launch per frame
+                  (csrc/dense_frame.cu); dense_level holds the plain level
+                  solve of its twin, the one-hot products
 
 ``FusedGSBody`` and ``FusedPolarBody`` split their batch over the devices
 of a ``parallel.DeviceMesh`` axis with ``shard``: one launch per device.

@@ -1,7 +1,7 @@
 // The stable Neo-Hookean XPBD projection of one tet, shared by the CUDA
 // kernels that run it: gs_frame.cu (coloured GS over a mesh's level
 // schedule), nh_stencil.cu (the 48-colour grid sweep), the other
-// Neo-Hookean kernels and dense_level.cu (the dense engine's level).  It is the device
+// Neo-Hookean kernels and dense_frame.cu (the dense engine's frame).  It is the device
 // function _solve_level of tetsim_tpu/kernels/gs_fused.py and _solve_color
 // of tetsim_tpu/solvers/neohookean_grid.py: a deviatoric step C = ||F||_F,
 // then a hydrostatic step C = det F - 1 - gamma on the corners the first
@@ -118,7 +118,7 @@ __device__ __forceinline__ float solve_tet(float p[4][3], const float ir[9],
 }
 
 // The delta d_dev + d_vol of ``project`` into d, p left as it is (the
-// dense engine's level solve, dense_level.cu, which scatters the delta).
+// dense engine's frame, dense_frame.cu, which scatters the delta).
 __device__ __forceinline__ void solve_tet_delta(const float p[4][3],
                                                 const float ir[9], float irv,
                                                 const float w[4],

@@ -1,48 +1,21 @@
-"""The level solve of the dense Neo-Hookean engine (``csrc/dense_level.cu``):
-both constraints of every slot of one colour level for B bodies, between
-the level's one-hot gather and scatter products (``solvers/dense.py``).
+"""The plain level solve of the dense Neo-Hookean engine's twin: both
+constraints of every slot of one colour level for B bodies, between the
+level's one-hot gather and scatter products (``solvers/dense.py``
+``frame_reference``).
 
-Replaces no TPU kernel: the JAX package runs this solve as XLA's fusion of
-``_solve_level_planes`` (``tetsim_tpu/solvers/dense.py``).  ``dense_level``
-takes the gathered corners g [4C, 3B] (row ``c*C + t`` corner c of slot
-t, column ``r*B + b`` coordinate r of body b) and the level's tables, and
-returns the deltas d_dev + d_vol in the same layout: on CUDA tensors one
-launch of the kernel, on CPU tensors ``dense_level_reference``, its
-plain-torch twin.  ``launch_count`` counts the kernel launches.
+The JAX package runs this solve as XLA's fusion of ``_solve_level_planes``
+(``tetsim_tpu/solvers/dense.py``).  ``dense_level_reference`` takes the
+gathered corners g [4C, 3B] (row ``c*C + t`` corner c of slot t, column
+``r*B + b`` coordinate r of body b) and the level's tables, and returns
+the deltas d_dev + d_vol in the same layout.  On the card the frame
+kernel (``kernels/dense_frame.py``) solves every level itself, with the
+same arithmetic (``csrc/nh_math.cuh``'s ``solve_tet_delta``).
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from ..params import PhysicsParams
-from . import build
-from .batch import expect
-
-THREADS = 256  # threads per block (kThreads)
-FLOPS_PER_SLOT = 421  # one tet's projection, as gs_fused.frame_flops counts it
-NVCC_FLAGS = ()  # the library's own nvcc flags
-
-launch_count = 0  # kernel launches since import (or reset)
-
-
-def library() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its arguments
-    declared."""
-    lib = build.load("dense_level", NVCC_FLAGS)
-    if lib.dense_level_launch.argtypes is None:
-        lib.dense_level_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
-            + [ctypes.c_void_p])
-        lib.dense_level_launch.restype = ctypes.c_int
-        lib.dense_level_error_string.argtypes = [ctypes.c_int]
-        lib.dense_level_error_string.restype = ctypes.c_char_p
-        lib.dense_level_threads.restype = ctypes.c_int
-        if lib.dense_level_threads() != THREADS:
-            raise RuntimeError("csrc/dense_level.cu kThreads != "
-                               "dense_level.THREADS")
-    return lib
 
 
 def _scales(params: PhysicsParams):
@@ -51,34 +24,6 @@ def _scales(params: PhysicsParams):
     dt = params.dt
     return (params.dev_compliance / (dt * dt), params.vol_compliance / (dt * dt),
             params.gamma)
-
-
-def _dense_level_cuda(g, irp, irv, imc, params: PhysicsParams):
-    global launch_count
-    dev = g.device
-    if dev.type != "cuda":
-        raise ValueError(f"the dense level kernel runs on CUDA, not {dev}")
-    C = irv.shape[0]
-    rows, cols = g.shape
-    if rows != 4 * C or cols % 3:
-        raise ValueError(f"g: expected [4C, 3B] with C={C}, got {list(g.shape)}")
-    f32 = torch.float32
-    expect(g, "g", f32, (4 * C, cols), dev)
-    expect(irp, "irp", f32, (9, C), dev)
-    expect(irv, "irv", f32, (C,), dev)
-    expect(imc, "imc", f32, (4, C), dev)
-    d = torch.empty_like(g)
-    lib = library()
-    with torch.cuda.device(dev):
-        err = lib.dense_level_launch(
-            g.data_ptr(), irp.data_ptr(), irv.data_ptr(), imc.data_ptr(),
-            d.data_ptr(), C, cols // 3, *_scales(params),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("dense_level launch failed: "
-                           f"{lib.dense_level_error_string(err).decode()}")
-    launch_count += 1
-    return d
 
 
 def _xpbd(g, c_val, scale, irv, imc):
@@ -146,22 +91,3 @@ def dense_level_reference(g, irp, irv, imc, params: PhysicsParams):
                                      for r in range(3)], dim=1)
                         for c in range(4)]).reshape(4 * C, 3 * B)
 
-
-def dense_level(g, irp, irv, imc, params: PhysicsParams):
-    """One level's deltas (see the twin).  CPU tensors take the plain twin;
-    any other device launches the kernel or raises."""
-    if g.device.type == "cpu":
-        return dense_level_reference(g, irp, irv, imc, params)
-    return _dense_level_cuda(g, irp, irv, imc, params)
-
-
-def level_flops(num_tets: int, num_bodies: int) -> int:
-    """Floating-point operations the level needs: ``FLOPS_PER_SLOT`` per
-    tet of the level and body."""
-    return FLOPS_PER_SLOT * num_tets * num_bodies
-
-
-def level_bytes(C: int, num_bodies: int) -> int:
-    """Bytes the level must move: g read and d written ([4C, 3B] f32 each)
-    and the tables read (14 f32 per slot)."""
-    return 2 * 4 * C * 3 * num_bodies * 4 + 14 * C * 4

@@ -1,31 +1,36 @@
-"""The dense Neo-Hookean engine: each colour level's gather and scatter as
-products with a one-hot matrix (counterpart of
+"""The dense Neo-Hookean engine: bodies batched in columns, each colour
+level gathered and scattered as a whole (counterpart of
 ``tetsim_tpu/solvers/dense.py``).
 
-Bodies are batched in columns: the state is [N, 3, B], so one product
-``onehot[l].T @ pos.view(N, 3B)`` gathers the corners of a level's C slots
-for all B bodies ([4C, 3B], row ``c*C + t`` is corner c of slot t, column
-``r*B + b`` coordinate r of body b), and ``pos.view(N, 3B).addmm_(onehot[l],
-delta)`` scatters the deltas back.  Both products are exact in FP32: a
-column of the one-hot holds one 1, and within a level a particle is a
-corner of one slot at most, so every output sums one product with zeros.
-TF32 would round every position to 10 mantissa bits, so on CUDA ``substep``
-refuses to run while it is on (``check_precision``).  The products also
-spread a NaN or inf in any particle to its whole column (0 * inf = NaN), as
-the JAX package's do.
+The state is [N, 3, B].  On CUDA ``step_frame`` is one launch of
+``kernels/csrc/dense_frame.cu`` a frame (``kernels/dense_frame.py``): a
+block per body walks every level and substep, gathering a level's corners
+and scattering its deltas by index (``DenseArrays.ids``).  On the CPU it
+runs ``frame_reference``, the kernel's plain twin and the JAX package's
+own form: per level one product ``onehot[l].T @ pos.view(N, 3B)`` gathers
+the corners of the level's C slots for all B bodies ([4C, 3B], row
+``c*C + t`` is corner c of slot t, column ``r*B + b`` coordinate r of body
+b), ``kernels/dense_level.py``'s ``dense_level_reference`` solves them, and
+``pos.view(N, 3B).addmm_(onehot[l], delta)`` scatters the deltas back.
+Both products are exact in FP32: a column of the one-hot holds one 1, and
+within a level a particle is a corner of one slot at most, so every output
+sums one product with zeros; the index gather and scatter are the same
+operations.  TF32 would round every position to 10 mantissa bits, so on
+CUDA the twin refuses to run while it is on (``check_precision``); the
+kernel has no products and ignores it.  The products spread a NaN or inf
+in any particle to its whole column (0 * inf = NaN), as the JAX package's
+do, and the kernel spreads them the same way.
 
-Between the products a level is solved by ``kernels/dense_level.py``: on
-CUDA one launch of ``csrc/dense_level.cu``, on the CPU its plain twin.  The
-substep is the JAX package's dense one, which differs from
+The substep is the JAX package's dense one, which differs from
 ``solvers/common.py``: the prediction is not gated by the inverse mass,
 and the grab overrides its particle after the collision step, so the solve
 does not pin it.
 
-The one-hot is f32 [L, N, 4C]: 161.7 MB for the dragon on the greedy
-colouring (L = 32, C = 256), 1.78 GB on the ordered one (L = 703, C =
-128); ``build_dense_arrays`` refuses a mesh whose slab passes
-``max_bytes``.  The tables are the JAX package's: the level's slots in the
-order of their tets' first corners, C rounded up to 128.
+The one-hot, built for the twin, is f32 [L, N, 4C]: 161.7 MB for the
+dragon on the greedy colouring (L = 32, C = 256), 1.78 GB on the ordered
+one (L = 703, C = 128); ``build_dense_arrays`` refuses a mesh whose slab
+passes ``max_bytes``.  The tables are the JAX package's: the level's slots
+in the order of their tets' first corners, C rounded up to 128.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels import dense_level
+from ..kernels import dense_frame, dense_level
 from ..mesh import TetMesh, color_slots, greedy_color, level_schedule, rest_state
 from ..params import PhysicsParams
 from . import common
@@ -55,6 +60,7 @@ class DenseArrays:
     """Per-mesh constants of the dense engine, as tensors on one device."""
 
     onehot: torch.Tensor  # f32 [L, N, 4C] scatter matrix (gather: transposed)
+    ids: torch.Tensor  # int32 [L, 4C] corner slot -> particle (padding: 0)
     irp: torch.Tensor  # f32 [L, 9, C] inverse rest pose, row-major
     irv: torch.Tensor  # f32 [L, C] inverse rest volume (0: padded slot)
     imc: torch.Tensor  # f32 [L, 4, C] inverse mass of each corner
@@ -107,8 +113,8 @@ def level_tables(mesh: TetMesh, density: float = 1000.0,
 def build_dense_arrays(mesh: TetMesh, density: float = 1000.0,
                        coloring: str = "greedy",
                        max_bytes: int = 2_000_000_000, *, device) -> DenseArrays:
-    """The one-hot slab and the level tables on ``device``; raises
-    ValueError where the slab would pass ``max_bytes``."""
+    """The one-hot slab (the twin's) and the level tables on ``device``;
+    raises ValueError where the slab would pass ``max_bytes``."""
     ids, irp, irv, imc = level_tables(mesh, density, coloring)
     n, (L, C) = mesh.num_particles, irv.shape
     nbytes = L * n * 4 * C * 4
@@ -125,7 +131,8 @@ def build_dense_arrays(mesh: TetMesh, density: float = 1000.0,
     onehot[torch.as_tensor(lev), torch.as_tensor(ids[lev, slot]).long(),
            torch.as_tensor(slot)] = 1.0
     return DenseArrays(
-        onehot=onehot, irp=torch.as_tensor(irp).to(device),
+        onehot=onehot, ids=torch.as_tensor(ids).to(device),
+        irp=torch.as_tensor(irp).to(device),
         irv=torch.as_tensor(irv).to(device),
         imc=torch.as_tensor(imc).to(device),
         num_particles=n, slots_per_level=C,
@@ -149,37 +156,38 @@ def init_dense_state(mesh: TetMesh, num_bodies: int, jitter: float = 0.0,
 
 
 def check_precision() -> None:
-    """Raise unless CUDA float32 products run in full FP32: the one-hot
-    products are exact only there (the JAX package asks for HIGHEST)."""
+    """Raise unless CUDA float32 products run in full FP32: the twin's
+    one-hot products are exact only there (the JAX package asks for
+    HIGHEST)."""
     if (torch.get_float32_matmul_precision() != "highest"
             or torch.backends.cuda.matmul.allow_tf32):
         raise RuntimeError(
-            "the dense engine needs full-FP32 matrix products, but TF32 is "
-            f"on (float32 matmul precision "
+            "the dense engine's twin needs full-FP32 matrix products, but "
+            f"TF32 is on (float32 matmul precision "
             f"{torch.get_float32_matmul_precision()!r}, "
             f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}): its "
             "one-hot gather and scatter would round every position; call "
             "torch.set_float32_matmul_precision('highest')")
 
 
-def project_constraints(pos, arr: DenseArrays, params: PhysicsParams,
-                        level=dense_level.dense_level):
-    """The coloured Gauss-Seidel sweep on pos [N, 3, B] (contiguous),
-    updated in place level by level; ``level`` solves one level
-    (``dense_level.dense_level``, or its plain twin for a check)."""
+def project_constraints(pos, arr: DenseArrays, params: PhysicsParams):
+    """The twin's coloured Gauss-Seidel sweep on pos [N, 3, B]
+    (contiguous), updated in place level by level: the one-hot gather, the
+    level's plain solve, the one-hot scatter."""
     n, _, B = pos.shape
     flat = pos.view(n, 3 * B)
     for l in range(arr.num_levels):
         g = arr.onehot[l].T @ flat  # [4C, 3B] corners
-        delta = level(g, arr.irp[l], arr.irv[l], arr.imc[l], params)
+        delta = dense_level.dense_level_reference(
+            g, arr.irp[l], arr.irv[l], arr.imc[l], params)
         flat.addmm_(arr.onehot[l], delta)  # exact: one term per row
     return pos
 
 
 def substep(state: DenseState, arr: DenseArrays, params: PhysicsParams,
-            grab_id, grab_pos, level=dense_level.dense_level) -> DenseState:
-    """One XPBD substep on [N, 3, B]: grab_id int32 [B] (-1 inactive),
-    grab_pos f32 [3, B]."""
+            grab_id, grab_pos) -> DenseState:
+    """One XPBD substep of the twin on [N, 3, B]: grab_id int32 [B] (-1
+    inactive), grab_pos f32 [3, B]."""
     if state.pos.device.type == "cuda":
         check_precision()
     dt = params.dt
@@ -187,7 +195,7 @@ def substep(state: DenseState, arr: DenseArrays, params: PhysicsParams,
     vel[:, 1] += params.gravity * dt
     prev = state.pos
     pos = prev + vel * dt  # a new tensor: the sweep updates it in place
-    project_constraints(pos, arr, params, level)
+    project_constraints(pos, arr, params)
 
     # collide: the world bounds, then the ground with friction
     for r in range(3):
@@ -205,10 +213,20 @@ def substep(state: DenseState, arr: DenseArrays, params: PhysicsParams,
                       vel=common.velocity_update(pos, prev, dt))
 
 
-def step_frame(state: DenseState, arr: DenseArrays, params: PhysicsParams,
-               grab_id, grab_pos, level=dense_level.dense_level) -> DenseState:
-    """``params.num_substeps`` substeps: on CUDA L launches of the level
-    kernel each."""
+def frame_reference(state: DenseState, arr: DenseArrays,
+                    params: PhysicsParams, grab_id, grab_pos) -> DenseState:
+    """The frame kernel's plain twin on any device: ``params.num_substeps``
+    substeps of products and plain level solves."""
     for _ in range(params.num_substeps):
-        state = substep(state, arr, params, grab_id, grab_pos, level)
+        state = substep(state, arr, params, grab_id, grab_pos)
     return state
+
+
+def step_frame(state: DenseState, arr: DenseArrays, params: PhysicsParams,
+               grab_id, grab_pos) -> DenseState:
+    """``params.num_substeps`` substeps: on CPU tensors the plain twin, on
+    any other device one launch of the frame kernel (or it raises)."""
+    if state.pos.device.type == "cpu" or params.num_substeps == 0:
+        return frame_reference(state, arr, params, grab_id, grab_pos)
+    return DenseState(*dense_frame.dense_frame(
+        state.pos, state.vel, arr, params, grab_id, grab_pos))

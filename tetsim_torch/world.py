@@ -738,11 +738,12 @@ class GridBodyBatch:
 class DenseBody:
     """B bodies of one mesh stepped by the dense Neo-Hookean engine
     (``solvers/dense.py``): bodies batched in columns, pos / prev_pos / vel
-    [N, 3, B] (``state``), each colour level gathered and scattered by
-    one-hot products around one launch of ``kernels/csrc/dense_level.cu``
-    on CUDA.  One grab per body: grab_id int32 [B] (-1 inactive), grab_pos
-    [3, B].  The per-body grab API of the other batches; ``positions`` and
-    ``velocities`` are [B, N, 3]."""
+    [N, 3, B] (``state``), one launch of ``kernels/csrc/dense_frame.cu`` a
+    frame on CUDA (each level gathered and scattered by index; the one-hot
+    products are the plain twin's, on the CPU).  One grab per body:
+    grab_id int32 [B] (-1 inactive), grab_pos [3, B].  The per-body grab
+    API of the other batches; ``positions`` and ``velocities`` are [B, N,
+    3]."""
 
     def __init__(
         self,
@@ -964,9 +965,9 @@ class World:
                           bodies, one launch of the exact-order kernel per
                           frame;
         backend="dense" — ``DenseBody``: the neohookean engine with bodies
-                          batched in columns, each level's gather and
-                          scatter one-hot products around one launch of
-                          the level kernel.
+                          batched in columns, one launch of the dense
+                          frame kernel per frame (each level gathered and
+                          scattered by index).
         """
         d = float(self.params.density) if density is None else density
         kw = dict(density=d, jitter=jitter, seed=seed, device=self.device)
