@@ -167,11 +167,22 @@ code is non-zero:
      particle of body 0, the twin's NaN masks after each frame and the
      other bodies' bits unmoved; with TF32 on, the kernel's bits unchanged
      and the twin refused; save -> World.load(device="cuda") bitwise after
-     one more frame; one substep of 1/300 s of 8 dragons on the ordered
-     colouring (703 levels, C = 128) and a frame of 8 grid_mesh(12, 12,
-     12) boxes (2,197 particles, C = 512) against the twin, within the same
-     bars; the refusal of a body over a block's shared memory;
-     ms per frame at B = 8 and 128 (two-point fit and CUDA events),
+     one more frame; the batch built and stepped without the one-hot (its
+     peak memory below the slab's bytes); one substep of 1/300 s of 8
+     dragons on the ordered colouring (703 levels, C = 128) and a frame of
+     8 grid_mesh(12, 12, 12) boxes (2,197 particles, C = 512) against the
+     twin, within the same bars; 8 dragons, greedy and ordered, forced
+     onto the kernel's shared and global forms, bit for bit alike after
+     each of 3 frames, also with a NaN planted; the two bodies past one
+     block's shared memory at B = 8 on the global form,
+     replicate_mesh(single_tet_mesh(), 4843) (19,372 particles, L = 1)
+     through World -> add_body_batch(backend="dense") with a grab and
+     replicate_mesh(grid_mesh(1, 1, 1), 2422) (19,376 particles, L = 6)
+     through dense.build_dense_arrays(max_bytes=5e9) and dense.step_frame,
+     each held to the twin after each of 2 frames at the same bars, one
+     launch a frame, a NaN planted in body 0 (the twin's NaN masks), and
+     its ms a frame by CUDA events beside its bound; ms per frame of the
+     dragon at B = 8 and 128 (two-point fit and CUDA events),
      body-substeps/s, the twin's frame;
  28. the script's one torch.profiler session, last, since a session slows
      later launches on the host: diag.trace around one dense frame at B = 8,
@@ -2642,25 +2653,32 @@ def dense_engine(tt, dense_frame, dragon, label):
     the twin never called; a NaN, an inf and 1e30 planted in one particle
     of body 0, the twin's NaN masks after each frame and the other bodies'
     bits unmoved; with TF32 on the kernel's bits and the twin's refusal;
-    save -> World.load(device="cuda") bitwise after one more frame; one
-    substep of 8 dragons on the ordered colouring and a frame of 8 boxes
-    of 2,197 particles (C = 512) against the twin, within the same bars;
-    the shared-memory refusal; then ms per frame at B = 8 and 128 by the host's
-    clock and by CUDA events, and the twin's.  Returns the kernel's JSON
-    row, the bodies of B = 8 and 128 and their (ms, event ms, twin ms), from
-    which phase 28 traces a frame each."""
+    save -> World.load(device="cuda") bitwise after one more frame; the
+    batch's peak memory below the one-hot's bytes, the one-hot not built;
+    one substep of 8 dragons on the ordered colouring and a frame of 8
+    boxes of 2,197 particles (C = 512) against the twin, within the same
+    bars; the two forms bitwise alike (``dense_forms``); the two bodies
+    past one block's shared memory (``dense_wide``); then ms per frame at
+    B = 8 and 128 by the host's clock and by CUDA events, and the twin's.
+    Returns the kernel's JSON row, the global form's, the bodies of B = 8
+    and 128 and their (ms, event ms, twin ms), from which phase 28 traces a
+    frame each."""
     from tetsim_torch._compile import BUILD_DIR
     from tetsim_torch.kernels import dense_level
     from tetsim_torch.solvers import dense
     from tetsim_torch.world import DenseBody
 
     params = tt.default_cpu_params()
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     world = tt.World(tt.default_cpu_params())
     batch = world.add_body_batch(dragon, DENSE_B, engine="neohookean",
                                  backend="dense", jitter=0.5)
     check(type(batch) is DenseBody, "backend='dense' is not DenseBody")
     arr = batch.arrays
     L, C = arr.num_levels, arr.slots_per_level
+    slab = L * dragon.num_particles * 4 * C * 4  # the twin's one-hot, bytes
     pid = batch.start_grab(5, batch.positions()[5].mean(axis=0))
     target = batch.positions()[5, pid] + np.float32([0.0, 0.05, 0.0])
     batch.move_grabbed(5, target)
@@ -2671,6 +2689,7 @@ def dense_engine(tt, dense_frame, dragon, label):
     saved = dense.frame_reference, dense_level.dense_level_reference
     dense.frame_reference = dense_level.dense_level_reference = None  # raise
     dense_frame.launch_count = 0
+    dense_frame.form_launches.update(dict.fromkeys(dense_frame.FORMS, 0))
     try:
         got = []
         with no_host_sync():
@@ -2680,12 +2699,17 @@ def dense_engine(tt, dense_frame, dragon, label):
     finally:
         dense.frame_reference, dense_level.dense_level_reference = saved
     launches = dense_frame.launch_count
-    check(launches == DENSE_FRAMES,
-          f"{launches} frame-kernel launches for {DENSE_FRAMES} frames")
+    check(launches == DENSE_FRAMES
+          and dense_frame.form_launches["shared"] == DENSE_FRAMES,
+          f"{launches} frame-kernel launches for {DENSE_FRAMES} frames "
+          f"({dense_frame.form_launches})")
     sync()
-
-    def ulp(x, to):
-        return torch.nextafter(x, torch.full_like(x, to))
+    peak = torch.cuda.max_memory_allocated() - base
+    built = "onehot" in vars(arr)
+    print(f"phase 27 the dense batch built and stepped {DENSE_FRAMES} frames "
+          f"on the card with {peak / 1e6:.1f} MB at its peak, the one-hot "
+          f"({slab / 1e6:.1f} MB) built {built}", flush=True)
+    check(not built and peak < slab, "the card's path built the one-hot")
 
     def frames(s, step=dense.step_frame):
         """Each state of ``DENSE_FRAMES`` frames from s."""
@@ -2805,15 +2829,8 @@ def dense_engine(tt, dense_frame, dragon, label):
         f"{box.arrays.slots_per_level}), one frame", box, params))
     del box
 
-    big = torch.zeros((19_371, 3, 1), device="cuda")
-    try:
-        dense_frame.dense_frame(big, big, arr, params, gid[:1], gpos[:, :1])
-        refused = ""
-    except ValueError as e:
-        refused = str(e)
-    print(f"phase 27 19,371 particles a body: {refused}", flush=True)
-    check("232452" in refused and "232448" in refused,
-          "the shared-memory refusal")
+    dense_forms(dense_frame, dragon, params, label)
+    global_row = dense_wide(tt, dense_frame, params, label)
 
     # times at B = 8 and 128: the frame by the host's clock and by CUDA
     # events, the twin's frame; the trace of one frame is phase 28's
@@ -2843,7 +2860,216 @@ def dense_engine(tt, dense_frame, dragon, label):
             "replaces": "none: the XLA engine (tetsim_tpu/solvers/dense.py:184)",
             "launches": launches, "max_abs_err": err, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}, bodies, out
+            "library_ms": None}, global_row, bodies, out
+
+
+def ulp(x, to):
+    """x moved 1 ulp toward ``to``."""
+    return torch.nextafter(x, torch.full_like(x, to))
+
+
+def same_bits(a, b) -> bool:
+    """torch.equal with NaN equal to NaN: equal NaN masks, and every other
+    value bitwise."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan], b[~nan]))
+
+
+def dense_grab(start, b):
+    """grab_id / grab_pos of b bodies: body 5 holds particle 7 5 cm above
+    its start."""
+    gid = torch.full((b,), -1, dtype=torch.int32, device="cuda")
+    gpos = torch.zeros((3, b), device="cuda")
+    gid[5] = 7
+    gpos[:, 5] = start.pos[7, :, 5] + torch.tensor([0.0, 0.05, 0.0],
+                                                  device="cuda")
+    return gid, gpos
+
+
+def dense_forms(dense_frame, dragon, params, label):
+    """Phase 27: 8 dragons (jittered 0.5, body 5 holding a particle 5 cm
+    up) on the greedy and the ordered colouring, each forced onto the
+    shared and the global form of dense_frame: the same bits after each of
+    3 frames, from the start and with a NaN planted in particle 11 of body
+    0 (NaN masks equal); one launch of the forced form a frame; each
+    form's ms a frame by CUDA events."""
+    from tetsim_torch.solvers import dense
+
+    for coloring in ("greedy", "ordered"):
+        arr = dense.build_dense_arrays(dragon, coloring=coloring,
+                                       device="cuda")
+        start = dense.init_dense_state(dragon, 8, jitter=0.5, device="cuda")
+        gid, gpos = dense_grab(start, 8)
+        nan = start.pos.clone()
+        nan[11, 1, 0] = float("nan")
+        for name, pos in (("from the start", start.pos),
+                          ("a NaN in body 0", nan)):
+            runs = {}
+            for form in dense_frame.FORMS:
+                before = dense_frame.form_launches[form]
+                p, v, out = pos, start.vel, []
+                for _ in range(DENSE_FRAMES):
+                    p, q, v = dense_frame.dense_frame(p, v, arr, params, gid,
+                                                      gpos, form=form)
+                    out.append((p, q, v))
+                runs[form] = out, dense_frame.form_launches[form] - before
+            (a, na), (b, nb) = runs["shared"], runs["global"]
+            same = all(same_bits(x, y) for fa, fb in zip(a, b)
+                       for x, y in zip(fa, fb))
+            print(f"phase 27 dense dragon B=8 {coloring} ({arr.num_levels} "
+                  f"levels), {name}: the global form bitwise the shared "
+                  f"form after each of {DENSE_FRAMES} frames, NaN masks "
+                  f"equal, {same}; launches {na} shared, {nb} global",
+                  flush=True)
+            check(same and na == nb == DENSE_FRAMES,
+                  f"phase 27 the two forms differ ({coloring}, {name})")
+        ms = {form: event_ms(lambda form=form: dense_frame.dense_frame(
+            start.pos, start.vel, arr, params, gid, gpos, form=form), 20)
+              for form in dense_frame.FORMS}
+        print(f"phase 27 [{label}] dense dragon B=8 {coloring}: "
+              + ", ".join(f"the {f} form {t:.4f} ms" for f, t in ms.items())
+              + " per frame by CUDA events", flush=True)
+
+
+WIDE_B = 8  # the batch of the two bodies past one block's shared memory
+WIDE_FRAMES = 2
+
+
+def dense_wide(tt, dense_frame, params, label):
+    """Phase 27: the two bodies past one block's shared memory at B = 8,
+    jittered 0.5, on the global form (the launch plan's choice):
+    replicate_mesh(single_tet_mesh(), 4843) (19,372 particles, L = 1, C =
+    4,864; the twin's one-hot 1.508 GB) through World.add_body_batch(...,
+    backend="dense") with a grab, and replicate_mesh(grid_mesh(1, 1, 1,
+    cell=0.1), 2422) (19,376 particles, L = 6, C = 2,432; 4.52 GB) through
+    dense.build_dense_arrays(..., max_bytes=5e9) and dense.step_frame with
+    body 5 holding a particle 5 cm up, the copies of each jittered apart.
+    Each: 2 frames with no host sync, one global-form launch a frame and
+    the one-hot not built, held after each frame to the twin at 2e-5 /
+    2e-3 or twice the kernel's spread from starts 1 ulp apart; a NaN
+    planted in particle 11 of body 0: one launch a frame, the twin's NaN
+    masks, body 0 all NaN, the other bodies bitwise the clean run; then ms
+    a frame by CUDA events, the bound and its share, the twin's frame.
+    Returns the global form's JSON row (the World body's numbers; the
+    error the larger of the two)."""
+    from tetsim_torch.mesh import single_tet_mesh
+    from tetsim_torch.solvers import dense
+    from tetsim_torch.world import DenseBody
+
+    def reset():
+        dense_frame.launch_count = 0
+        dense_frame.form_launches.update(dict.fromkeys(dense_frame.FORMS, 0))
+
+    def frames(s, arr, gid, gpos, step):
+        out = []
+        for _ in range(WIDE_FRAMES):
+            s = step(s, arr, params, gid, gpos)
+            out.append(s)
+        return out
+
+    def case(name, arr, start, gid, gpos, got, launches):
+        """The checks and times of one body; ``got`` the kernel's states
+        after each frame of the main path from ``start``, ``launches`` its
+        launches of each form."""
+        n = arr.num_particles
+        plan = dense_frame.launch_plan(WIDE_B, n)
+        print(f"phase 27 {name}: {n} particles, L = {arr.num_levels} levels "
+              f"of C = {arr.slots_per_level}, plan {plan}, launches "
+              f"{launches} for {WIDE_FRAMES} frames, the one-hot built "
+              f"{'onehot' in vars(arr)}", flush=True)
+        check(plan.form == "global"
+              and launches == {"shared": 0, "global": WIDE_FRAMES}
+              and "onehot" not in vars(arr),
+              f"phase 27 {name}: not one global-form launch a frame")
+        want = frames(start, arr, gid, gpos, dense.frame_reference)
+        moved = [frames(st, arr, gid, gpos, dense.step_frame)
+                 for st in (start.replace(pos=ulp(start.pos, 10.0)),
+                            start.replace(pos=ulp(start.pos, -10.0)))]
+        err = 0.0
+        for f, (k, r, *m) in enumerate(zip(got, want, *moved), 1):
+            sp = max(max_diff(k.pos, x.pos) for x in m)
+            sv = max(max_diff(k.vel, x.vel) for x in m)
+            err = max(err, hold(
+                f"phase 27 {name} B={WIDE_B} frame {f} of {WIDE_FRAMES}",
+                [("pos", k.pos, r.pos, 2e-5, sp),
+                 ("vel", k.vel, r.vel, 2e-3, sv)]))
+
+        s0 = start.replace(pos=start.pos.clone())
+        s0.pos[11, 1, 0] = float("nan")
+        before = dense_frame.form_launches["global"]
+        ks = frames(s0, arr, gid, gpos, dense.step_frame)
+        nan_launches = dense_frame.form_launches["global"] - before
+        rs = frames(s0, arr, gid, gpos, dense.frame_reference)
+        keys = ("pos", "prev_pos", "vel")
+        masks = all(torch.equal(torch.isnan(getattr(k, a)),
+                                torch.isnan(getattr(r, a)))
+                    for k, r in zip(ks, rs) for a in keys)
+        rest = all(torch.equal(getattr(k, a)[..., 1:], getattr(g, a)[..., 1:])
+                   for k, g in zip(ks, got) for a in keys)
+        body0 = bool(torch.isnan(ks[-1].pos[..., 0]).all())
+        print(f"phase 27 {name}: a NaN in particle 11 of body 0: "
+              f"{nan_launches} launches for {WIDE_FRAMES} frames, the twin's "
+              f"NaN masks after each frame {masks}, body 0 all NaN {body0}, "
+              f"the other bodies bitwise the clean run {rest}", flush=True)
+        check(masks and rest and body0 and nan_launches == WIDE_FRAMES,
+              f"phase 27 {name}: a NaN spreads otherwise than in the twin")
+
+        k_ms = event_ms(lambda: dense.step_frame(start, arr, params, gid,
+                                                 gpos), 20)
+        p_ms = event_ms(lambda: dense.frame_reference(start, arr, params, gid,
+                                                      gpos), 1)
+        b_ms, b_by = bound(dense_frame.frame_flops(arr, params, WIDE_B),
+                           dense_frame.frame_bytes(arr, WIDE_B))
+        print(f"phase 27 [{label}] {name} B={WIDE_B}: {k_ms:.4f} ms per "
+              f"frame by CUDA events (global form); bound {b_ms * 1e3:.3f} "
+              f"us ({b_by}, {b_ms / k_ms:.2%} of it); the twin {p_ms:.1f} "
+              "ms per frame", flush=True)
+        return err, k_ms, p_ms, b_ms, b_by
+
+    # the user's path: World -> add_body_batch(backend="dense"), a grab
+    tets = tt.replicate_mesh(single_tet_mesh(), 4843, jitter=1.0, seed=3)
+    world = tt.World(tt.default_cpu_params())
+    body = world.add_body_batch(tets, WIDE_B, engine="neohookean",
+                                backend="dense", jitter=0.5)
+    check(type(body) is DenseBody, "backend='dense' is not DenseBody")
+    pid = body.start_grab(5, body.positions()[5].mean(axis=0))
+    body.move_grabbed(5, body.positions()[5, pid]
+                      + np.float32([0.0, 0.05, 0.0]))
+    start = body.state
+    reset()
+    got = []
+    with no_host_sync():
+        for _ in range(WIDE_FRAMES):
+            world.step(1)
+            got.append(body.state)
+    launches = dict(dense_frame.form_launches)
+    check(torch.equal(got[-1].pos[pid, :, 5], body.grab_pos[:, 5]),
+          "grab off target")
+    err, k_ms, p_ms, b_ms, b_by = case(
+        "replicate_mesh(single_tet_mesh(), 4843) through World", body.arrays,
+        start, body.grab_id, body.grab_pos, got, launches)
+    del world, body, got
+
+    cubes = tt.replicate_mesh(tt.grid_mesh(1, 1, 1, cell=0.1), 2422,
+                              jitter=1.0, seed=4)
+    arr = dense.build_dense_arrays(cubes, max_bytes=5_000_000_000,
+                                   device="cuda")
+    start = dense.init_dense_state(cubes, WIDE_B, jitter=0.5, seed=1,
+                                   device="cuda")
+    gid, gpos = dense_grab(start, WIDE_B)
+    reset()
+    with no_host_sync():
+        got = frames(start, arr, gid, gpos, dense.step_frame)
+    err2, *_ = case("replicate_mesh(grid_mesh(1, 1, 1), 2422) through "
+                    "dense.step_frame", arr, start, gid, gpos, got,
+                    dict(dense_frame.form_launches))
+    return {"name": "dense_frame_global", "route": "cuda",
+            "source": "tetsim_torch/kernels/csrc/dense_frame.cu",
+            "replaces": "none: the XLA engine (tetsim_tpu/solvers/dense.py:184)",
+            "launches": launches["global"], "max_abs_err": max(err, err2),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def sync():
@@ -3001,7 +3227,7 @@ def main() -> int:
     phase("phase 25 done", tet_axis, tt, dragon, label)
     phase("phase 26 done", surface, tt, gs_fused, polar_fused, polar_stencil,
           dragon)
-    dense_row, dense_bodies, dense_times = phase(
+    dense_row, global_row, dense_bodies, dense_times = phase(
         "phase 27 done", dense_engine, tt, dense_frame, dragon, label)
     phase("phase 28 done", traced, tt, dragon, params, dense_bodies,
           dense_times, label)
@@ -3101,7 +3327,7 @@ def main() -> int:
          "launches": er_launches, "max_abs_err": er_err,
          "ms": er_ms, "plain_ms": er_plain_ms,
          "bound_ms": er_bound, "bound_by": er_by, "library_ms": None},
-    ] + slab_lines + large_lines + [dense_row]}), flush=True)
+    ] + slab_lines + large_lines + [dense_row, global_row]}), flush=True)
     print(f"chip_smoke finished {stamp()}, "
           f"{time.perf_counter() - t_start:.1f} s after it started",
           flush=True)

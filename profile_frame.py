@@ -89,7 +89,10 @@ dense engine on the dragon through each side's ``solvers.dense.step_frame``
 at B = 8 and 128 ("dense B=8", "dense B=128": jittered 0.5, body 5 holding
 a particle 5 cm up, 5 substeps; kernel_us and device_ms over every kernel
 of the frame, per_kernel by name; the bits also from a start with a NaN,
-then an inf, planted in bodies 0 and 1, NaN masks compared).
+then an inf, planted in bodies 0 and 1, NaN masks compared), and on
+chip_smoke.py phase 27's 19,372-particle body at B = 8 ("dense 19k B=8",
+the kernel's global form; a parent older than the global form refuses
+it).
 kernel_us is per launch (nh_stencil:
 50 per substep in the first design, one per frame since; polar_pieces: 2
 per substep in the first design, one since; gs_levels: L + 2 per substep
@@ -444,7 +447,8 @@ AB_SHAPES = (("gs ordered B=1", "gs", 1, "ordered", 20, 80),
              ("large polar 20^3 World.step", "worldpolar", 1, None, 10, 50),
              ("K9 1M lanes", "k9", 1, None, 16, 64),
              ("dense B=8", "dense", 8, None, 10, 60),
-             ("dense B=128", "dense", 128, None, 10, 60))
+             ("dense B=128", "dense", 128, None, 10, 60),
+             ("dense 19k B=8", "dense", 8, "19k", 10, 60))
 LARGE_DIMS = (20, 20, 20)  # 9,261 particles: over one block's shared memory
 LARGE_BOX = dict(cell=0.05, origin=(-0.5, 0.3, -0.5))
 SLAB_BOX = dict(cell=0.05, origin=(-1.4, 0.1, -1.4))  # NH collapses at 0.02
@@ -571,10 +575,20 @@ class _Slabs:
             self.packed = self._step(self.packed, params, self.controls)
 
 
+def dense_mesh(tt, which):
+    """The dragon, or (``which`` "19k") chip_smoke.py phase 27's body past
+    one block's shared memory: replicate_mesh(single_tet_mesh(), 4843),
+    19,372 particles, L = 1, C = 4,864, the kernel's global form."""
+    if which != "19k":
+        return tt.load_dragon()
+    from tetsim_torch.mesh import single_tet_mesh
+    return tt.replicate_mesh(single_tet_mesh(), 4843, jitter=1.0, seed=3)
+
+
 class _Dense:
-    """B dense dragons, jittered 0.5 as chip_smoke.py's phase 27, stepped by
-    a version's ``solvers.dense.step_frame``, body 5 holding particle 7
-    5 cm up."""
+    """B dense bodies of one mesh, jittered 0.5 as chip_smoke.py's phase 27,
+    stepped by a version's ``solvers.dense.step_frame``, body 5 holding
+    particle 7 5 cm up."""
 
     def __init__(self, mod, arrays, mesh, b):
         self.mod, self.arrays = mod, arrays
@@ -683,6 +697,24 @@ def print_usage(label: str, lib, kernel: str, smem=None) -> None:
         print(f"{label}: {name} {json.dumps(use)}", flush=True)
 
 
+def dense_sass(packages) -> None:
+    """Each side's dense_frame kernels' resource usage, and whether B's
+    shared form (``dense_frame_kernel<false>``, or the one kernel of a
+    version before the global form) has A's SASS, instruction for
+    instruction (addresses aside)."""
+    listings = {}
+    for side, pkg in packages.items():
+        lib = importlib.import_module(
+            f"{pkg.__name__}.kernels.dense_frame").library()
+        print_usage(f"[{side}] kernels.dense_frame", lib, "dense_frame_kernel")
+        listings[side] = [ins[1:] for ins in (
+            sass_listing(lib, "dense_frame_kernelILb0E")
+            or sass_listing(lib, "dense_frame_kernel"))]
+    a, b = listings["A"], listings["B"]
+    print(f"dense_frame: B's shared form {len(b)} SASS instructions, A's "
+          f"{len(a)}, the same {a == b}", flush=True)
+
+
 def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
     """The dragon frame kernels, K7, K3, K4, K6, gs_levels, K3s, K4a, K5,
     polar_jacobi and K9 of an earlier version (A) and of this one (B), A B
@@ -713,17 +745,19 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
             return tt.PhysicsParams(num_substeps=5)
         return tt.default_cpu_params()
 
-    def dense_arrays(side):
-        if (side, "dense") not in large:
-            large[side, "dense"] = kernels[side]["dense"].build_dense_arrays(
-                dragon, device="cuda")
-        return large[side, "dense"]
+    def dense_arrays(side, which):
+        if (side, "dense", which) not in large:
+            mesh = dense_mesh(tt, which)
+            large[side, "dense", which] = mesh, kernels[side][
+                "dense"].build_dense_arrays(mesh, device="cuda")
+        return large[side, "dense", which]
 
     def body(side, kind, b, coloring):
         mod = kernels[side][kind]
         pkg = packages[side]
-        if kind == "dense":
-            return _Dense(mod, dense_arrays(side), dragon, b)
+        if kind == "dense":  # coloring: which mesh
+            mesh, arrays = dense_arrays(side, coloring)
+            return _Dense(mod, arrays, mesh, b)
         if kind == "worldpolar":
             return _World(pkg, pkg.grid_mesh(*LARGE_DIMS, **LARGE_BOX),
                           params_of(kind))
@@ -796,10 +830,10 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
             return bd
         return mod.FusedPolarBody(dragon, num_bodies=b, jitter=0.2)
 
-    def work(mod, kind, bd, params, b):
+    def work(mod, kind, bd, params, b, coloring):
         if kind == "dense":  # this version's counts (the parent's arrays
             from tetsim_torch.kernels import dense_frame  # have no ids)
-            arr = dense_arrays("B")
+            arr = dense_arrays("B", coloring)[1]
             return (dense_frame.frame_flops(arr, params, b),
                     dense_frame.frame_bytes(arr, b))
         if kind == "gs":
@@ -874,6 +908,8 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
                     print(f"[{side}] {AB_KERNELS[kind][0]}: (blocks per SM, "
                           f"SMs) {mod.occupancy(dev)}, cooperative grid "
                           f"{mod.frame_grid(dev)} blocks", flush=True)
+    if any(s[1] == "dense" for s in shapes):
+        dense_sass(packages)
     pending = []
     for name, kind, b, coloring, k1, k2 in shapes:
         mod = kernels["B"][kind]
@@ -885,7 +921,7 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
                        and kind not in ("slab", "slabpolar") else None)
             row, profile = measure(
                 bd, params, k1, k2, AB_KERNELS[kind][1],
-                *work(mod, kind, bd, params, b), state_sum=pos_sum)
+                *work(mod, kind, bd, params, b, coloring), state_sum=pos_sum)
             if kind in ("gridpolar", "slab", "slabpolar", "piecesnh"):
                 row["ms_per_substep"] = row["event_ms"] / params.num_substeps
             if kind == "pieces":

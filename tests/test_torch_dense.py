@@ -13,8 +13,10 @@ import tetsim_tpu as ts
 import tetsim_torch as tt
 from tests.test_torch_checkpoint import _assert_files_alike
 from tests.test_torch_viewer import _get, _post, _split, _wait_frames
+from tetsim_tpu import mesh as jax_mesh
 from tetsim_tpu.solvers import dense as jdense
 from tetsim_tpu.viewer import ViewerServer as JaxViewerServer
+from tetsim_torch import mesh as torch_mesh
 from tetsim_torch.kernels import dense_frame, dense_level
 from tetsim_torch.solvers import dense
 from tetsim_torch.viewer import ViewerServer
@@ -150,6 +152,65 @@ def test_frames_match_jax(frames_run, frames, ptol, vtol):
     np.testing.assert_allclose(ts_.pos.numpy(), np.asarray(js.pos), atol=ptol)
     np.testing.assert_allclose(ts_.vel.numpy(), np.asarray(js.vel), atol=vtol)
     np.testing.assert_array_equal(ts_.pos.numpy()[5, :, 1], gpos[:, 1])
+
+
+# Small members of the two shape families the global form serves on the
+# card (a body over one block's shared memory): many copies of one tet, one
+# level wide (L = 1), and many copies of a cube's six tets (L = 6).
+FAMILIES = {"tet": lambda m: m.replicate_mesh(m.single_tet_mesh(), 64,
+                                              jitter=0.5, seed=1),
+            "cube": lambda m: m.replicate_mesh(
+                m.grid_mesh(1, 1, 1, cell=0.1), 64, jitter=0.5, seed=2)}
+
+
+@pytest.mark.parametrize("family,levels", [("tet", 1), ("cube", 6)])
+def test_wide_families_match_jax(family, levels):
+    """replicate_mesh(single_tet_mesh(), 64) and replicate_mesh(grid_mesh(1,
+    1, 1, cell=0.1), 64), jittered copies: the same tables in both
+    packages; B = 3 from a shared jittered start with seeded velocities,
+    body 1 grabbed, 3 frames of 2 substeps: the twin within 2e-5 / 2e-3 of
+    the reference after frame 1, and after frame 3 within
+    tests/test_dense.py's 3e-4 / 3e-2 or twice the twin's own spread from
+    starts 1 ulp apart (PERF.md's bars: the seeded velocities deform the
+    0.1 m cubes hard enough that a 1-ulp change moves them by 1e-2 in 3
+    frames); the grabbed particle on its target."""
+    jm, tm = FAMILIES[family](jax_mesh), FAMILIES[family](torch_mesh)
+    np.testing.assert_array_equal(tm.verts, jm.verts)
+    ja = jdense.build_dense_arrays(jm)
+    ta = dense.build_dense_arrays(tm, device="cpu")
+    assert ta.num_levels == levels and ta.slots_per_level == ja.slots_per_level
+    params_j, params_t = (ts.PhysicsParams(num_substeps=2),
+                          tt.PhysicsParams(num_substeps=2))
+    pos, vel = _start(tm, 3, seed=5)
+    gid = np.int32([-1, 5, -1])
+    gpos = np.zeros((3, 3), np.float32)
+    gpos[:, 1] = pos[5, :, 1] + [0.0, 0.1, 0.0]
+    js = jdense.DenseState(*(jnp.asarray(x) for x in (pos, pos, vel)))
+    # the twin from the start and from starts 1 ulp above and below it
+    twins = [dense.DenseState(*(torch.as_tensor(x) for x in (p, p, vel)))
+             for p in (pos, np.nextafter(pos, np.float32(10)),
+                       np.nextafter(pos, np.float32(-10)))]
+
+    def spread(k):
+        return max(float((getattr(twins[0], k) - getattr(s, k)).abs().max())
+                   for s in twins[1:])
+
+    for f in (1, 2, 3):
+        with jax.disable_jit():
+            js = jdense.step_frame(js, ja, params_j, jnp.asarray(gid),
+                                   jnp.asarray(gpos))
+        twins = [dense.step_frame(s, ta, params_t, torch.as_tensor(gid),
+                                  torch.as_tensor(gpos)) for s in twins]
+        if f == 2:
+            continue
+        ptol, vtol = ((2e-5, 2e-3) if f == 1 else
+                      (max(3e-4, 2 * spread("pos")),
+                       max(3e-2, 2 * spread("vel"))))
+        np.testing.assert_allclose(twins[0].pos.numpy(), np.asarray(js.pos),
+                                   atol=ptol)
+        np.testing.assert_allclose(twins[0].vel.numpy(), np.asarray(js.vel),
+                                   atol=vtol)
+    np.testing.assert_array_equal(twins[0].pos.numpy()[5, :, 1], gpos[:, 1])
 
 
 def test_nan_spreads_as_in_jax():

@@ -3,8 +3,9 @@
 one-hot and the JAX package's schedule, the gather and scatter by index
 bitwise the one-hot products, a plain frame in the kernel's dataflow
 (index gather and scatter, NaN and inf spread as the products spread them)
-bitwise the twin, the launch plan and its shared-memory refusal, the
-frame's work counts and the CUDA entry's refusal of CPU tensors."""
+bitwise the twin, the launch plan (shared or global form) and the shared
+form's refusal, the one-hot built only when the twin reads it, the frame's
+work counts and the CUDA entry's refusal of CPU tensors."""
 import numpy as np
 import pytest
 import torch
@@ -14,6 +15,7 @@ import tetsim_torch as tt
 from tetsim_tpu.kernels.schedule import build_vmem_schedule
 from tetsim_torch.kernels import dense_frame, dense_level
 from tetsim_torch.kernels.batch import SMEM_LIMIT
+from tetsim_torch.mesh import single_tet_mesh
 from tetsim_torch.solvers import dense
 
 # One torch thread per process: the suite runs a process per core, and
@@ -191,17 +193,66 @@ def test_scatter_spread_equals_products(case, small):
         assert torch.isnan(got[:, 1, 0]).sum() == mesh.num_particles - 1
 
 
-def test_launch_plan_and_size_check():
-    """A block per body, THREADS threads, 12 bytes of shared memory a
-    particle; a body whose positions pass a Hopper block's 232,448 bytes
-    (19,371 particles) is refused with both numbers named."""
-    assert dense_frame.launch_plan(128, 1234) == (128, 256, 12 * 1234)
-    assert dense_frame.launch_plan(1, 19_370) == (1, 256, 232_440)
+@pytest.mark.parametrize("n,form", [(1_234, "shared"), (19_370, "shared"),
+                                    (19_371, "global"), (19_376, "global")])
+def test_launch_plan_and_size_check(n, form):
+    """A block per body, THREADS threads, B = 8: a body of up to 19,370
+    particles keeps its positions in the block's shared memory (12 bytes a
+    particle against a Hopper block's 232,448); a larger one in a global
+    scratch of 12 bytes a particle and body, with no dynamic shared memory.
+    Forced onto the shared form, a larger body is refused with both numbers
+    named; any body may be forced onto the global form."""
     assert SMEM_LIMIT == 232_448
-    with pytest.raises(ValueError, match="232452 bytes.*232448"):
-        dense_frame.launch_plan(1, 19_371)
-    with pytest.raises(ValueError, match="232452 bytes.*232448"):
-        dense_frame.check_fits(19_371)
+    B = 8
+    shared = ("shared", B, 256, 12 * n, 0)
+    glob = ("global", B, 256, 0, 12 * n * B)
+    assert dense_frame.launch_plan(B, n) == (shared if form == "shared"
+                                             else glob)
+    assert dense_frame.launch_plan(B, n, "global") == glob
+    if form == "shared":
+        assert dense_frame.launch_plan(B, n, "shared") == shared
+        dense_frame.check_fits(n)
+    else:
+        with pytest.raises(ValueError, match=f"{12 * n} bytes.*232448"):
+            dense_frame.launch_plan(B, n, "shared")
+        with pytest.raises(ValueError, match=f"{12 * n} bytes.*232448"):
+            dense_frame.check_fits(n)
+    with pytest.raises(ValueError, match="unknown form"):
+        dense_frame.launch_plan(B, n, "registers")
+
+
+def test_onehot_built_only_for_the_twin(small):
+    """``build_dense_arrays`` allocates no one-hot: for
+    replicate_mesh(single_tet_mesh(), 4843) (19,372 particles, L = 1, C =
+    4,864, a 1.508 GB slab, the global form's) it builds the tables alone,
+    and refuses the slab past ``max_bytes`` all the same; on grid_mesh(2,
+    2, 2) the slab appears when the twin first steps, and the twin's frame
+    from arrays whose slab was read first is the same bit for bit."""
+    big = tt.replicate_mesh(single_tet_mesh(), 4843)
+    arr = dense.build_dense_arrays(big, device="cpu")
+    assert "onehot" not in vars(arr)
+    assert (arr.num_particles, arr.num_levels, arr.slots_per_level) == (
+        19_372, 1, 4_864)
+    assert arr.ids.shape == (1, 4 * 4_864) and int((arr.irv != 0).sum()) == 4843
+    assert dense_frame.launch_plan(8, arr.num_particles).form == "global"
+    with pytest.raises(ValueError, match="1.5 GB"):
+        dense.build_dense_arrays(big, max_bytes=1_500_000_000, device="cpu")
+
+    mesh, built = small
+    fresh = dense.build_dense_arrays(mesh, device="cpu")
+    assert "onehot" not in vars(fresh) and fresh.num_levels == built.num_levels
+    B = 2
+    pos = torch.as_tensor(np.broadcast_to(
+        mesh.verts[:, :, None], (mesh.num_particles, 3, B)).copy())
+    start = dense.DenseState(pos, pos, torch.zeros_like(pos))
+    gid, gpos = torch.full((B,), -1, dtype=torch.int32), torch.zeros(3, B)
+    params = tt.PhysicsParams(num_substeps=1)
+    got = dense.step_frame(start, fresh, params, gid, gpos)
+    assert "onehot" in vars(fresh)
+    assert torch.equal(fresh.onehot, built.onehot)
+    want = dense.step_frame(start, built, params, gid, gpos)
+    assert all(torch.equal(getattr(got, k), getattr(want, k))
+               for k in ("pos", "prev_pos", "vel"))
 
 
 def test_frame_work_from_shapes(dragon_arrays):

@@ -15,8 +15,10 @@
                   cooperative launch per frame (csrc/polar_jacobi.cu)
   dense_frame   — the frame of the dense Neo-Hookean engine
                   (solvers/dense.py): a block per body, each level
-                  gathered and scattered by index, one launch per frame
-                  (csrc/dense_frame.cu); dense_level holds the plain level
+                  gathered and scattered by index, one launch per frame,
+                  a body's positions in shared memory or, past 19,370
+                  particles, in global memory (csrc/dense_frame.cu);
+                  dense_level holds the plain level
                   solve of its twin, the one-hot products
 
 ``FusedGSBody`` and ``FusedPolarBody`` split their batch over the devices

@@ -14,8 +14,16 @@
 // += delta, both exact.
 //
 // Design: one thread block per body (grid = B; the blocks never wait on
-// each other).  The body's positions live in dynamic shared memory as three
-// planes (12 bytes a particle, 14.8 KB for the dragon).  Each thread owns
+// each other).  The body's positions live in three planes (12 bytes a
+// particle): in dynamic shared memory up to 19,370 particles a body (14.8
+// KB for the dragon), past that in a global scratch [B, 3, N] that the
+// wrapper allocates (the global form, kGlobal: 1.86 MB at N = 19,372 and B
+// = 8, which stays in L2).  Only block b reads and writes its planes, with
+// plain loads and stores (never the read-only path: they change during the
+// launch), so the barriers that order the shared form's accesses order the
+// global form's too (__syncthreads makes a block's global writes visible to
+// the block).  The form is the host's plan from N (launch_plan in
+// dense_frame.py); the walk below is one body for both.  Each thread owns
 // particles tid, tid + kThreads, ... in every per-particle pass, so what
 // passes between those passes needs no barrier: prev stays in the owner's
 // registers (its first kOwn particles; past kOwn * kThreads particles a
@@ -66,7 +74,9 @@
 // memory in separate predict and collide passes took 0.196 ms a greedy
 // dragon frame at B = 8 and 0.261 at B = 128 (the column's strided
 // accesses from every block); this one 0.169 and 0.187, about 1.1 us a
-// level (profile_frame.py --parent, NVIDIA H100 80GB HBM3 at 700 W).
+// level (profile_frame.py --parent, NVIDIA H100 80GB HBM3 at 700 W).  The
+// global form walks the same levels with its gathers and scatters going to
+// L1 and L2 instead of shared memory; its time is in PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -201,6 +211,7 @@ __device__ __forceinline__ void collide(float* const P[3], int i,
   for (int r = 0; r < 3; ++r) v[r] = __fdiv_rn(__fsub_rn(x[r], q[r]), F.dt);
 }
 
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 dense_frame_kernel(const float* __restrict__ pos_in,   // [N, 3, B]
                    const float* __restrict__ vel_in,   // [N, 3, B]
@@ -210,9 +221,13 @@ dense_frame_kernel(const float* __restrict__ pos_in,   // [N, 3, B]
                    const Tables tab,
                    const int* __restrict__ grab_id,    // [B], -1 inactive
                    const float* __restrict__ grab_pos, // [3, B]
-                   int N, int B, int L, int S, FrameParams F) {
+                   int N, int B, int L, int S, FrameParams F,
+                   float* planes) {  // [B, 3, N]: the global form's
   extern __shared__ float smem[];
-  float* const P[3] = {smem, smem + N, smem + 2 * N};
+  float* const g = planes + (size_t)blockIdx.x * 3 * N;
+  float* const P[3] = {kGlobal ? g : smem,
+                       kGlobal ? g + (size_t)N : smem + N,
+                       kGlobal ? g + 2 * (size_t)N : smem + 2 * N};
   const int b = blockIdx.x, tid = threadIdx.x, C = tab.C;
   const size_t row = (size_t)3 * B;  // floats from one particle to the next
   const int gid = grab_id[b];
@@ -305,27 +320,36 @@ int dense_frame_threads() { return kThreads; }
 
 size_t dense_frame_smem_bytes(int n) { return (size_t)3 * n * sizeof(float); }
 
-// Lets the kernel take the shared memory of n particles on the current
-// device; returns the CUDA error (0 = set).
+// Lets the shared form take the shared memory of n particles on the
+// current device; returns the CUDA error (0 = set).
 int dense_frame_prepare(int n) {
-  return (int)cudaFuncSetAttribute(dense_frame_kernel,
+  return (int)cudaFuncSetAttribute(dense_frame_kernel<false>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)dense_frame_smem_bytes(n));
 }
 
-// Launches one frame on `stream`; returns cudaGetLastError() (0 = launched).
+// Launches one frame on `stream`: the global form on `planes` ([B, 3, N]
+// f32) where it is not null, else the shared form; returns
+// cudaGetLastError() (0 = launched).
 int dense_frame_launch(const void* pos_in, const void* vel_in, void* pos_out,
                        void* prev_out, void* vel_out, const void* ids,
                        const void* irp, const void* irv, const void* imc,
                        const void* grab_id, const void* grab_pos, int N, int B,
-                       int L, int C, int S, FrameParams F, void* stream) {
+                       int L, int C, int S, FrameParams F, void* planes,
+                       void* stream) {
   const Tables tab{(const int*)ids, (const float*)irp, (const float*)irv,
                    (const float*)imc, C};
-  dense_frame_kernel<<<B, kThreads, dense_frame_smem_bytes(N),
-                       (cudaStream_t)stream>>>(
-      (const float*)pos_in, (const float*)vel_in, (float*)pos_out,
-      (float*)prev_out, (float*)vel_out, tab, (const int*)grab_id,
-      (const float*)grab_pos, N, B, L, S, F);
+  if (planes)
+    dense_frame_kernel<true><<<B, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)pos_in, (const float*)vel_in, (float*)pos_out,
+        (float*)prev_out, (float*)vel_out, tab, (const int*)grab_id,
+        (const float*)grab_pos, N, B, L, S, F, (float*)planes);
+  else
+    dense_frame_kernel<false><<<B, kThreads, dense_frame_smem_bytes(N),
+                                (cudaStream_t)stream>>>(
+        (const float*)pos_in, (const float*)vel_in, (float*)pos_out,
+        (float*)prev_out, (float*)vel_out, tab, (const int*)grab_id,
+        (const float*)grab_pos, N, B, L, S, F, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -11,11 +11,25 @@ NaN and inf spread included.  ``dense_frame`` launches it on CUDA tensors
 and raises on any other; its plain twin is ``solvers/dense.py``'s
 ``frame_reference`` (the products with ``dense_level_reference`` as the
 level solve), which ``solvers.dense.step_frame`` runs on CPU tensors.
-``launch_count`` counts the launches, one per frame.
+``launch_count`` counts the launches, one per frame, and ``form_launches``
+the launches of each form.
+
+The form is the host's plan from the body's size (``launch_plan``), not a
+fallback: a body of up to 19,370 particles keeps its positions in the
+block's shared memory (the shared form, 12 bytes a particle against a
+Hopper block's 232,448); a larger one in a global scratch [B, 3, N] that
+``dense_frame`` allocates, 12 N B bytes (the global form, no dynamic
+shared memory).  Either launch that fails raises; neither retries in the
+other form.  Nothing else bounds N but int32 indexing: the kernel holds a
+particle id and a thread's particle index in an int, so N must stay below
+2^31 - 256; long before that the twin's one-hot, f32 [L, N, 4C], meets
+``build_dense_arrays``' ``max_bytes`` gate (2 GB by default, as in the JAX
+package).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,11 +42,15 @@ THREADS = 256  # threads per block, as kThreads in csrc/dense_frame.cu
 FLOPS_PER_TET = 421  # one tet's projection, as gs_fused.frame_flops counts it
 FLOPS_PER_PARTICLE = 13  # predict and velocity update, per substep
 
+FORMS = ("shared", "global")
+
 launch_count = 0  # launches of the CUDA kernel since import (or reset)
+form_launches = dict.fromkeys(FORMS, 0)  # the launches of each form
 
 
 def smem_bytes(num_particles: int) -> int:
-    """Shared memory of one block: the body's three position planes."""
+    """The body's three position planes: the shared form's dynamic shared
+    memory, and the global form's scratch per body."""
     return 12 * num_particles
 
 
@@ -40,17 +58,36 @@ def check_fits(num_particles: int) -> None:
     need = smem_bytes(num_particles)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"the dense frame kernel keeps a body's positions in shared "
-            f"memory: {num_particles} particles need {need} bytes, a Hopper "
-            f"block has {SMEM_LIMIT} (at most {SMEM_LIMIT // 12} particles)")
+            f"the shared form of the dense frame kernel keeps a body's "
+            f"positions in shared memory: {num_particles} particles need "
+            f"{need} bytes, a Hopper block has {SMEM_LIMIT} (at most "
+            f"{SMEM_LIMIT // 12} particles)")
 
 
-def launch_plan(num_bodies: int, num_particles: int) -> tuple[int, int, int]:
-    """(blocks, threads per block, dynamic shared bytes) of a frame: a block
-    per body, the body's positions in shared memory; raises ValueError where
-    they pass a block's limit."""
-    check_fits(num_particles)
-    return num_bodies, THREADS, smem_bytes(num_particles)
+class LaunchPlan(NamedTuple):
+    form: str  # "shared" or "global": where a body's positions live
+    blocks: int  # one per body
+    threads: int  # per block
+    smem_bytes: int  # dynamic shared memory per block
+    scratch_bytes: int  # the global form's planes, all bodies
+
+
+def launch_plan(num_bodies: int, num_particles: int,
+                form: str | None = None) -> LaunchPlan:
+    """A frame's launch: a block per body, its positions in shared memory
+    where they fit a block, else in a global scratch.  ``form`` forces one
+    (``chip_smoke.py`` holds the two against each other); a forced shared
+    form that does not fit raises ValueError."""
+    if form is None:
+        form = "shared" if smem_bytes(num_particles) <= SMEM_LIMIT else "global"
+    if form == "shared":
+        check_fits(num_particles)
+        return LaunchPlan(form, num_bodies, THREADS,
+                          smem_bytes(num_particles), 0)
+    if form == "global":
+        return LaunchPlan(form, num_bodies, THREADS, 0,
+                          num_bodies * smem_bytes(num_particles))
+    raise ValueError(f"unknown form {form!r}: expected one of {FORMS}")
 
 
 def frame_flops(arr, params: PhysicsParams, num_bodies: int) -> int:
@@ -78,7 +115,7 @@ def library() -> ctypes.CDLL:
     if lib.dense_frame_launch.argtypes is None:
         lib.dense_frame_launch.argtypes = (
             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-            + [_FrameParams, ctypes.c_void_p])
+            + [_FrameParams, ctypes.c_void_p, ctypes.c_void_p])
         lib.dense_frame_launch.restype = ctypes.c_int
         lib.dense_frame_prepare.argtypes = [ctypes.c_int]
         lib.dense_frame_prepare.restype = ctypes.c_int
@@ -91,18 +128,21 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def dense_frame(pos, vel, arr, params: PhysicsParams, grab_id, grab_pos):
+def dense_frame(pos, vel, arr, params: PhysicsParams, grab_id, grab_pos, *,
+                form: str | None = None):
     """One frame on the card: pos / vel f32 [N, 3, B], grab_id int32 [B] (-1
-    inactive), grab_pos f32 [3, B], ``arr`` a ``DenseArrays``; returns new
-    (pos, prev_pos, vel) tensors.  Raises on tensors off CUDA and where a
-    body's positions pass a block's shared memory."""
+    inactive), grab_pos f32 [3, B], ``arr`` a ``DenseArrays`` (its tables
+    only: the one-hot is the twin's); returns new (pos, prev_pos, vel)
+    tensors.  ``form`` forces the launch plan's form (for the card's checks;
+    by default ``launch_plan`` picks it).  Raises on tensors
+    off CUDA and where a launch fails."""
     global launch_count
     dev = pos.device
     if dev.type != "cuda":
         raise ValueError(f"the dense frame kernel runs on CUDA, not {dev}")
     N, _, B = pos.shape
     L, C = arr.irv.shape
-    blocks, _, _ = launch_plan(B, N)
+    plan = launch_plan(B, N, form)
     f32 = torch.float32
     expect(pos, "pos", f32, (N, 3, B), dev)
     expect(vel, "vel", f32, (N, 3, B), dev)
@@ -115,18 +155,23 @@ def dense_frame(pos, vel, arr, params: PhysicsParams, grab_id, grab_pos):
 
     lib = library()
     pos_out, prev_out, vel_out = (torch.empty_like(pos) for _ in range(3))
+    planes = (torch.empty((B, 3, N), dtype=f32, device=dev)
+              if plan.form == "global" else None)
     with torch.cuda.device(dev):  # the launch goes to the current device
-        err = prepared(lib, "dense_frame", dev, N)
+        err = (0 if plan.form == "global"  # no dynamic shared memory
+               else prepared(lib, "dense_frame", dev, N))
         if err == 0:
             err = lib.dense_frame_launch(
                 pos.data_ptr(), vel.data_ptr(), pos_out.data_ptr(),
                 prev_out.data_ptr(), vel_out.data_ptr(), arr.ids.data_ptr(),
                 arr.irp.data_ptr(), arr.irv.data_ptr(), arr.imc.data_ptr(),
-                grab_id.data_ptr(), grab_pos.data_ptr(), N, blocks, L, C,
+                grab_id.data_ptr(), grab_pos.data_ptr(), N, plan.blocks, L, C,
                 params.num_substeps, _frame_params(params),
+                None if planes is None else planes.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError("dense_frame launch failed: "
+        raise RuntimeError(f"dense_frame launch ({plan.form} form) failed: "
                            f"{lib.dense_frame_error_string(err).decode()}")
     launch_count += 1
+    form_launches[plan.form] += 1
     return pos_out, prev_out, vel_out

@@ -26,15 +26,19 @@ The substep is the JAX package's dense one, which differs from
 and the grab overrides its particle after the collision step, so the solve
 does not pin it.
 
-The one-hot, built for the twin, is f32 [L, N, 4C]: 161.7 MB for the
+The one-hot, the twin's alone, is f32 [L, N, 4C]: 161.7 MB for the
 dragon on the greedy colouring (L = 32, C = 256), 1.78 GB on the ordered
 one (L = 703, C = 128); ``build_dense_arrays`` refuses a mesh whose slab
-passes ``max_bytes``.  The tables are the JAX package's: the level's slots
-in the order of their tets' first corners, C rounded up to 128.
+passes ``max_bytes``, as the JAX package does, but builds the slab only
+when it is first read (``DenseArrays.onehot``: by the twin), so a body that
+only steps on the card never allocates it.  The tables are the JAX
+package's: the level's slots in the order of their tets' first corners, C
+rounded up to 128.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -59,7 +63,6 @@ class DenseState:
 class DenseArrays:
     """Per-mesh constants of the dense engine, as tensors on one device."""
 
-    onehot: torch.Tensor  # f32 [L, N, 4C] scatter matrix (gather: transposed)
     ids: torch.Tensor  # int32 [L, 4C] corner slot -> particle (padding: 0)
     irp: torch.Tensor  # f32 [L, 9, C] inverse rest pose, row-major
     irv: torch.Tensor  # f32 [L, C] inverse rest volume (0: padded slot)
@@ -69,7 +72,21 @@ class DenseArrays:
 
     @property
     def num_levels(self) -> int:
-        return self.onehot.shape[0]
+        return self.irv.shape[0]
+
+    @functools.cached_property
+    def onehot(self) -> torch.Tensor:
+        """The twin's f32 [L, N, 4C] scatter matrix (gather: transposed),
+        built on the tables' device when first read: a slot's column holds
+        its corner's 1 where the slot holds a tet (irv != 0, as the JAX
+        package tells them apart)."""
+        lev, slot = torch.nonzero((self.irv != 0.0).repeat(1, 4),
+                                  as_tuple=True)
+        onehot = torch.zeros(
+            (self.num_levels, self.num_particles, 4 * self.slots_per_level),
+            dtype=torch.float32, device=self.irv.device)
+        onehot[lev, self.ids[lev, slot].long(), slot] = 1.0
+        return onehot
 
 
 def _round_up(x: int, k: int) -> int:
@@ -113,8 +130,9 @@ def level_tables(mesh: TetMesh, density: float = 1000.0,
 def build_dense_arrays(mesh: TetMesh, density: float = 1000.0,
                        coloring: str = "greedy",
                        max_bytes: int = 2_000_000_000, *, device) -> DenseArrays:
-    """The one-hot slab (the twin's) and the level tables on ``device``;
-    raises ValueError where the slab would pass ``max_bytes``."""
+    """The level tables on ``device``; raises ValueError where the twin's
+    one-hot slab would pass ``max_bytes`` (the slab itself is built when
+    the twin first reads it)."""
     ids, irp, irv, imc = level_tables(mesh, density, coloring)
     n, (L, C) = mesh.num_particles, irv.shape
     nbytes = L * n * 4 * C * 4
@@ -124,14 +142,8 @@ def build_dense_arrays(mesh: TetMesh, density: float = 1000.0,
             f"(L={L}, N={n}, 4C={4*C}); use the classic neohookean engine "
             "for meshes this large"
         )
-    # a slot's column holds its corner's 1 where the slot holds a tet
-    # (irv != 0, as the JAX package tells them apart)
-    lev, slot = np.nonzero(np.tile(irv != 0.0, (1, 4)))
-    onehot = torch.zeros((L, n, 4 * C), dtype=torch.float32, device=device)
-    onehot[torch.as_tensor(lev), torch.as_tensor(ids[lev, slot]).long(),
-           torch.as_tensor(slot)] = 1.0
     return DenseArrays(
-        onehot=onehot, ids=torch.as_tensor(ids).to(device),
+        ids=torch.as_tensor(ids).to(device),
         irp=torch.as_tensor(irp).to(device),
         irv=torch.as_tensor(irv).to(device),
         imc=torch.as_tensor(imc).to(device),

@@ -739,11 +739,12 @@ class DenseBody:
     """B bodies of one mesh stepped by the dense Neo-Hookean engine
     (``solvers/dense.py``): bodies batched in columns, pos / prev_pos / vel
     [N, 3, B] (``state``), one launch of ``kernels/csrc/dense_frame.cu`` a
-    frame on CUDA (each level gathered and scattered by index; the one-hot
-    products are the plain twin's, on the CPU).  One grab per body:
-    grab_id int32 [B] (-1 inactive), grab_pos [3, B].  The per-body grab
-    API of the other batches; ``positions`` and ``velocities`` are [B, N,
-    3]."""
+    frame on CUDA (each level gathered and scattered by index, at any
+    number of particles; the one-hot products are the plain twin's, on the
+    CPU, and the one-hot is built only when the twin runs).  One grab per
+    body: grab_id int32 [B] (-1 inactive), grab_pos [3, B].  The per-body
+    grab API of the other batches; ``positions`` and ``velocities`` are [B,
+    N, 3]."""
 
     def __init__(
         self,
