@@ -2664,7 +2664,6 @@ def dense_engine(tt, dense_frame, dragon, label):
     and 128 and their (ms, event ms, twin ms), from which phase 28 traces a
     frame each."""
     from tetsim_torch._compile import BUILD_DIR
-    from tetsim_torch.kernels import dense_level
     from tetsim_torch.solvers import dense
     from tetsim_torch.world import DenseBody
 
@@ -2686,10 +2685,12 @@ def dense_engine(tt, dense_frame, dragon, label):
     gid, gpos = batch.grab_id, batch.grab_pos
     twin = dense.frame_reference
 
-    saved = dense.frame_reference, dense_level.dense_level_reference
-    dense.frame_reference = dense_level.dense_level_reference = None  # raise
+    saved = dense.frame_reference, dense.dense_level_reference
+    dense.frame_reference = dense.dense_level_reference = None  # raise
     dense_frame.launch_count = 0
     dense_frame.form_launches.update(dict.fromkeys(dense_frame.FORMS, 0))
+    dense_frame.cluster_launches.update(
+        dict.fromkeys(dense_frame.cluster_launches, 0))
     try:
         got = []
         with no_host_sync():
@@ -2697,12 +2698,14 @@ def dense_engine(tt, dense_frame, dragon, label):
                 world.step(1)
                 got.append(batch.state)
     finally:
-        dense.frame_reference, dense_level.dense_level_reference = saved
+        dense.frame_reference, dense.dense_level_reference = saved
     launches = dense_frame.launch_count
     check(launches == DENSE_FRAMES
-          and dense_frame.form_launches["shared"] == DENSE_FRAMES,
+          and dense_frame.form_launches["shared"] == DENSE_FRAMES
+          and not any(dense_frame.cluster_launches.values()),
           f"{launches} frame-kernel launches for {DENSE_FRAMES} frames "
-          f"({dense_frame.form_launches})")
+          f"({dense_frame.form_launches}, global form at each cluster "
+          f"{dense_frame.cluster_launches})")
     sync()
     peak = torch.cuda.max_memory_allocated() - base
     built = "onehot" in vars(arr)
@@ -2877,13 +2880,14 @@ def same_bits(a, b) -> bool:
 
 
 def dense_grab(start, b):
-    """grab_id / grab_pos of b bodies: body 5 holds particle 7 5 cm above
-    its start."""
+    """grab_id / grab_pos of b bodies: body 5, where the batch has one,
+    holds particle 7 5 cm above its start."""
     gid = torch.full((b,), -1, dtype=torch.int32, device="cuda")
     gpos = torch.zeros((3, b), device="cuda")
-    gid[5] = 7
-    gpos[:, 5] = start.pos[7, :, 5] + torch.tensor([0.0, 0.05, 0.0],
-                                                  device="cuda")
+    if b > 5:
+        gid[5] = 7
+        gpos[:, 5] = start.pos[7, :, 5] + torch.tensor([0.0, 0.05, 0.0],
+                                                      device="cuda")
     return gid, gpos
 
 
@@ -2932,34 +2936,43 @@ def dense_forms(dense_frame, dragon, params, label):
               + " per frame by CUDA events", flush=True)
 
 
-WIDE_B = 8  # the batch of the two bodies past one block's shared memory
+WIDE_BS = (8, 1)  # the batches of the bodies past one block's shared memory
 WIDE_FRAMES = 2
 
 
 def dense_wide(tt, dense_frame, params, label):
-    """Phase 27: the two bodies past one block's shared memory at B = 8,
-    jittered 0.5, on the global form (the launch plan's choice):
-    replicate_mesh(single_tet_mesh(), 4843) (19,372 particles, L = 1, C =
-    4,864; the twin's one-hot 1.508 GB) through World.add_body_batch(...,
-    backend="dense") with a grab, and replicate_mesh(grid_mesh(1, 1, 1,
-    cell=0.1), 2422) (19,376 particles, L = 6, C = 2,432; 4.52 GB) through
-    dense.build_dense_arrays(..., max_bytes=5e9) and dense.step_frame with
-    body 5 holding a particle 5 cm up, the copies of each jittered apart.
-    Each: 2 frames with no host sync, one global-form launch a frame and
-    the one-hot not built, held after each frame to the twin at 2e-5 /
+    """Phase 27: the two bodies past one block's shared memory at B = 8 and
+    1, jittered 0.5, on the global form (the launch plan's choice, a
+    cluster of more than one block per body): replicate_mesh(
+    single_tet_mesh(), 4843) (19,372 particles, L = 1, C = 4,864; the
+    twin's one-hot 1.508 GB) through World.add_body_batch(...,
+    backend="dense"), and replicate_mesh(grid_mesh(1, 1, 1, cell=0.1), 2422)
+    (19,376 particles, L = 6, C = 2,432; 4.52 GB) through
+    dense.build_dense_arrays(..., max_bytes=5e9) and dense.step_frame; at
+    B = 8 body 5 holds a particle 5 cm up, the copies of each jittered
+    apart.  Each: 2 frames with no host sync, one global-form launch a frame
+    on the plan's cluster (the wrapper's count of the global form's
+    launches at each cluster size) and the one-hot not built, held after each frame to the twin at 2e-5 /
     2e-3 or twice the kernel's spread from starts 1 ulp apart; a NaN
     planted in particle 11 of body 0: one launch a frame, the twin's NaN
-    masks, body 0 all NaN, the other bodies bitwise the clean run; then ms
-    a frame by CUDA events, the bound and its share, the twin's frame.
-    Returns the global form's JSON row (the World body's numbers; the
-    error the larger of the two)."""
+    masks, body 0 all NaN, the other bodies bitwise the clean run; the
+    plan's cluster bitwise a cluster of one block after each frame, clean
+    and with a NaN, then an inf, planted in body 0; then ms a frame by CUDA
+    events at the plan's cluster and at one block, the bound and its
+    share, the twin's frame.  Returns the global form's JSON row (the World
+    body's numbers at B = 8 with its cluster; the error the largest of
+    all)."""
     from tetsim_torch.mesh import single_tet_mesh
     from tetsim_torch.solvers import dense
     from tetsim_torch.world import DenseBody
 
+    keys = ("pos", "prev_pos", "vel")
+
     def reset():
         dense_frame.launch_count = 0
         dense_frame.form_launches.update(dict.fromkeys(dense_frame.FORMS, 0))
+        dense_frame.cluster_launches.update(
+            dict.fromkeys(dense_frame.cluster_launches, 0))
 
     def frames(s, arr, gid, gpos, step):
         out = []
@@ -2968,20 +2981,35 @@ def dense_wide(tt, dense_frame, params, label):
             out.append(s)
         return out
 
-    def case(name, arr, start, gid, gpos, got, launches):
+    def at_cluster(cs):
+        """dense.step_frame's launch with the global form's cluster forced
+        to cs blocks."""
+        def step(s, arr, prm, gid, gpos):
+            return dense.DenseState(*dense_frame.dense_frame(
+                s.pos, s.vel, arr, prm, gid, gpos, cs=cs))
+        return step
+
+    def case(name, arr, start, gid, gpos, got, launches, clusters):
         """The checks and times of one body; ``got`` the kernel's states
         after each frame of the main path from ``start``, ``launches`` its
-        launches of each form."""
-        n = arr.num_particles
-        plan = dense_frame.launch_plan(WIDE_B, n)
-        print(f"phase 27 {name}: {n} particles, L = {arr.num_levels} levels "
-              f"of C = {arr.slots_per_level}, plan {plan}, launches "
-              f"{launches} for {WIDE_FRAMES} frames, the one-hot built "
-              f"{'onehot' in vars(arr)}", flush=True)
-        check(plan.form == "global"
+        launches of each form, ``clusters`` its global-form launches at
+        each cluster size."""
+        n, b = arr.num_particles, start.pos.shape[2]
+        plan = dense_frame.launch_plan(
+            b, n, arr.slots_per_level,
+            waves=dense_frame.active_clusters(start.pos.device))
+        cs = plan.cluster
+        print(f"phase 27 {name} B={b}: {n} particles, L = {arr.num_levels} "
+              f"levels of C = {arr.slots_per_level}, plan {plan}, launches "
+              f"{launches} for {WIDE_FRAMES} frames, at each cluster "
+              f"{clusters}, the one-hot built {'onehot' in vars(arr)}",
+              flush=True)
+        ran = {c: k for c, k in clusters.items() if k}
+        check(plan.form == "global" and cs > 1
               and launches == {"shared": 0, "global": WIDE_FRAMES}
-              and "onehot" not in vars(arr),
-              f"phase 27 {name}: not one global-form launch a frame")
+              and ran == {cs: WIDE_FRAMES} and "onehot" not in vars(arr),
+              f"phase 27 {name} B={b}: not one global-form launch a frame "
+              f"on the plan's cluster of {cs} blocks ({ran})")
         want = frames(start, arr, gid, gpos, dense.frame_reference)
         moved = [frames(st, arr, gid, gpos, dense.step_frame)
                  for st in (start.replace(pos=ulp(start.pos, 10.0)),
@@ -2991,7 +3019,7 @@ def dense_wide(tt, dense_frame, params, label):
             sp = max(max_diff(k.pos, x.pos) for x in m)
             sv = max(max_diff(k.vel, x.vel) for x in m)
             err = max(err, hold(
-                f"phase 27 {name} B={WIDE_B} frame {f} of {WIDE_FRAMES}",
+                f"phase 27 {name} B={b} frame {f} of {WIDE_FRAMES}",
                 [("pos", k.pos, r.pos, 2e-5, sp),
                  ("vel", k.vel, r.vel, 2e-3, sv)]))
 
@@ -3001,75 +3029,107 @@ def dense_wide(tt, dense_frame, params, label):
         ks = frames(s0, arr, gid, gpos, dense.step_frame)
         nan_launches = dense_frame.form_launches["global"] - before
         rs = frames(s0, arr, gid, gpos, dense.frame_reference)
-        keys = ("pos", "prev_pos", "vel")
         masks = all(torch.equal(torch.isnan(getattr(k, a)),
                                 torch.isnan(getattr(r, a)))
                     for k, r in zip(ks, rs) for a in keys)
         rest = all(torch.equal(getattr(k, a)[..., 1:], getattr(g, a)[..., 1:])
                    for k, g in zip(ks, got) for a in keys)
         body0 = bool(torch.isnan(ks[-1].pos[..., 0]).all())
-        print(f"phase 27 {name}: a NaN in particle 11 of body 0: "
+        print(f"phase 27 {name} B={b}: a NaN in particle 11 of body 0: "
               f"{nan_launches} launches for {WIDE_FRAMES} frames, the twin's "
               f"NaN masks after each frame {masks}, body 0 all NaN {body0}, "
               f"the other bodies bitwise the clean run {rest}", flush=True)
         check(masks and rest and body0 and nan_launches == WIDE_FRAMES,
               f"phase 27 {name}: a NaN spreads otherwise than in the twin")
 
+        # the plan's cluster bitwise one block, clean and with a NaN, an inf
+        for what, plant in (("clean", None), ("a NaN in body 0", float("nan")),
+                            ("an inf in body 0", float("inf"))):
+            s1 = start.replace(pos=start.pos.clone())
+            if plant is not None:
+                s1.pos[11, 1, 0] = plant
+            wide, one = (frames(s1, arr, gid, gpos, at_cluster(c))
+                         for c in (cs, 1))
+            same = all(same_bits(getattr(x, a), getattr(y, a))
+                       for x, y in zip(wide, one) for a in keys)
+            print(f"phase 27 {name} B={b}, {what}: the cluster of {cs} "
+                  f"blocks bitwise one block after each of {WIDE_FRAMES} "
+                  f"frames, NaN masks equal, {same}", flush=True)
+            check(same, f"phase 27 {name} B={b}: cs={cs} differs from cs=1 "
+                  f"({what})")
+
         k_ms = event_ms(lambda: dense.step_frame(start, arr, params, gid,
                                                  gpos), 20)
+        one_ms = event_ms(lambda: at_cluster(1)(start, arr, params, gid,
+                                                gpos), 20)
         p_ms = event_ms(lambda: dense.frame_reference(start, arr, params, gid,
                                                       gpos), 1)
-        b_ms, b_by = bound(dense_frame.frame_flops(arr, params, WIDE_B),
-                           dense_frame.frame_bytes(arr, WIDE_B))
-        print(f"phase 27 [{label}] {name} B={WIDE_B}: {k_ms:.4f} ms per "
-              f"frame by CUDA events (global form); bound {b_ms * 1e3:.3f} "
-              f"us ({b_by}, {b_ms / k_ms:.2%} of it); the twin {p_ms:.1f} "
-              "ms per frame", flush=True)
-        return err, k_ms, p_ms, b_ms, b_by
+        b_ms, b_by = bound(dense_frame.frame_flops(arr, params, b),
+                           dense_frame.frame_bytes(arr, b))
+        print(f"phase 27 [{label}] {name} B={b}: {k_ms:.4f} ms per frame by "
+              f"CUDA events (global form, cluster of {cs} blocks), "
+              f"{one_ms:.4f} ms on one block a body; bound "
+              f"{b_ms * 1e3:.3f} us ({b_by}, {b_ms / k_ms:.2%} of it); the "
+              f"twin {p_ms:.1f} ms per frame", flush=True)
+        return err, (k_ms, p_ms, b_ms, b_by, cs)
 
     # the user's path: World -> add_body_batch(backend="dense"), a grab
     tets = tt.replicate_mesh(single_tet_mesh(), 4843, jitter=1.0, seed=3)
-    world = tt.World(tt.default_cpu_params())
-    body = world.add_body_batch(tets, WIDE_B, engine="neohookean",
-                                backend="dense", jitter=0.5)
-    check(type(body) is DenseBody, "backend='dense' is not DenseBody")
-    pid = body.start_grab(5, body.positions()[5].mean(axis=0))
-    body.move_grabbed(5, body.positions()[5, pid]
-                      + np.float32([0.0, 0.05, 0.0]))
-    start = body.state
-    reset()
-    got = []
-    with no_host_sync():
-        for _ in range(WIDE_FRAMES):
-            world.step(1)
-            got.append(body.state)
-    launches = dict(dense_frame.form_launches)
-    check(torch.equal(got[-1].pos[pid, :, 5], body.grab_pos[:, 5]),
-          "grab off target")
-    err, k_ms, p_ms, b_ms, b_by = case(
-        "replicate_mesh(single_tet_mesh(), 4843) through World", body.arrays,
-        start, body.grab_id, body.grab_pos, got, launches)
-    del world, body, got
+    errs, row = [], None
+    for b in WIDE_BS:
+        world = tt.World(tt.default_cpu_params())
+        body = world.add_body_batch(tets, b, engine="neohookean",
+                                    backend="dense", jitter=0.5)
+        check(type(body) is DenseBody, "backend='dense' is not DenseBody")
+        if b > 5:
+            pid = body.start_grab(5, body.positions()[5].mean(axis=0))
+            body.move_grabbed(5, body.positions()[5, pid]
+                              + np.float32([0.0, 0.05, 0.0]))
+        start = body.state
+        reset()
+        got = []
+        with no_host_sync():
+            for _ in range(WIDE_FRAMES):
+                world.step(1)
+                got.append(body.state)
+        launches = dict(dense_frame.form_launches)
+        clusters = dict(dense_frame.cluster_launches)
+        if b > 5:
+            check(torch.equal(got[-1].pos[pid, :, 5], body.grab_pos[:, 5]),
+                  "grab off target")
+        err, times = case(
+            "replicate_mesh(single_tet_mesh(), 4843) through World",
+            body.arrays, start, body.grab_id, body.grab_pos, got, launches,
+            clusters)
+        errs.append(err)
+        if row is None:  # the row's numbers: B = 8
+            row, main_launches = times, launches["global"]
+        del world, body, got
 
     cubes = tt.replicate_mesh(tt.grid_mesh(1, 1, 1, cell=0.1), 2422,
                               jitter=1.0, seed=4)
     arr = dense.build_dense_arrays(cubes, max_bytes=5_000_000_000,
                                    device="cuda")
-    start = dense.init_dense_state(cubes, WIDE_B, jitter=0.5, seed=1,
-                                   device="cuda")
-    gid, gpos = dense_grab(start, WIDE_B)
-    reset()
-    with no_host_sync():
-        got = frames(start, arr, gid, gpos, dense.step_frame)
-    err2, *_ = case("replicate_mesh(grid_mesh(1, 1, 1), 2422) through "
-                    "dense.step_frame", arr, start, gid, gpos, got,
-                    dict(dense_frame.form_launches))
+    for b in WIDE_BS:
+        start = dense.init_dense_state(cubes, b, jitter=0.5, seed=1,
+                                       device="cuda")
+        gid, gpos = dense_grab(start, b)
+        vars(arr).pop("onehot", None)  # the last batch's twin built it
+        reset()
+        with no_host_sync():
+            got = frames(start, arr, gid, gpos, dense.step_frame)
+        err, _ = case("replicate_mesh(grid_mesh(1, 1, 1), 2422) through "
+                      "dense.step_frame", arr, start, gid, gpos, got,
+                      dict(dense_frame.form_launches),
+                      dict(dense_frame.cluster_launches))
+        errs.append(err)
+    k_ms, p_ms, b_ms, b_by, cs = row
     return {"name": "dense_frame_global", "route": "cuda",
             "source": "tetsim_torch/kernels/csrc/dense_frame.cu",
             "replaces": "none: the XLA engine (tetsim_tpu/solvers/dense.py:184)",
-            "launches": launches["global"], "max_abs_err": max(err, err2),
+            "launches": main_launches, "max_abs_err": max(errs),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": None, "cluster": cs}
 
 
 def sync():

@@ -90,9 +90,14 @@ at B = 8 and 128 ("dense B=8", "dense B=128": jittered 0.5, body 5 holding
 a particle 5 cm up, 5 substeps; kernel_us and device_ms over every kernel
 of the frame, per_kernel by name; the bits also from a start with a NaN,
 then an inf, planted in bodies 0 and 1, NaN masks compared), and on
-chip_smoke.py phase 27's 19,372-particle body at B = 8 ("dense 19k B=8",
-the kernel's global form; a parent older than the global form refuses
-it).
+chip_smoke.py phase 27's two bodies past one block's shared memory, the
+kernel's global form at the plan's cluster per body: 19,372 particles (L
+= 1) at B = 8, 1 and 128 ("dense 19k B=8", "dense 19k B=1", "dense 19k
+B=128": one block a body) and 19,376 (L = 6) at B = 8 and 1 ("dense 19k
+L=6 B=8", "dense 19k L=6 B=1"), and the dragon at B = 8 forced onto the
+global form through each side's ``kernels.dense_frame.dense_frame``,
+greedy and ordered ("dense global B=8", "dense global ordered B=8"); a
+parent older than the global form refuses them.
 kernel_us is per launch (nh_stencil:
 50 per substep in the first design, one per frame since; polar_pieces: 2
 per substep in the first design, one since; gs_levels: L + 2 per substep
@@ -149,7 +154,13 @@ then K9's instruction stream ("K9") on 1,048,576 lanes: its SASS per
 iteration by class (a probe build, ``-DEXTRACT_ROTATION_PROBE``: all of
 the code, and the fast path that no slow path leaves, ``fast_path``), its
 ms per pass by CUDA events and the issue floor of its fast path at the SM
-clock read while it runs.
+clock read while it runs; then dense_frame's cluster walk ("dense_frame",
+``-DDENSE_FRAME_PHASES``): SM cycles on block 0 per substep of its
+particle passes, per level and per barrier, the instrumented frame's ms
+and the spread of its blocks, on the two bodies past one block's shared
+memory at B = 1 and 8 at the plan's cluster, and on 8 greedy dragons
+forced onto it at a cluster of 2 blocks, beside each batch's ms on one
+block a body.
 """
 import argparse
 import contextlib
@@ -448,7 +459,14 @@ AB_SHAPES = (("gs ordered B=1", "gs", 1, "ordered", 20, 80),
              ("K9 1M lanes", "k9", 1, None, 16, 64),
              ("dense B=8", "dense", 8, None, 10, 60),
              ("dense B=128", "dense", 128, None, 10, 60),
-             ("dense 19k B=8", "dense", 8, "19k", 10, 60))
+             ("dense 19k B=8", "dense", 8, "19k", 10, 60),
+             ("dense 19k L=6 B=8", "dense", 8, "19k L=6", 10, 60),
+             ("dense 19k B=1", "dense", 1, "19k", 10, 60),
+             ("dense 19k L=6 B=1", "dense", 1, "19k L=6", 10, 60),
+             ("dense 19k B=128", "dense", 128, "19k", 4, 24),
+             ("dense global B=8", "dense", 8, "global", 10, 60),
+             ("dense global ordered B=8", "dense", 8, "ordered global", 4,
+              24))
 LARGE_DIMS = (20, 20, 20)  # 9,261 particles: over one block's shared memory
 LARGE_BOX = dict(cell=0.05, origin=(-0.5, 0.3, -0.5))
 SLAB_BOX = dict(cell=0.05, origin=(-1.4, 0.1, -1.4))  # NH collapses at 0.02
@@ -576,32 +594,54 @@ class _Slabs:
 
 
 def dense_mesh(tt, which):
-    """The dragon, or (``which`` "19k") chip_smoke.py phase 27's body past
-    one block's shared memory: replicate_mesh(single_tet_mesh(), 4843),
-    19,372 particles, L = 1, C = 4,864, the kernel's global form."""
-    if which != "19k":
-        return tt.load_dragon()
-    from tetsim_torch.mesh import single_tet_mesh
-    return tt.replicate_mesh(single_tet_mesh(), 4843, jitter=1.0, seed=3)
+    """The dragon, or one of chip_smoke.py phase 27's two bodies past one
+    block's shared memory, the kernel's global form: (``which`` "19k")
+    replicate_mesh(single_tet_mesh(), 4843), 19,372 particles, L = 1, C =
+    4,864; ("19k L=6") replicate_mesh(grid_mesh(1, 1, 1, cell=0.1), 2422),
+    19,376 particles, L = 6, C = 2,432; otherwise (None, "global",
+    "ordered global": the dragon forced onto the global form) the
+    dragon."""
+    if which == "19k":
+        from tetsim_torch.mesh import single_tet_mesh
+        return tt.replicate_mesh(single_tet_mesh(), 4843, jitter=1.0, seed=3)
+    if which == "19k L=6":
+        return tt.replicate_mesh(tt.grid_mesh(1, 1, 1, cell=0.1), 2422,
+                                 jitter=1.0, seed=4)
+    return tt.load_dragon()
+
+
+def dense_coloring(which) -> str:
+    """The colouring of ``dense_mesh(which)``'s levels: the greedy one but
+    for the dragon's "ordered global"."""
+    return "ordered" if which == "ordered global" else "greedy"
 
 
 class _Dense:
     """B dense bodies of one mesh, jittered 0.5 as chip_smoke.py's phase 27,
-    stepped by a version's ``solvers.dense.step_frame``, body 5 holding
-    particle 7 5 cm up."""
+    stepped by a version's ``solvers.dense.step_frame`` (``form`` given:
+    by its ``kernels.dense_frame.dense_frame`` forced onto that form), body
+    5 (of a batch that has one) holding particle 7 5 cm up."""
 
-    def __init__(self, mod, arrays, mesh, b):
-        self.mod, self.arrays = mod, arrays
+    def __init__(self, mod, arrays, mesh, b, form=None):
+        self.mod, self.arrays, self.form = mod, arrays, form
+        self.kernel = importlib.import_module(
+            mod.__name__.rsplit(".", 2)[0] + ".kernels.dense_frame")
         s = mod.init_dense_state(mesh, b, jitter=0.5, device="cuda")
         self.pos, self.prev_pos, self.vel = s.pos, s.prev_pos, s.vel
         self.gid = torch.full((b,), -1, dtype=torch.int32, device="cuda")
         self.gpos = torch.zeros((3, b), device="cuda")
-        self.gid[5] = 7
-        self.gpos[:, 5] = self.pos[7, :, 5] + torch.tensor(
-            [0.0, 0.05, 0.0], device="cuda")
+        if b > 5:
+            self.gid[5] = 7
+            self.gpos[:, 5] = self.pos[7, :, 5] + torch.tensor(
+                [0.0, 0.05, 0.0], device="cuda")
 
     def step(self, params, k):
         for _ in range(k):
+            if self.form:
+                self.pos, self.prev_pos, self.vel = self.kernel.dense_frame(
+                    self.pos, self.vel, self.arrays, params, self.gid,
+                    self.gpos, form=self.form)
+                continue
             s = self.mod.step_frame(
                 self.mod.DenseState(self.pos, self.prev_pos, self.vel),
                 self.arrays, params, self.gid, self.gpos)
@@ -698,21 +738,37 @@ def print_usage(label: str, lib, kernel: str, smem=None) -> None:
 
 
 def dense_sass(packages) -> None:
-    """Each side's dense_frame kernels' resource usage, and whether B's
-    shared form (``dense_frame_kernel<false>``, or the one kernel of a
-    version before the global form) has A's SASS, instruction for
-    instruction (addresses aside)."""
+    """Each side's dense_frame kernels' resource usage (registers, shared
+    and local bytes; the cluster walk, ``dense_frame_kernel<true, true>``,
+    is one build for every cluster size, a launch parameter), and whether
+    B's shared form (``dense_frame_kernel<false>``, or the one kernel of a
+    version before the global form) and B's global form on one block
+    (``dense_frame_kernel<true>``) and B's cluster walk have A's SASS,
+    instruction for instruction (addresses aside)."""
+    def listing(lib, *names):
+        """The SASS of the first of ``names`` that ``lib`` holds."""
+        for name in names:
+            out = sass_listing(lib, name)
+            if out:
+                return [ins[1:] for ins in out]
+        return []
+
+    forms = {"shared form": ("dense_frame_kernelILb0ELb0E",
+                             "dense_frame_kernelILb0E", "dense_frame_kernel"),
+             "global form on one block": ("dense_frame_kernelILb1ELb0E",
+                                          "dense_frame_kernelILb1E"),
+             "cluster walk": ("dense_frame_kernelILb1ELb1E",)}
     listings = {}
     for side, pkg in packages.items():
         lib = importlib.import_module(
             f"{pkg.__name__}.kernels.dense_frame").library()
         print_usage(f"[{side}] kernels.dense_frame", lib, "dense_frame_kernel")
-        listings[side] = [ins[1:] for ins in (
-            sass_listing(lib, "dense_frame_kernelILb0E")
-            or sass_listing(lib, "dense_frame_kernel"))]
-    a, b = listings["A"], listings["B"]
-    print(f"dense_frame: B's shared form {len(b)} SASS instructions, A's "
-          f"{len(a)}, the same {a == b}", flush=True)
+        listings[side] = {form: listing(lib, *names)
+                          for form, names in forms.items()}
+    for form in forms:
+        a, b = listings["A"][form], listings["B"][form]
+        print(f"dense_frame: B's {form} {len(b)} SASS instructions, A's "
+              f"{len(a) if a else 'none'}, the same {a == b}", flush=True)
 
 
 def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
@@ -749,7 +805,9 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
         if (side, "dense", which) not in large:
             mesh = dense_mesh(tt, which)
             large[side, "dense", which] = mesh, kernels[side][
-                "dense"].build_dense_arrays(mesh, device="cuda")
+                "dense"].build_dense_arrays(
+                    mesh, coloring=dense_coloring(which),
+                    max_bytes=5_000_000_000, device="cuda")
         return large[side, "dense", which]
 
     def body(side, kind, b, coloring):
@@ -757,7 +815,8 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
         pkg = packages[side]
         if kind == "dense":  # coloring: which mesh
             mesh, arrays = dense_arrays(side, coloring)
-            return _Dense(mod, arrays, mesh, b)
+            return _Dense(mod, arrays, mesh, b, "global" if coloring
+                          and coloring.endswith("global") else None)
         if kind == "worldpolar":
             return _World(pkg, pkg.grid_mesh(*LARGE_DIMS, **LARGE_BOX),
                           params_of(kind))
@@ -1316,6 +1375,100 @@ def jacobi_phases(tt) -> None:
                   flush=True)
 
 
+def block_spread(lib, blocks: int) -> str:
+    """The last launch's blocks as an instrumented dense_frame build
+    recorded them (``dense_frame_block_ns``: each block's start and end on
+    the globaltimer): how far apart they start, how long each runs
+    (least, median, most) and the launch's span, in us."""
+    import ctypes
+
+    marks = (ctypes.c_ulonglong * (2 * 4096))()
+    if lib.dense_frame_block_ns(marks):
+        raise RuntimeError("dense_frame_block_ns failed")
+    n = min(blocks, 4096)
+    start = np.array(marks[:n], dtype=np.int64)
+    end = np.array(marks[4096:4096 + n], dtype=np.int64)
+    run = np.sort(end - start) / 1e3
+    return (f"blocks start within {(start.max() - start.min()) / 1e3:.1f} us, "
+            f"run {run[0]:.1f} / {run[n // 2]:.1f} / {run[-1]:.1f} us "
+            f"(least / median / most), span "
+            f"{(end.max() - start.min()) / 1e3:.1f} us")
+
+
+def dense_phases(tt) -> None:
+    """dense_frame's cluster walk: SM cycles on block 0 of the launch per
+    substep of its particle passes, per level of its level walk and per
+    barrier (an instrumented build, ``-DDENSE_FRAME_PHASES``, 20 frames
+    after 3), with the instrumented frame's ms by CUDA events and its
+    blocks' spread (``block_spread``), on the two bodies past one block's
+    shared memory (``dense_mesh``: "19k", L = 1, and "19k L=6") at B = 1
+    and 8 at the plan's cluster, and on 8 greedy dragons forced onto the
+    global form on a cluster of 2 (levels of 256 slots, where
+    ``cluster_cap`` keeps one block); beside each, the same batch on one
+    block a body (the shared form's walk, which has no marks: its ms a
+    frame alone), and "19k" at B = 128, where the plan takes one block."""
+    import ctypes
+
+    from tetsim_torch.kernels import dense_frame
+    from tetsim_torch.solvers import dense
+
+    params = tt.default_cpu_params()
+    with flags_build(dense_frame, ("-DDENSE_FRAME_PHASES",)) as lib:
+        lib.dense_frame_phase_cycles.argtypes = [ctypes.c_void_p]
+        lib.dense_frame_block_ns.argtypes = [ctypes.c_void_p]
+        print_usage("dense_frame [-DDENSE_FRAME_PHASES]", lib,
+                    "dense_frame_kernel")
+        cycles = (ctypes.c_ulonglong * 5)()
+        cases = []
+        for which in ("19k", "19k L=6", "dragon"):
+            mesh = dense_mesh(tt, which)
+            arr = dense.build_dense_arrays(mesh, max_bytes=5_000_000_000,
+                                           device="cuda")
+            waves = dense_frame.active_clusters(arr.irv.device)
+            for b in ((8,) if which == "dragon" else (1, 8, 128)
+                      if which == "19k" else (1, 8)):
+                plan = dense_frame.launch_plan(
+                    b, arr.num_particles, arr.slots_per_level, "global",
+                    waves)
+                for cs in sorted({plan.cluster, 1, 2 if which == "dragon"
+                                  else 1}, reverse=True):
+                    cases.append((which, mesh, arr, b, cs))
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for which, mesh, arr, b, cs in cases:
+            bd = _Dense(dense, arr, mesh, b)
+
+            def run(k):
+                for _ in range(k):
+                    bd.pos, bd.prev_pos, bd.vel = dense_frame.dense_frame(
+                        bd.pos, bd.vel, arr, params, bd.gid, bd.gpos,
+                        form="global", cs=cs)
+
+            run(3)
+            torch.cuda.synchronize()
+            lib.dense_frame_phase_cycles(cycles)
+            start.record()
+            run(20)
+            end.record()
+            end.synchronize()
+            if lib.dense_frame_phase_cycles(cycles):
+                raise RuntimeError("dense_frame_phase_cycles failed")
+            substeps, levels = cycles[3], cycles[4]
+            head = (f"dense_frame global {which} B={b} cs={cs} "
+                    f"({arr.num_particles} particles, L = {arr.num_levels}, "
+                    f"C = {arr.slots_per_level}): ")
+            ms = start.elapsed_time(end) / 20
+            if not substeps:  # one block: the shared form's walk, unmarked
+                print(f"{head}{ms:.4f} ms a frame", flush=True)
+                continue
+            print(f"{head}SM cycles on block 0 per substep: particle passes "
+                  f"{cycles[0] / substeps:.0f}, levels "
+                  f"{cycles[1] / substeps:.0f} ({cycles[1] / levels:.0f} per "
+                  f"level), barriers {cycles[2] / substeps:.0f} "
+                  f"({cycles[2] / (levels + substeps):.0f} per barrier); "
+                  f"{ms:.4f} ms a frame (instrumented); "
+                  f"{block_spread(lib, b * cs)}", flush=True)
+
+
 SLOW_OPS = ("CALL", "STL", "LDL", "LDG")  # slow-path calls and local memory
 
 
@@ -1422,7 +1575,8 @@ def k9_stream(tt) -> None:
 VARIANT_RUNS = (("K4 K6", variants),)
 PHASE_RUNS = (("polar_frame", polar_phases), ("gs_ordered", ordered_phases),
               ("nh_stencil", grid_phases), ("gs_levels", levels_phases),
-              ("polar_jacobi", jacobi_phases), ("K9", k9_stream))
+              ("polar_jacobi", jacobi_phases), ("K9", k9_stream),
+              ("dense_frame", dense_phases))
 
 
 def main() -> int:
@@ -1439,8 +1593,9 @@ def main() -> int:
                         "shape")
     parser.add_argument("--phases", action="store_true",
                         help="SM cycles per phase of polar_frame, "
-                        "gs_ordered, nh_stencil, gs_levels, polar_jacobi; "
-                        "K9's SASS per iteration and issue floor")
+                        "gs_ordered, nh_stencil, gs_levels, polar_jacobi, "
+                        "dense_frame's global form; K9's SASS per "
+                        "iteration and issue floor")
     parser.add_argument("--variants", action="store_true",
                         help="K4's strip widths and K6's block sizes")
     args = parser.parse_args()

@@ -98,7 +98,7 @@ def test_import_leaves_out_jax_and_tetsim_tpu():
         "'checkpoint', 'viewer.server', 'roofline', 'kernels.gs_levels', "
         "'kernels.polar_jacobi', 'parallel', 'parallel.slabs', "
         "'parallel.sharding', 'parallel.nh_shard', 'solvers.dense', "
-        "'kernels.dense_level', 'kernels.dense_frame')\n"
+        "'kernels.dense_frame')\n"
         "missed = [m for m in grid if 'tetsim_torch.' + m not in sys.modules]\n"
         "assert not missed, missed\n"
         "print('ok')\n"

@@ -1,6 +1,6 @@
-"""tetsim_torch's dense Neo-Hookean engine (``solvers/dense.py``,
-``kernels/dense_level.py``, ``DenseBody``) on the CPU against
-tetsim_tpu.solvers.dense: the tables, the twin's level solve, frames, the
+"""tetsim_torch's dense Neo-Hookean engine (``solvers/dense.py`` with its
+twin's level solve ``dense_level_reference``, ``DenseBody``) on the CPU
+against tetsim_tpu.solvers.dense: the tables, the twin's level solve, frames, the
 World path, the scene checkpoint and the viewer; and the refusals (the
 size gate, TF32 for the twin on the card, no CUDA)."""
 import numpy as np
@@ -17,7 +17,7 @@ from tetsim_tpu import mesh as jax_mesh
 from tetsim_tpu.solvers import dense as jdense
 from tetsim_tpu.viewer import ViewerServer as JaxViewerServer
 from tetsim_torch import mesh as torch_mesh
-from tetsim_torch.kernels import dense_frame, dense_level
+from tetsim_torch.kernels import dense_frame
 from tetsim_torch.solvers import dense
 from tetsim_torch.viewer import ViewerServer
 from tetsim_torch.world import DenseBody
@@ -95,7 +95,7 @@ def test_level_twin_matches_jax(vol_compliance):
             0, 0.01, (mesh.num_particles, 3, B))).astype(np.float32)
         g = pos[ids[l]].reshape(4 * C, 3 * B)
         want = _jax_level(g, irp[l], irv[l], imc[l], jp)
-        got = dense_level.dense_level_reference(*(torch.as_tensor(x) for x in (
+        got = dense.dense_level_reference(*(torch.as_tensor(x) for x in (
             g, irp[l], irv[l], imc[l])), tp).numpy()
         assert got.shape == (4 * C, 3 * B)
         worst = max(worst, float(np.abs(got - want).max()))

@@ -14,12 +14,11 @@
   polar_jacobi  — the polar frame of a body too large for one block, one
                   cooperative launch per frame (csrc/polar_jacobi.cu)
   dense_frame   — the frame of the dense Neo-Hookean engine
-                  (solvers/dense.py): a block per body, each level
-                  gathered and scattered by index, one launch per frame,
-                  a body's positions in shared memory or, past 19,370
-                  particles, in global memory (csrc/dense_frame.cu);
-                  dense_level holds the plain level
-                  solve of its twin, the one-hot products
+                  (solvers/dense.py): each level gathered and scattered
+                  by index, one launch per frame, a block per body with
+                  its positions in shared memory or, past 19,370
+                  particles, a thread-block cluster per body with its
+                  positions in global memory (csrc/dense_frame.cu)
 
 ``FusedGSBody`` and ``FusedPolarBody`` split their batch over the devices
 of a ``parallel.DeviceMesh`` axis with ``shard``: one launch per device.

@@ -4,13 +4,15 @@ level gathered and scattered as a whole (counterpart of
 
 The state is [N, 3, B].  On CUDA ``step_frame`` is one launch of
 ``kernels/csrc/dense_frame.cu`` a frame (``kernels/dense_frame.py``): a
-block per body walks every level and substep, gathering a level's corners
-and scattering its deltas by index (``DenseArrays.ids``).  On the CPU it
+block per body (past 19,370 particles, a cluster of blocks) walks every
+level and substep, gathering a level's corners and scattering its deltas by
+index (``DenseArrays.ids``).  On the CPU it
 runs ``frame_reference``, the kernel's plain twin and the JAX package's
 own form: per level one product ``onehot[l].T @ pos.view(N, 3B)`` gathers
 the corners of the level's C slots for all B bodies ([4C, 3B], row
 ``c*C + t`` is corner c of slot t, column ``r*B + b`` coordinate r of body
-b), ``kernels/dense_level.py``'s ``dense_level_reference`` solves them, and
+b), ``dense_level_reference`` solves them (the JAX package's fusion of
+``_solve_level_planes``, with the kernel's arithmetic), and
 ``pos.view(N, 3B).addmm_(onehot[l], delta)`` scatters the deltas back.
 Both products are exact in FP32: a column of the one-hot holds one 1, and
 within a level a particle is a corner of one slot at most, so every output
@@ -43,7 +45,7 @@ import functools
 import numpy as np
 import torch
 
-from ..kernels import dense_frame, dense_level
+from ..kernels import dense_frame
 from ..mesh import TetMesh, color_slots, greedy_color, level_schedule, rest_state
 from ..params import PhysicsParams
 from . import common
@@ -182,6 +184,82 @@ def check_precision() -> None:
             "torch.set_float32_matmul_precision('highest')")
 
 
+def _scales(params: PhysicsParams):
+    """(compliance / dt^2 of both constraints, gamma) in f32, in the JAX
+    package's operation order."""
+    dt = params.dt
+    return (params.dev_compliance / (dt * dt), params.vol_compliance / (dt * dt),
+            params.gamma)
+
+
+def _xpbd(g, c_val, scale, irv, imc):
+    """XPBD on one constraint: g[j][r] the gradient of corner j+1 ([C, B]
+    planes); returns the four corners' deltas."""
+    gall = [[-((g[0][r] + g[1][r]) + g[2][r]) for r in range(3)]] + list(g)
+    w = 0.0
+    for i in range(4):
+        n2 = (gall[i][0] * gall[i][0] + gall[i][1] * gall[i][1]) \
+            + gall[i][2] * gall[i][2]
+        w = w + n2 * imc[i]
+    alpha = scale * irv
+    ok = (c_val != 0.0) & (w != 0.0)
+    dlam = torch.where(ok, -c_val / torch.where(ok, w + alpha, 1.0), 0.0)
+    return [[dlam * imc[i] * gall[i][r] for r in range(3)] for i in range(4)]
+
+
+def _deformation(p, irp):
+    """F[r][c] = sum_k e[k][r] irp[3k + c], e[k] = p[k+1] - p[0]."""
+    e = [[p[k + 1][r] - p[0][r] for r in range(3)] for k in range(3)]
+    return [[(e[0][r] * irp[c] + e[1][r] * irp[3 + c]) + e[2][r] * irp[6 + c]
+             for c in range(3)] for r in range(3)]
+
+
+def dense_level_reference(g, irp, irv, imc, params: PhysicsParams):
+    """The twin's level solve, the arithmetic of ``_solve_level_planes`` in
+    ``tetsim_tpu/solvers/dense.py`` (and of ``csrc/nh_math.cuh``'s
+    ``solve_tet_delta``, the kernel's): g [4C, 3B] corners (row ``c*C + t``
+    corner c of slot t, column ``r*B + b`` coordinate r of body b), irp [9,
+    C], irv [C], imc [4, C]; returns d_dev + d_vol [4C, 3B]."""
+    C = irv.shape[0]
+    B = g.shape[1] // 3
+    g4 = g.view(4, C, 3, B)
+    p = [[g4[c, :, r] for r in range(3)] for c in range(4)]
+    irp = [irp[k][:, None] for k in range(9)]
+    irv = irv[:, None]
+    imc = [imc[c][:, None] for c in range(4)]
+    dev_scale, vol_scale, gamma = _scales(params)
+
+    # deviatoric: C = ||F||_F
+    f = _deformation(p, irp)
+    rs2 = 0.0
+    for r in range(3):
+        for c in range(3):
+            rs2 = rs2 + f[r][c] * f[r][c]
+    r_s = torch.sqrt(rs2)
+    r_inv = torch.where(r_s > 0.0, 1.0 / torch.where(r_s > 0.0, r_s, 1.0), 0.0)
+    g_dev = [[((f[r][0] * irp[3 * j] + f[r][1] * irp[3 * j + 1])
+               + f[r][2] * irp[3 * j + 2]) * r_inv for r in range(3)]
+             for j in range(3)]
+    d_dev = _xpbd(g_dev, r_s, dev_scale, irv, imc)
+
+    # hydrostatic: C = det F - 1 - gamma on the updated corners
+    q = [[p[i][r] + d_dev[i][r] for r in range(3)] for i in range(4)]
+    f = _deformation(q, irp)
+    df = [[None] * 3 for _ in range(3)]  # df[r][c]: cofactor column c
+    for c in range(3):
+        a, b = (c + 1) % 3, (c + 2) % 3
+        df[0][c] = f[1][a] * f[2][b] - f[2][a] * f[1][b]
+        df[1][c] = f[2][a] * f[0][b] - f[0][a] * f[2][b]
+        df[2][c] = f[0][a] * f[1][b] - f[1][a] * f[0][b]
+    det = (f[0][0] * df[0][0] + f[1][0] * df[1][0]) + f[2][0] * df[2][0]
+    g_vol = [[(df[r][0] * irp[3 * j] + df[r][1] * irp[3 * j + 1])
+              + df[r][2] * irp[3 * j + 2] for r in range(3)] for j in range(3)]
+    d_vol = _xpbd(g_vol, (det - 1.0) - gamma, vol_scale, irv, imc)
+    return torch.stack([torch.stack([d_dev[c][r] + d_vol[c][r]
+                                     for r in range(3)], dim=1)
+                        for c in range(4)]).reshape(4 * C, 3 * B)
+
+
 def project_constraints(pos, arr: DenseArrays, params: PhysicsParams):
     """The twin's coloured Gauss-Seidel sweep on pos [N, 3, B]
     (contiguous), updated in place level by level: the one-hot gather, the
@@ -190,8 +268,8 @@ def project_constraints(pos, arr: DenseArrays, params: PhysicsParams):
     flat = pos.view(n, 3 * B)
     for l in range(arr.num_levels):
         g = arr.onehot[l].T @ flat  # [4C, 3B] corners
-        delta = dense_level.dense_level_reference(
-            g, arr.irp[l], arr.irv[l], arr.imc[l], params)
+        delta = dense_level_reference(g, arr.irp[l], arr.irv[l], arr.imc[l],
+                                      params)
         flat.addmm_(arr.onehot[l], delta)  # exact: one term per row
     return pos
 
