@@ -16,6 +16,8 @@ import subprocess
 import tempfile
 from typing import Callable, Sequence
 
+from .spans import BUILD, span
+
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 TPU_PKG_DIR = os.path.join(os.path.dirname(PKG_DIR), "tetsim_tpu")
@@ -61,6 +63,7 @@ def compiled_library(
     ``command(src, out)`` gives the compiler's argument list.  The file name
     carries ``source_digest(src, tag)`` (``tag`` for flags or the CPU), and
     the library is written under a temporary name and renamed into place.
+    A compiler run is the ``tetsim.build`` span of a profiled process.
     """
     out = os.path.join(BUILD_DIR, f"{stem}_{source_digest(src, tag)}.so")
     if os.path.exists(out):
@@ -69,10 +72,11 @@ def compiled_library(
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(
-            list(command(src, tmp)), capture_output=True, text=True,
-            timeout=timeout,
-        )
+        with span(BUILD):
+            proc = subprocess.run(
+                list(command(src, tmp)), capture_output=True, text=True,
+                timeout=timeout,
+            )
         if proc.returncode != 0:
             raise BuildError(
                 f"building {os.path.basename(src)} failed "

@@ -8,9 +8,10 @@ is read from the stencil's corner offsets.  Pieces bodies (``PiecesArrays``,
 error."""
 from __future__ import annotations
 
+import json
 import math
 import os
-import time
+import warnings
 
 import torch
 
@@ -67,23 +68,32 @@ def min_height(state: SimState):
 
 class trace:
     """Context manager around ``torch.profiler`` for a timeline of the CPU
-    work and, where CUDA is available, the card's kernels:
+    work and, where CUDA is available, the card's kernels and copies:
 
         with diag.trace("traces"):
             world.step(30)
 
     On exit it writes a Chrome trace, ``trace_<pid>_<n>.json``, into
     ``log_dir`` (made if missing) and keeps its path in ``path``; open it
-    in Perfetto or ``chrome://tracing``."""
+    in Perfetto or ``chrome://tracing``.  The port's ``tetsim.*`` spans
+    (``spans.py``) are on while it records: ``tetsim.world.step``, a
+    viewer frame's ``tetsim.body.step_export``, the ``tetsim.grab.*``
+    calls, each kernel entry's ``tetsim.kernel.<module>``, the export's
+    ``tetsim.export`` (``.positions``, ``.skin``, ``.normals``) and a
+    native library's ``tetsim.build``.  Where CUDA was traced and the
+    trace holds no kernel, copy or memset event, it warns
+    (``device_events``)."""
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
         self.path = None
         self._prof = None
+        self._cuda = False
 
     def __enter__(self):
         acts = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
+        self._cuda = torch.cuda.is_available()
+        if self._cuda:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         self._prof = torch.profiler.profile(activities=acts)
         self._prof.__enter__()
@@ -95,27 +105,25 @@ class trace:
         n = len([f for f in os.listdir(self.log_dir) if f.startswith("trace_")])
         self.path = os.path.join(self.log_dir, f"trace_{os.getpid()}_{n}.json")
         self._prof.export_chrome_trace(self.path)
+        if self._cuda and exc[0] is None:
+            device_events(self.path)
         return False
 
 
-class Timer:
-    """Rolling substeps/sec meter."""
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
-    def __init__(self):
-        self._time = time.perf_counter
-        self.reset()
 
-    def reset(self):
-        self._t0 = self._time()
-        self._substeps = 0
-
-    def tick(self, num_substeps: int):
-        self._substeps += num_substeps
-
-    @property
-    def substeps_per_sec(self) -> float:
-        dt = self._time() - self._t0
-        return self._substeps / dt if dt > 0 else 0.0
+def device_events(path: str) -> int:
+    """The kernel, copy and memset events of the Chrome trace at ``path``;
+    warns where there are none (a CUDA session that recorded nothing of
+    the card)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    n = sum(1 for e in events if e.get("cat") in DEVICE_CATS)
+    if n == 0:
+        warnings.warn(f"{path}: the trace holds no kernel, copy or memset "
+                      "event of the card", RuntimeWarning, stacklevel=2)
+    return n
 
 
 def summarize(state: SimState, arr, frame_diag=None) -> dict:

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ..mesh import TetMesh
+from ..spans import GRAB_END, GRAB_MOVE, GRAB_START, span
 from ..state import check_device
 
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (227 KB)
@@ -195,22 +196,27 @@ class FusedBatch:
         return torch.as_tensor(np.asarray(point, np.float32)).to(like.device)
 
     def set_grab(self, body: int, particle: int, point):
-        gid, gpos = self._grab_slot(body)
-        gid[0] = particle
-        gpos[0] = self._point(point, gpos)
+        with span(GRAB_START):
+            gid, gpos = self._grab_slot(body)
+            gid[0] = particle
+            gpos[0] = self._point(point, gpos)
 
     def start_grab(self, body: int, point) -> int:
         """Grab the body's particle nearest to ``point``; returns its id."""
-        i, k = self._locate(body)
-        pos = self._fields["pos"][i][k]
-        pid = int(torch.argmin(((pos - self._point(point, pos)) ** 2).sum(dim=-1)))
-        self.set_grab(body, pid, point)
-        return pid
+        with span(GRAB_START):
+            i, k = self._locate(body)
+            pos = self._fields["pos"][i][k]
+            pid = int(torch.argmin(
+                ((pos - self._point(point, pos)) ** 2).sum(dim=-1)))
+            self.set_grab(body, pid, point)
+            return pid
 
     def move_grabbed(self, body: int, point):
-        _, gpos = self._grab_slot(body)
-        gpos[0] = self._point(point, gpos)
+        with span(GRAB_MOVE):
+            _, gpos = self._grab_slot(body)
+            gpos[0] = self._point(point, gpos)
 
     def end_grab(self, body: int):
-        gid, _ = self._grab_slot(body)
-        gid[0] = -1
+        with span(GRAB_END):
+            gid, _ = self._grab_slot(body)
+            gid[0] = -1

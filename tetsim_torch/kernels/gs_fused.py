@@ -26,6 +26,7 @@ import torch
 from ..mesh import TetArrays, TetMesh, build_arrays
 from ..params import PhysicsParams
 from ..solvers import neohookean
+from ..spans import kernel, span
 from . import build
 from .batch import (SMEM_LIMIT, BodyField, FusedBatch, cached_params, expect,
                     prepared)
@@ -35,6 +36,7 @@ WARP = 32  # the widest level the warp walk takes: a lane per slot
 WALKS = {"block": 0, "warp": 1}  # kBlockWalk, kWarpWalk in csrc/gs_frame.cu
 
 launch_count = 0  # launches of the CUDA kernel since import (or reset)
+_SPAN = kernel(__name__)  # the span of the module's kernel entry
 
 
 def smem_bytes(num_particles: int) -> int:
@@ -210,9 +212,10 @@ def gs_frame(pos, vel, arr: TetArrays, params: PhysicsParams, grab_id,
     """One frame for B bodies (see ``gs_frame_reference`` for shapes).
     CPU tensors take the plain path; any other device launches the CUDA
     kernel or raises."""
-    if pos.device.type == "cpu":
-        return gs_frame_reference(pos, vel, arr, params, grab_id, grab_pos)
-    return _gs_frame_cuda(pos, vel, arr, params, grab_id, grab_pos)
+    with span(_SPAN):
+        if pos.device.type == "cpu":
+            return gs_frame_reference(pos, vel, arr, params, grab_id, grab_pos)
+        return _gs_frame_cuda(pos, vel, arr, params, grab_id, grab_pos)
 
 
 class FusedGSBody(FusedBatch):

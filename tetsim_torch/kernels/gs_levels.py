@@ -28,6 +28,7 @@ from ..mesh import TetArrays
 from ..params import PhysicsParams
 from ..solvers import common
 from ..state import Controls, SimState
+from ..spans import kernel, span
 from . import build
 from .batch import expect
 from .gs_fused import _FrameParams, _frame_params, gs_frame_reference
@@ -38,6 +39,7 @@ LAUNCHES_PER_FRAME = 1  # as gs_levels_launches_per_frame()
 NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # kernel launches since import (or reset)
+_SPAN = kernel(__name__)  # the span of the module's kernel entry
 
 
 def level_plan(num_slots: int, cs: int) -> list:
@@ -193,10 +195,11 @@ def levels_frame(pos, vel, arr: TetArrays, params: PhysicsParams, grab_id,
     grab_pos [B,G,3]; returns (pos, prev_pos, vel, vol_err [B,
     num_substeps]).  CPU tensors take the plain path; any other device
     launches the CUDA kernels or raises."""
-    if pos.device.type == "cpu":
-        return levels_frame_reference(pos, vel, arr, params, grab_id,
-                                      grab_pos)
-    return _levels_frame_cuda(pos, vel, arr, params, grab_id, grab_pos)
+    with span(_SPAN):
+        if pos.device.type == "cpu":
+            return levels_frame_reference(pos, vel, arr, params, grab_id,
+                                          grab_pos)
+        return _levels_frame_cuda(pos, vel, arr, params, grab_id, grab_pos)
 
 
 def step_frame(state: SimState, arr: TetArrays, params: PhysicsParams,

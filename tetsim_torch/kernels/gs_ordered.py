@@ -28,6 +28,7 @@ import torch
 from ..mesh import TetMesh, level_schedule, rest_state
 from ..params import PhysicsParams
 from ..solvers import common, neohookean
+from ..spans import kernel, span
 from . import build
 from .batch import SMEM_LIMIT, FusedBatch, expect
 
@@ -37,6 +38,7 @@ NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 NUM_BODIES = 8  # the batch of OrderedGSBody, as in the JAX package
 
 launch_count = 0  # launches of the CUDA kernel since import (or reset)
+_SPAN = kernel(__name__)  # the span of the module's kernel entry
 
 
 # -- host schedule -----------------------------------------------------------
@@ -336,9 +338,11 @@ def ordered_frame(pos, vel, tab: OrderedTables, params: PhysicsParams,
     """One frame for B bodies (see ``ordered_frame_reference`` for shapes).
     CPU tensors take the plain twin; any other device launches the CUDA
     kernel or raises."""
-    if pos.device.type == "cpu":
-        return ordered_frame_reference(pos, vel, tab, params, grab_id, grab_pos)
-    return _ordered_frame_cuda(pos, vel, tab, params, grab_id, grab_pos)
+    with span(_SPAN):
+        if pos.device.type == "cpu":
+            return ordered_frame_reference(pos, vel, tab, params, grab_id,
+                                           grab_pos)
+        return _ordered_frame_cuda(pos, vel, tab, params, grab_id, grab_pos)
 
 
 class OrderedGSBody(FusedBatch):

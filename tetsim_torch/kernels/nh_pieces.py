@@ -34,6 +34,7 @@ from ..mesh import TetMesh, greedy_color, rest_state
 from ..params import PhysicsParams
 from ..state import SimState, Controls
 from ..solvers import common, neohookean
+from ..spans import kernel, span
 from . import build
 from .batch import SMEM_LIMIT, cached_params, expect
 from .polar_pieces import (_rcm_particle_order, _round_up, band_locals,
@@ -45,6 +46,7 @@ CW = 128  # tets per sub-level, the kernel's threads per block
 LAUNCHES_PER_FRAME = 1  # as nh_pieces_launches_per_frame()
 
 launch_count = 0  # kernel launches since import (or reset)
+_SPAN = kernel(__name__)  # the span of the module's kernel entry
 
 
 # -- host-side partition and per-piece coloured GS schedule ------------------
@@ -510,9 +512,10 @@ def nh_pieces_frame(packed, arr: NHPiecesArrays, params: PhysicsParams, gid,
     """A frame on the packed planes (see ``nh_pieces_frame_reference``);
     gid int32 [G], gpos [G, 3].  CPU tensors take the plain path; any other
     device launches the CUDA kernel or raises."""
-    if packed[0].device.type == "cpu":
-        return nh_pieces_frame_reference(packed, arr, params, gid, gpos)
-    return _frame_cuda(packed, arr, params, gid, gpos)
+    with span(_SPAN):
+        if packed[0].device.type == "cpu":
+            return nh_pieces_frame_reference(packed, arr, params, gid, gpos)
+        return _frame_cuda(packed, arr, params, gid, gpos)
 
 
 def make_nh_pieces_stepper(arr: NHPiecesArrays, frame=nh_pieces_frame):

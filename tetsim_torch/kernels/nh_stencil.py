@@ -33,6 +33,7 @@ from ..solvers import common, neohookean_grid
 from ..solvers.neohookean_grid import NHGridArrays
 from ..solvers.polar_grid import planes, unplanes
 from ..parallel.slabs import device_groups, plane, ungroup
+from ..spans import kernel, span
 from . import build
 from .batch import cached_params, expect
 
@@ -42,6 +43,7 @@ LAUNCHES_PER_FRAME = 1  # K3, as nh_stencil_launches_per_frame()
 NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # kernel launches since import (or reset)
+_SPAN = kernel(__name__)  # the span of the module's kernel entry
 # K3s per device, where the mesh's slabs lie on one device (as
 # nh_stencil_slab_launches_per_frame(); slab_calls)
 SLAB_LAUNCHES_PER_FRAME = 1
@@ -307,10 +309,12 @@ def grid_frame(pos, vel, arr: NHGridArrays, params: PhysicsParams, grab_id,
     grab_pos [B, G, 3]; returns (pos, prev_pos, vel, vol_err [B,
     num_substeps] where asked for, else None).  CPU tensors take the plain
     path; any other device launches the CUDA kernels or raises."""
-    if pos.device.type == "cpu":
-        return grid_frame_reference(pos, vel, arr, params, grab_id, grab_pos,
-                                    vol_err)
-    return _grid_frame_cuda(pos, vel, arr, params, grab_id, grab_pos, vol_err)
+    with span(_SPAN):
+        if pos.device.type == "cpu":
+            return grid_frame_reference(pos, vel, arr, params, grab_id,
+                                        grab_pos, vol_err)
+        return _grid_frame_cuda(pos, vel, arr, params, grab_id, grab_pos,
+                                vol_err)
 
 
 def make_frame_stepper(arr: NHGridArrays):
@@ -396,10 +400,11 @@ def make_nh_sharded_stepper(mesh, arr: NHGridArrays, axis: str = "x"):
         return neohookean_grid.nh_prepare(state, arr, mesh)
 
     def step(packed, params: PhysicsParams, controls: Controls):
-        if all(p.device.type == "cpu" for p in packed[0]):
-            return twin(packed, params, controls)[0]
-        return _slab_frame_cuda(packed, inv_mass, mesh, local, lx, params,
-                                controls)
+        with span(_SPAN):
+            if all(p.device.type == "cpu" for p in packed[0]):
+                return twin(packed, params, controls)[0]
+            return _slab_frame_cuda(packed, inv_mass, mesh, local, lx, params,
+                                    controls)
 
     def unprepare(packed, params: PhysicsParams) -> SimState:
         return neohookean_grid.nh_unprepare(packed, arr, d, params)

@@ -27,6 +27,7 @@ import torch
 from ..mesh import TetArrays, TetMesh, build_arrays
 from ..params import PhysicsParams
 from ..solvers import polar
+from ..spans import kernel, span
 from . import build
 from .batch import (SMEM_LIMIT, BodyField, FusedBatch, cached_params, expect,
                     prepared)
@@ -41,6 +42,7 @@ SMS = 132  # SMs of an H100 SXM
 NVCC_FLAGS = ()
 
 launch_count = 0  # launches of the CUDA kernel since import (or reset)
+_SPAN = kernel(__name__)  # the span of the module's kernel entry
 
 
 def smem_bytes(num_particles: int) -> int:
@@ -266,10 +268,12 @@ def polar_frame(pos, vel, quats, arr: TetArrays, params: PhysicsParams,
     """One frame for B bodies (see ``polar_frame_reference`` for shapes).
     CPU tensors take the plain path; any other device launches the CUDA
     kernel or raises."""
-    if pos.device.type == "cpu":
-        return polar_frame_reference(pos, vel, quats, arr, params, grab_id,
-                                     grab_pos)
-    return _polar_frame_cuda(pos, vel, quats, arr, params, grab_id, grab_pos)
+    with span(_SPAN):
+        if pos.device.type == "cpu":
+            return polar_frame_reference(pos, vel, quats, arr, params, grab_id,
+                                         grab_pos)
+        return _polar_frame_cuda(pos, vel, quats, arr, params, grab_id,
+                                 grab_pos)
 
 
 class FusedPolarBody(FusedBatch):

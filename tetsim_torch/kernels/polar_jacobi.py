@@ -33,6 +33,7 @@ from ..mesh import TetArrays
 from ..params import PhysicsParams
 from ..solvers import common
 from ..state import Controls, SimState
+from ..spans import kernel, span
 from . import build
 from .batch import expect
 # frame_flops / frame_bytes: the same work as the fused frame kernel's
@@ -45,6 +46,7 @@ LAUNCHES_PER_FRAME = 1  # as polar_jacobi_launches_per_frame()
 NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # kernel launches since import (or reset)
+_SPAN = kernel(__name__)  # the span of the module's kernel entry
 
 _tables: dict = {}  # id(arr) -> (weakref to arr, table ids, device,
 #                                  slots, inc_count)
@@ -232,10 +234,12 @@ def jacobi_frame(pos, vel, quats, arr: TetArrays, params: PhysicsParams,
     int32 [B,G], grab_pos [B,G,3]; returns (pos, prev_pos, vel, quats).
     CPU tensors take the plain path; any other device launches the CUDA
     kernel or raises."""
-    if pos.device.type == "cpu":
-        return jacobi_frame_reference(pos, vel, quats, arr, params, grab_id,
-                                      grab_pos)
-    return _jacobi_frame_cuda(pos, vel, quats, arr, params, grab_id, grab_pos)
+    with span(_SPAN):
+        if pos.device.type == "cpu":
+            return jacobi_frame_reference(pos, vel, quats, arr, params, grab_id,
+                                          grab_pos)
+        return _jacobi_frame_cuda(pos, vel, quats, arr, params, grab_id,
+                                  grab_pos)
 
 
 def step_frame(state: SimState, arr: TetArrays, params: PhysicsParams,

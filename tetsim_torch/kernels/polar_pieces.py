@@ -41,6 +41,7 @@ from ..params import PhysicsParams
 from ..state import SimState, Controls
 from ..solvers import common
 from ..solvers.polar_grid import EXTRACT_ITERS, _extract_rotation, _qmul, _qrot_const
+from ..spans import kernel, span
 from . import build
 from .batch import SMEM_LIMIT, expect
 
@@ -48,6 +49,7 @@ LAUNCHES_PER_SUBSTEP = 1  # as polar_pieces_launches_per_substep()
 NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # kernel launches since import (or reset)
+_SPAN = kernel(__name__)  # the span of the module's kernel entry
 
 
 def _round_up(x: int, m: int) -> int:
@@ -537,9 +539,10 @@ def pieces_solve(px, py, pz, quats, arr: PiecesArrays,
     take the plain path; any other device launches the CUDA kernel or
     raises (``check_fits``: also where a piece is over a block's shared
     memory)."""
-    if px.device.type == "cpu":
-        return pieces_solve_reference(px, py, pz, quats, arr, iters)
-    return _pieces_solve_cuda(px, py, pz, quats, arr, iters)
+    with span(_SPAN):
+        if px.device.type == "cpu":
+            return pieces_solve_reference(px, py, pz, quats, arr, iters)
+        return _pieces_solve_cuda(px, py, pz, quats, arr, iters)
 
 
 # -- the substep on piece planes ------------------------------------------------

@@ -42,6 +42,7 @@ from ..state import SimState, Controls
 from ..solvers import common, polar_grid
 from ..solvers.polar_grid import GridArrays
 from ..parallel.slabs import device_groups, ungroup
+from ..spans import kernel, span
 from . import build
 from .batch import cached_params, expect
 
@@ -50,6 +51,7 @@ STRIP = 32  # cubes per block of pass A, as polar_stencil_strip()
 NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # kernel launches since import (or reset)
+_SPAN = kernel(__name__)  # the span of the module's kernel entry
 SLAB_LAUNCHES_PER_SUBSTEP = 2  # K4a per device, as
 #                                 polar_stencil_slab_launches_per_substep()
 acc_launch_count = 0  # launches of the slab form (K4a) since import (or reset)
@@ -201,10 +203,11 @@ def grid_frame(pos, vel, quats, arr: GridArrays, params: PhysicsParams,
     grab_id int32 [B, G], grab_pos [B, G, 3]; returns (pos, prev_pos, vel,
     quats).  CPU tensors take the plain path; any other device launches the
     CUDA kernels or raises."""
-    if pos.device.type == "cpu":
-        return grid_frame_reference(pos, vel, quats, arr, params, grab_id,
-                                    grab_pos)
-    return _grid_frame_cuda(pos, vel, quats, arr, params, grab_id, grab_pos)
+    with span(_SPAN):
+        if pos.device.type == "cpu":
+            return grid_frame_reference(pos, vel, quats, arr, params, grab_id,
+                                        grab_pos)
+        return _grid_frame_cuda(pos, vel, quats, arr, params, grab_id, grab_pos)
 
 
 def make_frame_stepper(arr: GridArrays):
@@ -404,11 +407,12 @@ def make_grid_sharded_stepper(mesh, garr: GridArrays, axis: str = "x"):
     struct = functools.partial(_grid_params, local)  # made once per params
 
     def step(packed, params: PhysicsParams, controls: Controls):
-        if all(p.device.type == "cpu" for p in packed.pos):
-            return twin(packed, slab_arr, params, controls)[0]
-        return _slab_frame_cuda(packed, slab_arr, mesh, local,
-                                cached_params(params, struct), params,
-                                controls)
+        with span(_SPAN):
+            if all(p.device.type == "cpu" for p in packed.pos):
+                return twin(packed, slab_arr, params, controls)[0]
+            return _slab_frame_cuda(packed, slab_arr, mesh, local,
+                                    cached_params(params, struct), params,
+                                    controls)
 
     def unprepare(packed, params: PhysicsParams) -> SimState:
         del params

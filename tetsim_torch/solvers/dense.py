@@ -48,7 +48,10 @@ import torch
 from ..kernels import dense_frame
 from ..mesh import TetMesh, color_slots, greedy_color, level_schedule, rest_state
 from ..params import PhysicsParams
+from ..spans import kernel, span
 from . import common
+
+_SPAN = kernel(dense_frame.__name__)  # the frame entry's span
 
 
 @dataclasses.dataclass
@@ -315,8 +318,10 @@ def frame_reference(state: DenseState, arr: DenseArrays,
 def step_frame(state: DenseState, arr: DenseArrays, params: PhysicsParams,
                grab_id, grab_pos) -> DenseState:
     """``params.num_substeps`` substeps: on CPU tensors the plain twin, on
-    any other device one launch of the frame kernel (or it raises)."""
-    if state.pos.device.type == "cpu" or params.num_substeps == 0:
-        return frame_reference(state, arr, params, grab_id, grab_pos)
-    return DenseState(*dense_frame.dense_frame(
-        state.pos, state.vel, arr, params, grab_id, grab_pos))
+    any other device one launch of the frame kernel (or it raises); the
+    span of ``kernels/dense_frame.py``'s entry either way."""
+    with span(_SPAN):
+        if state.pos.device.type == "cpu" or params.num_substeps == 0:
+            return frame_reference(state, arr, params, grab_id, grab_pos)
+        return DenseState(*dense_frame.dense_frame(
+            state.pos, state.vel, arr, params, grab_id, grab_pos))

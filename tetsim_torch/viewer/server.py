@@ -56,6 +56,7 @@ from ..kernels.polar_fused import FusedPolarBody
 from ..mesh import replicate_mesh
 from ..params import PhysicsParams
 from ..solvers.polar_grid import quats_from_kernel, unplanes
+from ..spans import EXPORT, EXPORT_POSITIONS, span
 from ..state import Controls
 from ..world import (BATCHES, BatchedBody, Body, DenseBody, GridBodyBatch,
                      PackedGridBody, World, _POLAR_ENGINES, _Surface,
@@ -324,17 +325,20 @@ class ViewerServer:
             vn = precomputed.get(i)
             pos = None
             if vn is None or v.streams_particles:
-                pos = v.pos_device()
-            if vn is None and v.surface is not None:
-                s = v.surface
-                quats = (v.quats_device() if self.normals_mode == "rotated"
-                         else None)
-                if quats is not None:
-                    vn = _surface_render_data_rotated(
-                        pos, s.skin_ids, s.skin_w, s.rest_normals, quats,
-                        s.vis_tet_ids)
-                else:
-                    vn = _surface_render_data(pos, s.skin_ids, s.skin_w, s.tris)
+                with span(EXPORT):
+                    with span(EXPORT_POSITIONS):
+                        pos = v.pos_device()
+                    if vn is None and v.surface is not None:
+                        s = v.surface
+                        quats = (v.quats_device()
+                                 if self.normals_mode == "rotated" else None)
+                        if quats is not None:
+                            vn = _surface_render_data_rotated(
+                                pos, s.skin_ids, s.skin_w, s.rest_normals,
+                                quats, s.vis_tet_ids)
+                        else:
+                            vn = _surface_render_data(
+                                pos, s.skin_ids, s.skin_w, s.tris)
             # the only per-frame particle transfer; surfaced edge-less
             # bodies skip it
             parts = pos if v.streams_particles else None

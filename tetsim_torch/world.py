@@ -29,7 +29,9 @@ through the dense engine (``DenseBody``, ``solvers/dense.py``).
 then its surface export ([2, S, 3]: skinned vertices and normals) as one
 call with no host sync, the viewer's per-frame path.  ``World.save`` /
 ``restore`` / ``load`` write and read a scene checkpoint in the JAX
-package's format (``checkpoint.py``).
+package's format (``checkpoint.py``).  While a profiler session records,
+``World.step``, each ``step_many_export``, the grab calls and the export
+open the ``tetsim.*`` spans of ``spans.py``.
 """
 from __future__ import annotations
 
@@ -54,6 +56,9 @@ from .solvers.neohookean_grid import build_nh_grid_arrays
 from .solvers.polar import quat_rotate
 from .solvers.polar_grid import (build_grid_arrays, planes, quats_from_kernel,
                                  unplanes)
+from .spans import (EXPORT, EXPORT_NORMALS, EXPORT_POSITIONS, EXPORT_SKIN,
+                    GRAB_END, GRAB_MOVE, GRAB_START, STEP_EXPORT, WORLD_STEP,
+                    span)
 from .state import Controls, SimState, check_device, init_state
 from .utils import mat3
 
@@ -99,18 +104,24 @@ def _rotated_normals(rest_normals, quats, vis_tet_ids):
 
 def _surface_render_data(pos, skin_ids, skin_w, tris):
     """The viewer's export: skinned vertices and smooth normals stacked as
-    one [2,S,3] device tensor."""
-    verts = _skin_surface(pos, skin_ids, skin_w)
-    return torch.stack([verts, _vertex_normals(verts, tris)])
+    one [2,S,3] device tensor (the ``tetsim.export.skin`` and ``.normals``
+    spans; the caller opens ``tetsim.export``)."""
+    with span(EXPORT_SKIN):
+        verts = _skin_surface(pos, skin_ids, skin_w)
+    with span(EXPORT_NORMALS):
+        normals = _vertex_normals(verts, tris)
+    return torch.stack([verts, normals])
 
 
 def _surface_render_data_rotated(pos, skin_ids, skin_w, rest_normals, quats,
                                  vis_tet_ids):
     """The viewer's export with the reference GPU path's shading: skinned
     vertices and the rest normals rotated by each tet's quaternion, [2,S,3]."""
-    verts = _skin_surface(pos, skin_ids, skin_w)
-    return torch.stack([verts, _rotated_normals(rest_normals, quats,
-                                                vis_tet_ids)])
+    with span(EXPORT_SKIN):
+        verts = _skin_surface(pos, skin_ids, skin_w)
+    with span(EXPORT_NORMALS):
+        normals = _rotated_normals(rest_normals, quats, vis_tet_ids)
+    return torch.stack([verts, normals])
 
 
 _POLAR_ENGINES = ("polar", "polar_grid", "polar_pieces")
@@ -127,13 +138,16 @@ def _make_many_export(step_many, positions, quats):
 
     def many(surf, params, frames, normals):
         step_many(params, frames)
-        pos = positions()
-        q = quats() if normals == "rotated" else None
-        if q is not None:
-            return _surface_render_data_rotated(
-                pos, surf.skin_ids, surf.skin_w, surf.rest_normals, q,
-                surf.vis_tet_ids)
-        return _surface_render_data(pos, surf.skin_ids, surf.skin_w, surf.tris)
+        with span(EXPORT):
+            with span(EXPORT_POSITIONS):
+                pos = positions()
+                q = quats() if normals == "rotated" else None
+            if q is not None:
+                return _surface_render_data_rotated(
+                    pos, surf.skin_ids, surf.skin_w, surf.rest_normals, q,
+                    surf.vis_tet_ids)
+            return _surface_render_data(pos, surf.skin_ids, surf.skin_w,
+                                        surf.tris)
 
     return many
 
@@ -164,24 +178,29 @@ class _Surface:
         normals="smooth" recomputes area-weighted normals from the deformed
         surface; "rotated" rotates the rest normals by the per-tet
         quaternions ``quats`` (polar engine only)."""
-        verts = _skin_surface(pos, self.skin_ids, self.skin_w)
-        if normals == "smooth":
-            nrm = _vertex_normals(verts, self.tris)
-        elif normals == "rotated":
-            if quats is None:
-                raise ValueError(
-                    "rotated normals need per-tet quaternions (polar engine)")
-            nrm = _rotated_normals(self.rest_normals, quats, self.vis_tet_ids)
-        else:
+        if normals == "rotated" and quats is None:
+            raise ValueError(
+                "rotated normals need per-tet quaternions (polar engine)")
+        if normals not in ("smooth", "rotated"):
             raise ValueError(f"unknown normals mode {normals!r}")
-        vn = torch.stack([verts, nrm]).cpu().numpy()
+        with span(EXPORT):
+            if normals == "smooth":
+                vn = _surface_render_data(pos, self.skin_ids, self.skin_w,
+                                          self.tris)
+            else:
+                vn = _surface_render_data_rotated(
+                    pos, self.skin_ids, self.skin_w, self.rest_normals, quats,
+                    self.vis_tet_ids)
+        vn = vn.cpu().numpy()
         return vn[0], vn[1], self.tris_np
 
     def render_data(self, pos) -> np.ndarray:
         """Stacked [2,S,3] (vertices, smooth normals) in one device-to-host
         transfer."""
-        return _surface_render_data(pos, self.skin_ids, self.skin_w,
-                                    self.tris).cpu().numpy()
+        with span(EXPORT):
+            vn = _surface_render_data(pos, self.skin_ids, self.skin_w,
+                                      self.tris)
+        return vn.cpu().numpy()
 
 
 _PIECES_BUILDERS = {"polar_pieces": polar_pieces.build_pieces_arrays,
@@ -287,7 +306,8 @@ class Body:
         ``enable_render_export``."""
         if self._many_export is None:
             raise RuntimeError("call enable_render_export() first")
-        vn = self._many_export(self._surface, params, frames, normals)
+        with span(STEP_EXPORT):
+            vn = self._many_export(self._surface, params, frames, normals)
         self.last_diag = None
         return vn
 
@@ -308,16 +328,20 @@ class Body:
     # -- interaction --------------------------------------------------------
     def start_grab(self, point) -> int:
         """Grab the particle nearest to ``point``; returns its id."""
-        p = _point(point, self.device)
-        gid = _nearest_particle(self.state.pos, p)
-        self.controls = Controls(grab_id=gid, grab_pos=p)
-        return int(gid)
+        with span(GRAB_START):
+            p = _point(point, self.device)
+            gid = _nearest_particle(self.state.pos, p)
+            self.controls = Controls(grab_id=gid, grab_pos=p)
+            return int(gid)
 
     def move_grabbed(self, point):
-        self.controls = self.controls.replace(grab_pos=_point(point, self.device))
+        with span(GRAB_MOVE):
+            self.controls = self.controls.replace(
+                grab_pos=_point(point, self.device))
 
     def end_grab(self):
-        self.controls = Controls.none(self.device)
+        with span(GRAB_END):
+            self.controls = Controls.none(self.device)
 
     # -- render-data export --------------------------------------------------
     @property
@@ -434,7 +458,8 @@ class BatchedBody(FusedBatch):
         (device tensor, no sync; see ``Body.step_many_export``)."""
         if self._many_export is None:
             raise RuntimeError("call enable_render_export() first")
-        return self._many_export(self._surface, params, frames, normals)
+        with span(STEP_EXPORT):
+            return self._many_export(self._surface, params, frames, normals)
 
     @property
     def positions(self) -> np.ndarray:
@@ -510,8 +535,10 @@ class PackedGridBody:
         tensors, as ``_Surface`` holds them)."""
         def many(params, frames):
             self.step_many(params, frames)
-            return _surface_render_data(self.pos_device(), skin_ids, skin_w,
-                                        tris)
+            with span(EXPORT):
+                with span(EXPORT_POSITIONS):
+                    pos = self.pos_device()
+                return _surface_render_data(pos, skin_ids, skin_w, tris)
 
         self._many_export = many
 
@@ -525,7 +552,8 @@ class PackedGridBody:
         if self._many_export is None:
             raise RuntimeError(
                 "call enable_render_export(skin_ids, skin_w, tris) first")
-        return self._many_export(params, frames)
+        with span(STEP_EXPORT):
+            return self._many_export(params, frames)
 
     # -- state I/O boundary -------------------------------------------------
     @property
@@ -547,16 +575,20 @@ class PackedGridBody:
 
     # -- interaction (as Body) ------------------------------------------------
     def start_grab(self, point) -> int:
-        p = _point(point, self.device)
-        gid = _nearest_particle(self.pos_device(), p)
-        self.controls = Controls(grab_id=gid, grab_pos=p)
-        return int(gid)
+        with span(GRAB_START):
+            p = _point(point, self.device)
+            gid = _nearest_particle(self.pos_device(), p)
+            self.controls = Controls(grab_id=gid, grab_pos=p)
+            return int(gid)
 
     def move_grabbed(self, point):
-        self.controls = self.controls.replace(grab_pos=_point(point, self.device))
+        with span(GRAB_MOVE):
+            self.controls = self.controls.replace(
+                grab_pos=_point(point, self.device))
 
     def end_grab(self):
-        self.controls = Controls.none(self.device)
+        with span(GRAB_END):
+            self.controls = Controls.none(self.device)
 
     def reset(self):
         self._packed = self._packed0
@@ -659,7 +691,8 @@ class GridBodyBatch:
         (device tensor, no sync; see ``Body.step_many_export``)."""
         if self._many_export is None:
             raise RuntimeError("call enable_render_export() first")
-        vn = self._many_export(self._surface, params, frames, normals)
+        with span(STEP_EXPORT):
+            vn = self._many_export(self._surface, params, frames, normals)
         self.last_diag = None
         return vn
 
@@ -707,18 +740,20 @@ class GridBodyBatch:
             )
 
     def set_grab(self, body: int, particle: int, point):
-        self._check_body(body)
-        self.grab_id[body, 0] = particle
-        self.grab_pos[body, 0] = _point(point, self.device)
+        with span(GRAB_START):
+            self._check_body(body)
+            self.grab_id[body, 0] = particle
+            self.grab_pos[body, 0] = _point(point, self.device)
 
     def start_grab(self, body: int, point) -> int:
         """Grab the box's particle nearest to ``point``; returns its local
         id (the grid engines address particles per body)."""
-        self._check_body(body)
-        local = int(_nearest_particle(unplanes(self.pos[body]),
-                                      _point(point, self.device)))
-        self.set_grab(body, local, point)
-        return local
+        with span(GRAB_START):
+            self._check_body(body)
+            local = int(_nearest_particle(unplanes(self.pos[body]),
+                                          _point(point, self.device)))
+            self.set_grab(body, local, point)
+            return local
 
     def grab_particle(self, flat_pid: int, point) -> int:
         """Grab a known flat particle id of ``flat_mesh``; returns the body."""
@@ -727,12 +762,14 @@ class GridBodyBatch:
         return body
 
     def move_grabbed(self, body: int, point):
-        self._check_body(body)
-        self.grab_pos[body, 0] = _point(point, self.device)
+        with span(GRAB_MOVE):
+            self._check_body(body)
+            self.grab_pos[body, 0] = _point(point, self.device)
 
     def end_grab(self, body: int):
-        self._check_body(body)
-        self.grab_id[body, 0] = -1
+        with span(GRAB_END):
+            self._check_body(body)
+            self.grab_id[body, 0] = -1
 
 
 class DenseBody:
@@ -812,25 +849,29 @@ class DenseBody:
             )
 
     def set_grab(self, body: int, particle: int, point):
-        self._check_body(body)
-        self.grab_id[body] = particle
-        self.grab_pos[:, body] = _point(point, self.device)
+        with span(GRAB_START):
+            self._check_body(body)
+            self.grab_id[body] = particle
+            self.grab_pos[:, body] = _point(point, self.device)
 
     def start_grab(self, body: int, point) -> int:
         """Grab the body's particle nearest to ``point``; returns its id."""
-        self._check_body(body)
-        pid = int(_nearest_particle(self.pos[..., body],
-                                    _point(point, self.device)))
-        self.set_grab(body, pid, point)
-        return pid
+        with span(GRAB_START):
+            self._check_body(body)
+            pid = int(_nearest_particle(self.pos[..., body],
+                                        _point(point, self.device)))
+            self.set_grab(body, pid, point)
+            return pid
 
     def move_grabbed(self, body: int, point):
-        self._check_body(body)
-        self.grab_pos[:, body] = _point(point, self.device)
+        with span(GRAB_MOVE):
+            self._check_body(body)
+            self.grab_pos[:, body] = _point(point, self.device)
 
     def end_grab(self, body: int):
-        self._check_body(body)
-        self.grab_id[body] = -1
+        with span(GRAB_END):
+            self._check_body(body)
+            self.grab_id[body] = -1
 
 
 # the batches: step(params, frames) advances them, summary() reports them
@@ -1037,11 +1078,12 @@ class World:
     def step(self, frames: int = 1):
         """Advance all bodies by ``frames`` frames (bodies are independent,
         so each runs its frames in turn)."""
-        for body in self.bodies:
-            if isinstance(body, BATCHES):
-                body.step(self.params, frames)
-            else:
-                body.step_many(self.params, frames)
+        with span(WORLD_STEP):
+            for body in self.bodies:
+                if isinstance(body, BATCHES):
+                    body.step(self.params, frames)
+                else:
+                    body.step_many(self.params, frames)
 
     def diagnostics(self) -> dict:
         """Per body, as Python numbers: a batch (``FusedGSBody``,
