@@ -59,8 +59,8 @@ code is non-zero:
      launches per frame (K4: 2 per substep; K3: one cooperative launch per
      frame);
  11. ms per substep at 56^3 of each grid kernel and its plain twin, and K3's
-     us per phase (a substep is 48 colour phases and a particle phase, each
-     ended by a grid barrier);
+     us per phase (a substep is 48 colour phases, each item waiting on its
+     neighbours' flags, and a particle phase between two grid barriers);
  12. the pieces kernels, polar_pieces (K6, one launch per substep between
      torch ops) and nh_pieces (K5, one cooperative launch per frame that
      carries the whole substep), the kernel's frames vs the plain twin's,
@@ -1041,8 +1041,9 @@ def grid_timings(tt, mod, label):
     kname = mod.__name__.split(".")[-1]
     per_phase = ("" if polar else
                  f", {out['kernel'] * 1e3 / (mod.COLORS + 1):.3f} us per "
-                 f"phase (48 colour phases and a particle phase, each ended "
-                 f"by a grid barrier, on {mod.frame_grid(pos.device)} blocks)")
+                 f"phase (48 colour phases, each item waiting on its "
+                 f"neighbours, and a particle phase between two grid "
+                 f"barriers, on {mod.frame_grid(pos.device)} blocks)")
     print(f"phase 11 [{label}] {kname} at {GRID} ({arr.num_tets} tets): "
           f"kernel {out['kernel']:.4f} ms/substep "
           f"({1e3 / out['kernel']:.1f} substeps/s){per_phase}, plain torch "

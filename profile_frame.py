@@ -70,7 +70,11 @@ frames from the same start; and gs_levels through each side's
 ``levels_frame`` on grid_mesh(20, 20, 20) at B = 1 and 8 ("large nh 20^3
 B=1", "B=8"; 5 substeps) and K3s through each side's
 ``make_nh_sharded_stepper`` on its ``SlabMesh(4)`` ("slab nh 56^3 x4",
-the box at cell 0.05, 5 substeps); K4a through each side's
+the box at cell 0.05, 5 substeps); K3 through each side's
+``nh_stencil.grid_frame`` with the volume error ("grid nh 56^3 vol_err":
+the box at cell 0.05 from velocities seeded in +-0.1; "grid nh 9x7x5
+B=3": three odd boxes side by side, two of them holding a grab; 5
+substeps, the volume error among the bits); K4a through each side's
 ``make_grid_sharded_stepper`` on its ``SlabMesh(d)`` ("slab polar 56^3 x1",
 "x2", "x4": the 56^3 box at cell 0.02 from velocities seeded in +-0.1, 5
 substeps); nh_pieces through each side's ``make_nh_pieces_stepper`` on
@@ -142,8 +146,10 @@ dragons, 20 frames after 3) and the SASS instructions (cuobjdump) of the
 kernel and of one solve per lane (and of the earlier version's kernel with
 --parent); then nh_stencil on the 56^3 box at its grid of one block per SM
 and at two per SM: SM cycles per substep on block 0 of its particle
-phases, its 48 colour phases and its 49 grid barriers
-(``-DNH_STENCIL_PHASES``), and the us of one grid barrier alone; then
+phases, its 48 colour phases and its 2 grid barriers, and its 47
+neighbour waits between colours (how many found a flag not yet ready at
+the first poll, SM cycles each; ``-DNH_STENCIL_PHASES``), and the us of
+one grid barrier alone; then
 gs_levels on grid_mesh(20, 20, 20), one body at every cluster size the
 card runs and 8 bodies: SM cycles on block 0 per substep of its particle
 phases, per level and per cluster barrier (``-DGS_LEVELS_PHASES``); then
@@ -443,6 +449,8 @@ AB_SHAPES = (("gs ordered B=1", "gs", 1, "ordered", 20, 80),
              ("polar B=132", "polar", 132, None, 20, 120),
              ("gs_ordered B=8", "ordered", 8, None, 20, 80),
              ("grid nh 56^3", "grid", 1, None, 20, 120),
+             ("grid nh 56^3 vol_err", "gridbatch", 1, GRID_DIMS, 20, 120),
+             ("grid nh 9x7x5 B=3", "gridbatch", 3, (9, 7, 5), 50, 450),
              ("grid polar 56^3", "gridpolar", 1, None, 20, 120),
              ("pieces polar 987k", "pieces", 1, None, 4, 24),
              ("large nh 20^3 B=1", "large", 1, None, 10, 50),
@@ -474,6 +482,7 @@ AB_KERNELS = {"gs": ("kernels.gs_fused", "gs_frame_kernel"),
               "polar": ("kernels.polar_fused", "polar_frame_kernel"),
               "ordered": ("kernels.gs_ordered", "gs_ordered_kernel"),
               "grid": ("kernels.nh_stencil", "nh_grid_"),
+              "gridbatch": ("kernels.nh_stencil", "nh_grid_"),
               "gridpolar": ("kernels.polar_stencil", "polar_grid_"),
               "pieces": ("kernels.polar_pieces", "polar_pieces_"),
               "large": ("kernels.gs_levels", "gs_levels_"),
@@ -507,6 +516,40 @@ class _Levels:
             self.pos, self.prev, self.vel, self.vol_err = \
                 self.mod.levels_frame(self.pos, self.vel, self.arrays, params,
                                       self.gid, self.gpos)
+
+
+class _GridBatch:
+    """B Neo-Hookean boxes of one size stepped by a version's
+    ``nh_stencil.grid_frame`` with the volume error, as ``GridBodyBatch``
+    steps them (World's registry names this version's modules): side by
+    side along x from velocities seeded in +-0.1, body 0 holding particle 0
+    2 cm up and, of several, the last body its last particle 2 cm out."""
+
+    def __init__(self, mod, arrays, mesh, b):
+        rng = np.random.RandomState(b)
+        verts = np.float32(mesh.verts)
+        shift = np.zeros((b, 1, 3), np.float32)
+        shift[:, 0, 0] = np.arange(b) * 1.5 * np.ptp(verts[:, 0])
+        self.mod, self.arrays = mod, arrays
+        self.pos = torch.tensor(verts + shift, device="cuda").transpose(
+            1, 2).contiguous()
+        self.vel = torch.tensor(rng.uniform(-0.1, 0.1, self.pos.shape)
+                                .astype(np.float32), device="cuda")
+        self.prev, self.vol_err = self.pos, None
+        self.gid = torch.full((b, 1), -1, dtype=torch.int32, device="cuda")
+        self.gpos = torch.zeros((b, 1, 3), device="cuda")
+        last = mesh.num_particles - 1
+        for body, pid, lift in ((0, 0, (0.0, 0.02, 0.0)),
+                                (b - 1, last, (0.02, 0.0, 0.0)))[:b]:
+            self.gid[body, 0] = pid
+            self.gpos[body, 0] = self.pos[body, :, pid] + torch.tensor(
+                lift, device="cuda")
+
+    def step(self, params, k):
+        for _ in range(k):
+            self.pos, self.prev, self.vel, self.vol_err = self.mod.grid_frame(
+                self.pos, self.vel, self.arrays, params, self.gid, self.gpos,
+                vol_err=True)
 
 
 class _Jacobi(_Levels):
@@ -797,7 +840,7 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
         if kind == "polar":
             return tt.default_gpu_params()
         if kind in ("grid", "gridpolar", "pieces", "slab", "slabpolar",
-                    "piecesnh", "worldpolar"):
+                    "piecesnh", "worldpolar", "gridbatch"):
             return tt.PhysicsParams(num_substeps=5)
         return tt.default_cpu_params()
 
@@ -831,6 +874,17 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
                                                              mesh, b)
         if kind == "k9":
             return _K9(mod)
+        if kind == "gridbatch":  # coloring: the boxes' dims
+            if (side, kind, coloring) not in grids:
+                mesh = (slab_mesh if coloring == GRID_DIMS
+                        else tt.grid_mesh(*coloring, **SLAB_BOX))
+                solver = importlib.import_module(
+                    f"{pkg.__name__}.solvers.neohookean_grid")
+                grids[side, kind, coloring] = (
+                    mesh, solver.build_nh_grid_arrays(mesh, coloring,
+                                                      device="cuda"))
+            mesh, arrays = grids[side, kind, coloring]
+            return _GridBatch(mod, arrays, mesh, b)
         if kind == "slab":
             if (side, kind) not in grids:
                 solver = importlib.import_module(
@@ -904,6 +958,9 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
         if kind in ("grid", "slab"):
             return (mod.frame_flops(bd.arrays, params, 1),
                     mod.frame_bytes(bd.arrays, params, 1, 1))
+        if kind == "gridbatch":
+            return (mod.frame_flops(bd.arrays, params, b),
+                    mod.frame_bytes(bd.arrays, params, b, 1))
         if kind == "large":
             return (mod.frame_flops(bd.arrays, params, b),
                     mod.frame_bytes(bd.arrays, params, b, 1))
@@ -929,7 +986,7 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
         if kind == "slabpolar":
             p = bd.packed
             return [*p.pos, *p.prev, *p.vel, *p.quats]
-        if kind == "large":
+        if kind in ("large", "gridbatch"):
             return [bd.pos, bd.prev, bd.vel, bd.vol_err]
         if kind == "largepolar":
             return [bd.pos, bd.prev, bd.vel, bd.quats]
@@ -981,7 +1038,8 @@ def versions_ab(tt, parent_root: str, only=None, pairs: int = 1) -> None:
             row, profile = measure(
                 bd, params, k1, k2, AB_KERNELS[kind][1],
                 *work(mod, kind, bd, params, b, coloring), state_sum=pos_sum)
-            if kind in ("gridpolar", "slab", "slabpolar", "piecesnh"):
+            if kind in ("gridpolar", "slab", "slabpolar", "piecesnh",
+                        "gridbatch"):
                 row["ms_per_substep"] = row["event_ms"] / params.num_substeps
             if kind == "pieces":
                 row["solve_event_ms"] = solve_ms(side, bd)
@@ -1191,8 +1249,10 @@ def ordered_phases(tt, parent=None) -> None:
 def grid_phases(tt) -> None:
     """K3 on the packed 56^3 box at 1 and 2 blocks per SM: SM cycles on
     block 0 per substep of its particle phases, per colour phase and per
-    grid barrier (an instrumented build, 20 frames after 3), and the us of
-    one barrier alone (1,000 barriers in one launch, CUDA events)."""
+    grid barrier, and its neighbour waits between colours: how many, how
+    many found a flag not yet ready at the first poll, the SM cycles each
+    (an instrumented build, 20 frames after 3); and the us of one grid
+    barrier alone (1,000 barriers in one launch, CUDA events)."""
     import ctypes
 
     from tetsim_torch.kernels import nh_stencil as nh
@@ -1213,16 +1273,21 @@ def grid_phases(tt) -> None:
             # nh_stencil.frame_grid's one block per SM, or two: the launch
             # of nh_stencil._grid_frame_cuda on a grid of this size
             grid = min(bps, per_sm) * sms
+            lanes = nh.item_lanes(arr.dims, 1, grid, False)
+            reach = nh.reach(arr.dims, lanes)
+            flags = torch.empty(nh.partial_blocks(arr.dims, lanes)
+                                * nh.FLAG_INTS, dtype=torch.int32, device=dev)
             state = [pos, vel]
 
-            def step(k, grid=grid):
+            def step(k, grid=grid, lanes=lanes, reach=reach, flags=flags):
                 for _ in range(k):
                     out = [torch.empty_like(pos) for _ in range(3)]
                     err = lib.nh_stencil_launch(
                         *(x.data_ptr() for x in state + out), None, None,
-                        arr.inv_mass.data_ptr(), gid.data_ptr(),
-                        gpos.data_ptr(), 1, gid.shape[-1],
-                        params.num_substeps, grid, struct, stream)
+                        flags.data_ptr(), arr.inv_mass.data_ptr(),
+                        gid.data_ptr(), gpos.data_ptr(), 1, gid.shape[-1],
+                        params.num_substeps, lanes, reach, grid, struct,
+                        stream)
                     if err:
                         raise RuntimeError(
                             "nh_stencil launch failed: "
@@ -1230,13 +1295,14 @@ def grid_phases(tt) -> None:
                     state[:] = out[0], out[2]
                 torch.cuda.synchronize()
 
-            cycles = (ctypes.c_ulonglong * 4)()
+            cycles = (ctypes.c_ulonglong * 7)()
             step(3)
             lib.nh_stencil_phase_cycles(cycles)
             step(20)
             if lib.nh_stencil_phase_cycles(cycles):
                 raise RuntimeError("nh_stencil_phase_cycles failed")
             per = [cycles[k] / cycles[3] for k in range(3)]
+            waits, late, wait_cycles = cycles[4], cycles[5], cycles[6]
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             for iters in (10, 1010):
@@ -1251,9 +1317,15 @@ def grid_phases(tt) -> None:
             print(f"nh_stencil {bps} block(s) per SM ({grid} "
                   "blocks), 56^3: SM cycles per substep on block 0: "
                   f"particle phases {per[0]:.0f}, colour phases "
-                  f"{per[1]:.0f} ({per[1] / nh.COLORS:.0f} per colour), "
-                  f"barriers {per[2]:.0f} ({per[2] / (nh.COLORS + 1):.0f} "
-                  f"per barrier); one barrier alone {probe_us:.3f} us",
+                  f"{per[1]:.0f} ({per[1] / nh.COLORS:.0f} per colour, "
+                  "their waits included), grid barriers "
+                  f"{per[2]:.0f} ({per[2] / 2:.0f} per barrier, 2 a "
+                  f"substep); neighbour waits {waits / cycles[3]:.1f} per "
+                  f"substep (items of {lanes} lanes, reach {reach}), "
+                  f"{100 * late / max(waits, 1):.1f}% of them not ready "
+                  f"at the first poll, {wait_cycles / max(waits, 1):.0f} "
+                  f"SM cycles each ({wait_cycles / cycles[3]:.0f} per "
+                  f"substep); one grid barrier alone {probe_us:.3f} us",
                   flush=True)
 
 

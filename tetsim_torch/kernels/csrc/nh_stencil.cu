@@ -22,20 +22,51 @@
 // (nh_grid_frame_kernel), as the TPU kernel runs a substep inside one
 // pallas_call.  Its grid is co-resident (the wrapper sizes it from the
 // occupancy query, 1 block of 256 threads per SM) and walks the frame's
-// phases with a grid barrier (cooperative_groups this_grid().sync())
-// between them: predict, then per substep the 48 colours and a phase that
+// phases: predict, then per substep the 48 colours and a phase that
 // collides the substep and predicts the next.  Each phase walks its items
 // grid-stride: a particle phase the (body, vertex) pairs, so a particle's
 // collide and its next predict fall to the same thread and need no barrier
-// between them; a colour phase the (body, virtual block of 256 tet lanes)
-// pairs, each lane the tet nh_grid_color_kernel's thread of that block
-// solves.  A colour's tets share no vertex, so the order in which the
-// blocks take them changes no bit.  Where the caller asks for the volume
-// error, each (body, colour, virtual block) writes the sum of its lanes'
-// det F - 1 (a tree in shared memory, in a fixed order) to a scratch row,
-// and the collide phase adds a body's row in a fixed strided order into
-// vol_err[b, s] / num_tets.  49 grid barriers per substep, no atomics of
-// its own, deterministic: the first design's bits.
+// between them; a colour phase the (body, virtual block of `lanes` tet
+// lanes) pairs, thread j of the block solving lane vb * lanes + j.  A
+// colour's tets share no vertex, so the order in which the blocks take
+// them changes no bit.  Where the caller asks for the volume error, the
+// virtual blocks are 256 lanes (nblk a colour), each (body, colour,
+// virtual block) writes the sum of its lanes' det F - 1 (a tree in shared
+// memory, in a fixed order) to a scratch row, and the collide phase adds a
+// body's row in a fixed strided order into vol_err[b, s] / num_tets.
+// Without it they are the largest colour's lanes spread over the grid
+// (nh_stencil.item_lanes: 167 for the 56^3 box on 132 SMs, whose 86
+// blocks of 256 left 46 SMs idle in every colour).  Deterministic, no
+// atomics in the arithmetic: the first design's bits.
+//
+// Between phases.  A particle phase walks the particles grid-stride, so a
+// grid barrier (cooperative_groups this_grid().sync()) stands before and
+// after it: after the first predict, after colour 47 and after each
+// collide.  Between two colours of a substep there is none.  Every colour
+// maps lane (ax * cwy + ay) * cwz + az to its cube lattice, so a virtual
+// block covers about the same slab of the box in every colour, and a tet
+// reads and writes only the corners of its cube.  A tet of a later colour
+// therefore depends only on tets whose cubes share a vertex with its own,
+// and those lie within `reach` virtual blocks of it in every colour
+// (nh_stencil.reach on the host: 4 for the 56^3 box at 256 lanes, 5 at
+// 167; a box of few blocks waits for all of them).  Each item (b, vb) owns
+// an int flag, alone in its 32-byte sector (kFlagInts), zeroed in the
+// first predict.  After its colour phase u and the block's
+// __syncthreads(), lane 0 of the last warp publishes u with
+// st.release.gpu; before colour phase u + 1, warp 0 polls the flags of
+// items (b, vb - reach .. vb + reach), clipped to the body, with
+// ld.acquire.gpu until each reads at least u, and a __syncthreads() hands
+// the acquire to the block.  The acquire is what makes the other SMs'
+// position stores visible to the plain loads that follow.  Warp 0 starts
+// polling while the last warp waits out its release, and no two items'
+// flags share a sector, so a release does not queue behind the other
+// items' polls: with one flag a word and thread 0 publishing, the walk
+// took as long as with the grid barriers.  A block takes its items of
+// phase u only after all its items of phase u - 1, and every block is
+// resident, so the blocks at the lowest phase can always go on: no
+// deadlock.  2 grid barriers and 47 neighbour waits a substep, where a
+// barrier after every phase made 49; the order of the writes to each
+// vertex is unchanged, and so are the bits.
 //
 // Numerics: predict, collide and velocity round every operation as the
 // plain path does; the tet projection is contracted by nvcc into FMAs
@@ -49,14 +80,19 @@
 // about 1.09 ms against 0.77 ms of device time, so the host paced the frame
 // (busy 71%).  Here the host enqueues one launch per frame, and a colour
 // phase costs one L2 gather of its corners, one tet's dependent chain per
-// thread (8 warps of it on each SM that has an item) and a grid barrier;
-// the 48 colours stay sequential.  Measured on an H100 (profile_frame.py
-// --phases, PERF.md): one grid barrier alone takes about 1.0 us at 132
-// blocks (1.3 at 264, which is why the grid is one block per SM); on
-// block 0 a colour phase takes 3,000-3,200 SM cycles and the barrier after
-// it, waiting for the slowest block, 3,100-3,250: about 3.1 us per phase,
-// against the first design's 3.08 us of device time per colour launch and
-// about 4.4 us of host time per launch that paced it.
+// thread, its scattered stores and the hand-over to the next colour; the
+// 48 colours stay sequential.  Measured on an H100 (profile_frame.py
+// --phases and a probe build, PERF.md): one grid barrier alone takes
+// about 1.0 us at 132 blocks (1.3 at 264, which is why the grid is one
+// block per SM).  In blocks of 256 lanes a colour phase on block 0 spent
+// about 800 SM cycles in the gather, 2,700 in the solve and the stores (8
+// warps on each of 86 SMs) and 840 in the release before its flag; the
+// grid barrier after every phase cost 3,100-3,250, mostly that release
+// and round trips through L2, not the wait for the slowest block, so the
+// neighbour waits alone gained 2-3%.  Spread over all 132 SMs the colour
+// phase takes about 4,900 cycles with its wait, against 6,600 with the
+// barrier: 126 against 152 us a substep of the 56^3 box (140 with the
+// spread items and a barrier after every phase).
 
 // K3s, the slab form: replaces the TPU kernel
 // tetsim_tpu/kernels/nh_stencil.py:_build_seg_call, one colour group (the 4
@@ -67,8 +103,10 @@
 // K3's grid, the slabs in the place of K3's bodies, each (slab, virtual
 // block) an item of a colour phase, each slab with its local dims, its own
 // inv_mass row [k, n] and the grabs decoded by global particle id
-// (x_offset0 + b * x_stride + v).  49 grid barriers per substep, as K3,
-// and no copy phase.
+// (x_offset0 + b * x_stride + v).  No copy phase, and a grid barrier
+// between every two phases, 49 per substep: K3's neighbour waits do not
+// apply, since the write-through below is a dependency across slabs that
+// the lane window does not describe.
 //
 // The boundary planes, by write-through.  A slab stores the vertex plane
 // it shares with each neighbour (its planes 0 and lx), so the plane has two
@@ -94,8 +132,10 @@
 // only (nh_stencil.slab_calls); that pattern is compiled and planned on
 // the CPU but has not run on a card.  Measured on an H100 (PERF.md): the
 // 56^3 box in 4 slabs on one card takes 0.163-0.175 ms per substep, about
-// 3.4 us per phase, against K3's 0.151 unsharded; the first design's 50
-// launches and 36 copies per substep took 0.44-0.66 ms, paced by the host.
+// 3.4 us per phase, against K3's 0.151 unsharded with the same barriers
+// and blocks of 256 lanes (0.126 with its spread items and neighbour
+// waits); the first design's 50 launches and 36 copies per substep took
+// 0.44-0.66 ms, paced by the host.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -125,23 +165,28 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kColors = 48;
+constexpr int kFlagInts = 8;  // an item's flag and its 32-byte sector
 
 #ifdef NH_STENCIL_PHASES
 // A build for profile_frame.py --phases only: block 0 of K3 sums the SM
 // cycles of its particle phases (the first predict, then collide with the
-// next predict and the volume error), of its 48 colour phases and of its
-// grid barriers, each phase ended by a __syncthreads() that the shipped
-// build does not have, and counts the substeps.
-__device__ unsigned long long phase_cycles[4];
+// next predict and the volume error), of its 48 colour phases (their
+// neighbour waits included) and of its grid barriers, each phase ended by a
+// __syncthreads() that the shipped build does not have, and counts the
+// substeps; then its neighbour waits, those whose first poll found a flag
+// not yet ready, and the SM cycles from a wait's start to the block going
+// on.
+__device__ unsigned long long phase_cycles[7];
 #endif
 
-// Blocks of 256 tet lanes that cover the largest colour (the volume
-// error's scratch holds one sum per body, colour and such block;
-// nh_stencil.partial_blocks on the host).
-__host__ __device__ __forceinline__ int partial_blocks(int nx, int ny,
-                                                       int nz) {
+// Virtual blocks of `lanes` tet lanes that cover the largest colour: a
+// colour phase's items per body (nh_stencil.partial_blocks on the host; of
+// 256 lanes, the volume error's scratch holds one sum per body, colour and
+// such block).
+__host__ __device__ __forceinline__ int partial_blocks(int nx, int ny, int nz,
+                                                       int lanes) {
   const int most = ((nx + 1) / 2) * ((ny + 1) / 2) * ((nz + 1) / 2);
-  return (most + kThreads - 1) / kThreads;
+  return (most + lanes - 1) / lanes;
 }
 
 // Predict of vertex v of the body whose planes start at `base`: velocity
@@ -237,6 +282,41 @@ __device__ __forceinline__ float solve_lane(float* bpos, const float* bim,
   return verr;
 }
 
+// Item flags (the K3 design note): a release store of the colour phase an
+// item finished, and the acquire load that polls it.
+__device__ __forceinline__ void publish(int* flag, int u) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(flag), "r"(u)
+               : "memory");
+}
+
+__device__ __forceinline__ int acquire(const int* flag) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v)
+               : "l"(flag)
+               : "memory");
+  return v;
+}
+
+// Warp 0 polls flags [lo, hi) until each reads at least u, then the block
+// goes on; every thread of the block must call it.  Returns, to warp 0,
+// whether they all did at the first poll.
+__device__ __forceinline__ bool wait_flags(const int* flags, int lo, int hi,
+                                           int u) {
+  bool first = true;
+  if (threadIdx.x < 32) {
+    for (;;) {
+      bool ready = true;
+      for (int f = lo + (int)threadIdx.x; f < hi; f += 32)
+        if (acquire(flags + f * kFlagInts) < u) ready = false;
+      if (__all_sync(0xffffffffu, ready)) break;
+      first = false;
+    }
+  }
+  __syncthreads();
+  return first;
+}
+
 // Sum of the block's values in a fixed order (a tree in shared memory);
 // every thread of the block must call it.
 __device__ __forceinline__ float block_sum(float x, float* red) {
@@ -257,7 +337,11 @@ __host__ __device__ __forceinline__ int frame_phases(int S) {
 }
 
 // Phases [begin, end) of a frame of B items (K3's boxes or, with kSlabs,
-// K3s's slabs of one device), a grid barrier between two phases (the
+// K3s's slabs of one device), a colour phase in items of `lanes` tet
+// lanes (256 for K3s and wherever vol_err is asked for): K3 with a grid
+// barrier on either side of a particle phase and, between colours, each
+// item waiting on the flags [B, items, kFlagInts] of the items within
+// `reach` of it; K3s with a grid barrier between every two phases (the
 // design notes at the top).  Positions, prev and velocities are read and
 // written by other blocks between barriers, so they are plain pointers
 // (no read-only cache); the partial sums too.  inv_mass is [N] (K3) or
@@ -268,19 +352,21 @@ template <bool kSlabs>
 __device__ __forceinline__ void walk_frame(
     const float* __restrict__ pos_in, const float* __restrict__ vel_in,
     float* pos, float* prev, float* vel, float* vol_err, float* partial,
-    const float* __restrict__ inv_mass, const int* __restrict__ grab_id,
-    const float* __restrict__ grab_pos, int B, int G, int S, int x_offset0,
-    int x_stride, int begin, int end, const GridNHParams& P) {
+    int* flags, const float* __restrict__ inv_mass,
+    const int* __restrict__ grab_id, const float* __restrict__ grab_pos,
+    int B, int G, int S, int lanes, int reach, int x_offset0, int x_stride,
+    int begin, int end, const GridNHParams& P) {
   __shared__ float red[kThreads];
   cg::grid_group grid = cg::this_grid();
   const int N = (P.nx + 1) * (P.ny + 1) * (P.nz + 1);
-  const int nblk = partial_blocks(P.nx, P.ny, P.nz);
+  const int nblk = partial_blocks(P.nx, P.ny, P.nz, kThreads);
+  const int items = partial_blocks(P.nx, P.ny, P.nz, lanes);
   const int total = B * N;
   const int first = blockIdx.x * kThreads + threadIdx.x;
   const int stride = gridDim.x * kThreads;
 #ifdef NH_STENCIL_PHASES
   const bool mark = blockIdx.x == 0 && threadIdx.x == 0;
-  unsigned long long acc[3] = {0, 0, 0};
+  unsigned long long acc[6] = {0, 0, 0, 0, 0, 0};
   long long t_mark = clock64();
 #define PHASE_END(k)                     \
   __syncthreads();                       \
@@ -294,11 +380,19 @@ __device__ __forceinline__ void walk_frame(
 #endif
 
   for (int u = begin; u < end; ++u) {
-    if (u > begin) {
+    // colour (0-47) or particle phase (48) of the substep; -1: first predict
+    const int color = u == 0 ? -1 : (u - 1) % (kColors + 1);
+    bool barrier = u > begin;
+    if constexpr (!kSlabs)  // none between two colours
+      barrier = barrier && (color <= 0 || color == kColors);
+    if (barrier) {
       grid.sync();
       PHASE_END(2);
     }
     if (u == 0) {
+      if constexpr (!kSlabs)
+        for (int i = first; i < B * items * kFlagInts; i += stride)
+          flags[i] = 0;
       for (int i = first; i < total; i += stride) {
         const int v = i % N;
         const size_t base = (size_t)(i / N) * 3 * N;
@@ -310,18 +404,45 @@ __device__ __forceinline__ void walk_frame(
       PHASE_END(0);
       continue;
     }
-    const int s = (u - 1) / (kColors + 1), color = (u - 1) % (kColors + 1);
+    const int s = (u - 1) / (kColors + 1);
     if (color < kColors) {
-      for (int item = blockIdx.x; item < B * nblk; item += gridDim.x) {
-        const int b = item / nblk, vb = item % nblk;
-        const float verr = solve_lane<kSlabs>(
-            pos + (size_t)b * 3 * N, inv_mass + (kSlabs ? (size_t)b * N : 0),
-            N, color, vb * kThreads + threadIdx.x, b, B, P);
+      for (int item = blockIdx.x; item < B * items; item += gridDim.x) {
+        const int b = item / items, vb = item % items;
+        if constexpr (!kSlabs) {
+          if (color > 0) {  // the previous colour's items within reach
+            const int* row = flags + (size_t)b * items * kFlagInts;
+            const int lo = max(vb - reach, 0);
+            const int hi = min(vb + reach + 1, items);
+#ifdef NH_STENCIL_PHASES
+            const long long t_wait = clock64();
+            const bool at_once = wait_flags(row, lo, hi, u - 1);
+            if (mark) {
+              acc[3] += 1;
+              acc[4] += !at_once;
+              acc[5] += clock64() - t_wait;
+            }
+#else
+            wait_flags(row, lo, hi, u - 1);
+#endif
+          }
+        }
+        const float verr =
+            (int)threadIdx.x < lanes
+                ? solve_lane<kSlabs>(pos + (size_t)b * 3 * N,
+                                     inv_mass + (kSlabs ? (size_t)b * N : 0),
+                                     N, color, vb * lanes + threadIdx.x, b, B,
+                                     P)
+                : 0.0f;
         if (vol_err != nullptr) {
           const float sum = block_sum(verr, red);
           if (threadIdx.x == 0)
             partial[((size_t)b * kColors + color) * nblk + vb] = sum;
           __syncthreads();  // red serves the block's next item
+        }
+        if constexpr (!kSlabs) {
+          if (vol_err == nullptr) __syncthreads();  // the item's stores
+          if (threadIdx.x == kThreads - 32)  // warp 0 polls meanwhile
+            publish(flags + (size_t)item * kFlagInts, u);
         }
       }
       PHASE_END(1);
@@ -374,6 +495,7 @@ __device__ __forceinline__ void walk_frame(
   if (mark) {
     for (int k = 0; k < 3; ++k) phase_cycles[k] += acc[k];
     phase_cycles[3] += (end - begin) / (kColors + 1);  // whole substeps
+    for (int k = 3; k < 6; ++k) phase_cycles[k + 1] += acc[k];
   }
 #endif
 #undef PHASE_END
@@ -388,13 +510,15 @@ nh_grid_frame_kernel(const float* __restrict__ pos_in,  // [B,3,N]
                      float* vel,      // [B,3,N] out
                      float* vol_err,  // [B,S] or null
                      float* partial,  // [B,48,nblk], with vol_err
+                     int* flags,      // [B,items,8] scratch
                      const float* __restrict__ inv_mass,  // [N]
                      const int* __restrict__ grab_id,     // [B,G]
                      const float* __restrict__ grab_pos,  // [B,G,3]
-                     int B, int G, int S, GridNHParams P) {
-  walk_frame<false>(pos_in, vel_in, pos, prev, vel, vol_err, partial,
-                    inv_mass, grab_id, grab_pos, B, G, S, 0, 0, 0,
-                    frame_phases(S), P);
+                     int B, int G, int S, int lanes, int reach,
+                     GridNHParams P) {
+  walk_frame<false>(pos_in, vel_in, pos, prev, vel, vol_err, partial, flags,
+                    inv_mass, grab_id, grab_pos, B, G, S, lanes, reach, 0, 0,
+                    0, frame_phases(S), P);
 }
 
 // K3s: phases [begin, end) of a frame of S substeps on the k slabs of one
@@ -410,9 +534,9 @@ nh_slab_frame_kernel(const float* __restrict__ pos_in,  // [k,3,N]
                      const float* __restrict__ grab_pos,  // [G,3]
                      int k, int G, int S, int x_offset0, int x_stride,
                      int begin, int end, GridNHParams P) {
-  walk_frame<true>(pos_in, vel_in, pos, prev, vel, nullptr, nullptr,
-                   inv_mass, grab_id, grab_pos, k, G, S, x_offset0, x_stride,
-                   begin, end, P);
+  walk_frame<true>(pos_in, vel_in, pos, prev, vel, nullptr, nullptr, nullptr,
+                   inv_mass, grab_id, grab_pos, k, G, S, kThreads, 0,
+                   x_offset0, x_stride, begin, end, P);
 }
 
 #ifdef NH_STENCIL_PHASES
@@ -441,6 +565,8 @@ int nh_stencil_slab_launches_per_frame() { return 1; }
 
 int nh_stencil_frame_phases(int S) { return frame_phases(S); }
 
+int nh_stencil_flag_ints() { return kFlagInts; }
+
 // Blocks of K3's and K3s's kernels (the fewer) that one SM of the current
 // device holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
 // the device's SM count.  Returns the CUDA error.
@@ -462,12 +588,20 @@ int nh_stencil_occupancy(int* blocks_per_sm, int* sms) {
 // Launches K3 for S substeps on `stream`: one cooperative launch of `grid`
 // blocks, which must all be resident at once (nh_stencil_occupancy).
 // vol_err [B,S] and its scratch partial [B, 48, nblk] may both be null.
-// Returns the launch's error (0 = launched).
+// A colour phase's items are `lanes` tet lanes each (256 with vol_err,
+// whose sums are per 256 lanes), and each waits on the items within
+// `reach` of it (nh_stencil.item_lanes, nh_stencil.reach); flags is an int
+// scratch of nh_stencil_flag_ints() per (body, item), which the kernel
+// zeroes itself.  Returns the launch's error (0 = launched).
 int nh_stencil_launch(const void* pos_in, const void* vel_in, void* pos_out,
                       void* prev_out, void* vel_out, void* vol_err,
-                      void* partial, const void* inv_mass,
+                      void* partial, void* flags, const void* inv_mass,
                       const void* grab_id, const void* grab_pos, int B, int G,
-                      int S, int grid, GridNHParams P, void* stream) {
+                      int S, int lanes, int reach, int grid, GridNHParams P,
+                      void* stream) {
+  if (lanes < 1 || lanes > kThreads || reach < 0 ||
+      (vol_err != nullptr && lanes != kThreads))
+    return (int)cudaErrorInvalidValue;
   const float* a0 = (const float*)pos_in;
   const float* a1 = (const float*)vel_in;
   float* a2 = (float*)pos_out;
@@ -475,11 +609,12 @@ int nh_stencil_launch(const void* pos_in, const void* vel_in, void* pos_out,
   float* a4 = (float*)vel_out;
   float* a5 = (float*)vol_err;
   float* a6 = vol_err != nullptr ? (float*)partial : nullptr;
-  const float* a7 = (const float*)inv_mass;
-  const int* a8 = (const int*)grab_id;
-  const float* a9 = (const float*)grab_pos;
-  void* args[] = {&a0, &a1, &a2, &a3, &a4, &a5, &a6, &a7, &a8, &a9,
-                  &B,  &G,  &S,  &P};
+  int* a7 = (int*)flags;
+  const float* a8 = (const float*)inv_mass;
+  const int* a9 = (const int*)grab_id;
+  const float* a10 = (const float*)grab_pos;
+  void* args[] = {&a0, &a1, &a2, &a3, &a4, &a5, &a6, &a7, &a8,
+                  &a9, &a10, &B, &G, &S, &lanes, &reach, &P};
   return (int)cooperative((const void*)nh_grid_frame_kernel, grid, args,
                           stream);
 }
@@ -510,12 +645,13 @@ int nh_stencil_slab_launch(const void* pos_in, const void* vel_in,
 }
 
 #ifdef NH_STENCIL_PHASES
-// Copies phase_cycles to out[4] (particle phases, colour phases, barriers,
-// substeps) and zeroes it; returns the CUDA error.
+// Copies phase_cycles to out[7] (particle phases, colour phases, grid
+// barriers, substeps, neighbour waits, waits not ready at the first poll,
+// cycles waiting) and zeroes it; returns the CUDA error.
 int nh_stencil_phase_cycles(unsigned long long* out) {
   cudaError_t err =
       cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
-  const unsigned long long zero[4] = {0, 0, 0, 0};
+  const unsigned long long zero[7] = {0, 0, 0, 0, 0, 0, 0};
   if (err == cudaSuccess)
     err = cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
   return (int)err;

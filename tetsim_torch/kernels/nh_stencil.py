@@ -6,8 +6,10 @@ engine.
 order, collide, grab, velocity) for B boxes of one size.  On CUDA tensors
 it launches the hand-written kernel of ``csrc/nh_stencil.cu`` once per
 frame, a cooperative launch whose grid (``frame_grid``, one block per SM)
-walks the frame's phases with a grid barrier between them (``phase_items``
-says which block takes which work); on CPU tensors it runs
+walks the frame's phases (``phase_items`` says which block takes which
+work, in items of ``item_lanes`` tet lanes), with a grid barrier on either
+side of a particle phase and, between two colours, each item waiting only
+for the items within ``reach`` of it; on CPU tensors it runs
 ``grid_frame_reference``, the same frame in plain torch from
 ``solvers/neohookean_grid.py``.  ``launch_count`` counts the kernel
 launches.  ``vol_err=True`` also returns the per-substep volume
@@ -40,6 +42,7 @@ from .batch import cached_params, expect
 COLORS = 48
 THREADS = 256  # threads per block and tet lanes per virtual block (kThreads)
 LAUNCHES_PER_FRAME = 1  # K3, as nh_stencil_launches_per_frame()
+FLAG_INTS = 8  # K3's scratch ints per item flag (nh_stencil_flag_ints())
 NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 launch_count = 0  # kernel launches since import (or reset)
@@ -114,23 +117,71 @@ def _frame_params(arr: NHGridArrays, params: PhysicsParams) -> _GridNHParams:
     return cached_params(params, build)
 
 
-def partial_blocks(dims) -> int:
-    """Virtual blocks of THREADS tet lanes that cover the largest colour
-    (``partial_blocks`` of ``csrc/nh_stencil.cu``): a colour phase's work
-    per body."""
+def _largest_colour(dims) -> int:
+    """Tets of the largest colour: its tet lanes."""
     nx, ny, nz = dims
-    most = ((nx + 1) // 2) * ((ny + 1) // 2) * ((nz + 1) // 2)
-    return -(-most // THREADS)
+    return ((nx + 1) // 2) * ((ny + 1) // 2) * ((nz + 1) // 2)
 
 
-def phase_items(num_bodies: int, dims, grid: int) -> list:
+def partial_blocks(dims, lanes: int = THREADS) -> int:
+    """Virtual blocks of ``lanes`` tet lanes that cover the largest colour:
+    a colour phase's items per body (of THREADS lanes, ``partial_blocks``
+    of ``csrc/nh_stencil.cu``, the volume error's block sums)."""
+    return -(-_largest_colour(dims) // lanes)
+
+
+def item_lanes(dims, num_bodies: int, grid: int, vol_err: bool) -> int:
+    """Tet lanes of one of K3's colour-phase items: THREADS where the volume
+    error is asked for (its sums are per virtual block of THREADS lanes, in
+    a fixed order), else the largest colour's lanes spread over the grid's
+    blocks, at least a warp's 32: 167 for the 56^3 box on 132 blocks, so
+    that every SM takes a share of each colour."""
+    if vol_err:
+        return THREADS
+    share = -(-_largest_colour(dims) // max(grid // num_bodies, 1))
+    return min(THREADS, max(32, share))
+
+
+@functools.lru_cache(maxsize=64)
+def reach(dims, lanes: int = THREADS) -> int:
+    """The widest distance in virtual blocks of ``lanes`` tet lanes between
+    two tets, of any two colours, whose cubes share a vertex: how far K3's
+    colour-phase item (b, vb) waits on its neighbours, items (b, vb - reach)
+    .. (b, vb + reach), between two colours.  A cube (i, j, k) belongs to
+    the colours of parity (i % 2, j % 2, k % 2), each of which puts it at
+    tet lane (ax * cwy + ay) * cwz + az, (ax, ay, az) = ((i, j, k) -
+    parity) // 2, cw* the parity's cubes along each axis (``color_corners``),
+    so it lies in the same virtual block in all of them; the reach is the
+    largest difference of that block between two cubes at most one apart
+    along each axis.  For the 56^3 box 4 at 256 lanes, 5 at its 167
+    (``item_lanes``); at most ``partial_blocks(dims, lanes) - 1``."""
+    cube = np.indices(dims)  # [3, nx, ny, nz]
+    cw = [(n - cube[a] % 2 + 1) // 2 for a, n in enumerate(dims)]
+    ax, ay, az = cube // 2
+    vb = ((ax * cw[1] + ay) * cw[2] + az) // lanes
+    out = 0
+    for d in np.ndindex(3, 3, 3):  # each pair of neighbours once, either way
+        d = np.subtract(d, 1)
+        if tuple(d) <= (0, 0, 0):
+            continue
+        a = vb[tuple(slice(max(-x, 0), n - max(x, 0))
+                     for x, n in zip(d, dims))]
+        b = vb[tuple(slice(max(x, 0), n - max(-x, 0))
+                     for x, n in zip(d, dims))]
+        if a.size:
+            out = max(out, int(np.abs(a - b).max()))
+    return out
+
+
+def phase_items(num_bodies: int, dims, grid: int,
+                lanes: int = THREADS) -> list:
     """K3's colour phase over a grid of ``grid`` blocks: for each block, the
     (body, virtual block) pairs it takes, grid-stride over items = body *
     nblk + virtual block, as ``nh_grid_frame_kernel`` walks them.  Thread j
-    of a block solves tet lane vb * THREADS + j of the colour
+    < ``lanes`` of a block solves tet lane vb * lanes + j of the colour
     (``color_corners``).  The particle phases walk (body, vertex) pairs the
     same way, a thread at a time."""
-    nblk = partial_blocks(dims)
+    nblk = partial_blocks(dims, lanes)
     return [[divmod(item, nblk)
              for item in range(k, num_bodies * nblk, grid)]
             for k in range(grid)]
@@ -193,7 +244,7 @@ def library() -> ctypes.CDLL:
     lib = build.load("nh_stencil", NVCC_FLAGS)
     if lib.nh_stencil_launch.argtypes is None:
         lib.nh_stencil_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
             + [_GridNHParams, ctypes.c_void_p]
         )
         lib.nh_stencil_launch.restype = ctypes.c_int
@@ -210,13 +261,16 @@ def library() -> ctypes.CDLL:
         lib.nh_stencil_slab_launches_per_frame.restype = ctypes.c_int
         lib.nh_stencil_frame_phases.argtypes = [ctypes.c_int]
         lib.nh_stencil_frame_phases.restype = ctypes.c_int
+        lib.nh_stencil_flag_ints.restype = ctypes.c_int
         if (lib.nh_stencil_launches_per_frame() != LAUNCHES_PER_FRAME
                 or lib.nh_stencil_slab_launches_per_frame()
                 != SLAB_LAUNCHES_PER_FRAME
-                or lib.nh_stencil_frame_phases(5) != frame_phases(5)):
-            raise RuntimeError("csrc/nh_stencil.cu launch counts or phases "
-                               "!= nh_stencil.LAUNCHES_PER_FRAME / "
-                               "SLAB_LAUNCHES_PER_FRAME / frame_phases")
+                or lib.nh_stencil_frame_phases(5) != frame_phases(5)
+                or lib.nh_stencil_flag_ints() != FLAG_INTS):
+            raise RuntimeError("csrc/nh_stencil.cu launch counts, phases or "
+                               "flag size != nh_stencil.LAUNCHES_PER_FRAME / "
+                               "SLAB_LAUNCHES_PER_FRAME / frame_phases / "
+                               "FLAG_INTS")
     return lib
 
 
@@ -274,6 +328,9 @@ def _grid_frame_cuda(pos, vel, arr: NHGridArrays, params: PhysicsParams,
     lib = library()
     grid = frame_grid(dev)
     pos_out, prev_out, vel_out = (torch.empty_like(pos) for _ in range(3))
+    lanes = item_lanes(arr.dims, B, grid, vol_err)
+    flags = torch.empty(B * partial_blocks(arr.dims, lanes) * FLAG_INTS,
+                        dtype=torch.int32, device=dev)
     err_out = partial = None
     if vol_err:
         err_out = torch.empty((B, S), dtype=f32, device=dev)
@@ -285,8 +342,9 @@ def _grid_frame_cuda(pos, vel, arr: NHGridArrays, params: PhysicsParams,
             prev_out.data_ptr(), vel_out.data_ptr(),
             None if err_out is None else err_out.data_ptr(),
             None if partial is None else partial.data_ptr(),
-            arr.inv_mass.data_ptr(), grab_id.data_ptr(), grab_pos.data_ptr(),
-            B, G, S, grid, _frame_params(arr, params),
+            flags.data_ptr(), arr.inv_mass.data_ptr(), grab_id.data_ptr(),
+            grab_pos.data_ptr(), B, G, S, lanes, reach(arr.dims, lanes), grid,
+            _frame_params(arr, params),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check(lib, err, f"cooperative launch of {grid} blocks")
