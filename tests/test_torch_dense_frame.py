@@ -400,7 +400,8 @@ def test_onehot_built_only_for_the_twin(small):
 def test_frame_work_from_shapes(dragon_arrays):
     """frame_flops: 421 a tet and 13 a particle, each substep and body;
     frame_bytes: the state read (pos, vel) and written (pos, prev, vel)
-    once, a grab per body, the tables once (72 bytes a slot)."""
+    once, a grab per body, the tables' valid slots once (72 bytes a
+    tet)."""
     mesh, arr = dragon_arrays
     params = tt.default_cpu_params()
     L, C = arr.irv.shape
@@ -408,7 +409,7 @@ def test_frame_work_from_shapes(dragon_arrays):
     assert dense_frame.frame_flops(arr, params, 128) == (
         128 * 5 * (421 * 3840 + 13 * 1234))
     assert dense_frame.frame_bytes(arr, 128) == (
-        128 * (5 * 12 * 1234 + 16) + 32 * 256 * (4 * 4 + 9 * 4 + 4 + 4 * 4))
+        128 * (5 * 12 * 1234 + 16) + 3840 * (4 * 4 + 9 * 4 + 4 + 4 * 4))
 
 
 def test_frame_entry_refuses_cpu(small):

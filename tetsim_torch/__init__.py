@@ -31,7 +31,9 @@ in columns through the dense engine (``solvers/dense.py``, ``DenseBody``):
 one launch of ``kernels/csrc/dense_frame.cu`` a frame on the card, each
 level gathered and scattered by index, a body's positions in the block's
 shared memory or, past 19,370 particles, in a global scratch (the one-hot
-products are its plain twin's, built only when the twin runs).  ``parallel.DeviceMesh`` holds devices on named
+products are its plain twin's, built only when the twin runs), and
+``backend="dense_ordered"`` on the order-preserving levels.
+``parallel.DeviceMesh`` holds devices on named
 axes, as ``jax.sharding.Mesh`` does: ``parallel.make_sharded_step`` splits
 a batch of bodies (the body axis, K1 / K2 on each device) or one mesh's
 tets (the tet axis, in plain torch, as the JAX package runs it in XLA)

@@ -49,6 +49,9 @@ from .polar_fused import CLUSTER_SIZES, MAX_CLUSTER, cluster_size
 THREADS = 256  # threads per block, as kThreads in csrc/dense_frame.cu
 FLOPS_PER_TET = 421  # one tet's projection, as gs_fused.frame_flops counts it
 FLOPS_PER_PARTICLE = 13  # predict and velocity update, per substep
+# a tet's row of the level tables: ids, inverse rest pose, inverse rest
+# volume and the corners' inverse masses
+TABLE_BYTES_PER_TET = 4 * 4 + 9 * 4 + 4 + 4 * 4
 NVCC_FLAGS = ()  # the library's own nvcc flags (profile_frame.py adds some)
 
 FORMS = ("shared", "global")
@@ -142,10 +145,11 @@ def frame_flops(arr, params: PhysicsParams, num_bodies: int) -> int:
 def frame_bytes(arr, num_bodies: int) -> int:
     """Bytes a frame must move: pos and vel read once and pos, prev and vel
     written once (f32 [N, 3] a body each), a grab read per body (id and
-    target), the level tables read once."""
-    tables = sum(t.numel() * t.element_size()
-                 for t in (arr.ids, arr.irp, arr.irv, arr.imc))
-    return num_bodies * (5 * 12 * arr.num_particles + 16) + tables
+    target), the level tables' valid slots read once (the kernel skips the
+    padded ones)."""
+    tets = int((arr.irv != 0).sum())
+    return (num_bodies * (5 * 12 * arr.num_particles + 16)
+            + TABLE_BYTES_PER_TET * tets)
 
 
 def library() -> ctypes.CDLL:

@@ -23,7 +23,8 @@ large unstructured mesh runs through ``Body`` with the pieces engines
 ``add_body_batch(..., backend="fused_ordered")`` steps 8 bodies in the
 reference's exact constraint order (``OrderedGSBody``), and
 ``add_body_batch(..., backend="dense")`` B bodies batched in columns
-through the dense engine (``DenseBody``, ``solvers/dense.py``).
+through the dense engine (``DenseBody``, ``solvers/dense.py``), or with
+``backend="dense_ordered"`` on its order-preserving levels.
 
 ``enable_render_export`` / ``step_many_export`` run a body's frames and
 then its surface export ([2, S, 3]: skinned vertices and normals) as one
@@ -778,7 +779,9 @@ class DenseBody:
     [N, 3, B] (``state``), one launch of ``kernels/csrc/dense_frame.cu`` a
     frame on CUDA (each level gathered and scattered by index, at any
     number of particles; the one-hot products are the plain twin's, on the
-    CPU, and the one-hot is built only when the twin runs).  One grab per
+    CPU, and the one-hot is built only when the twin runs).  ``coloring``
+    "greedy" or "ordered" (the order-preserving levels of
+    ``mesh.level_schedule``: the reference's exact order).  One grab per
     body: grab_id int32 [B] (-1 inactive), grab_pos [3, B].  The per-body
     grab API of the other batches; ``positions`` and ``velocities`` are [B,
     N, 3]."""
@@ -795,6 +798,7 @@ class DenseBody:
     ):
         self.mesh = mesh
         self.engine = "dense"
+        self.coloring = coloring
         self.num_bodies = num_bodies
         self.device = check_device(device)
         self.arrays = dense.build_dense_arrays(mesh, density, coloring,
@@ -1009,7 +1013,10 @@ class World:
         backend="dense" — ``DenseBody``: the neohookean engine with bodies
                           batched in columns, one launch of the dense
                           frame kernel per frame (each level gathered and
-                          scattered by index).
+                          scattered by index), on the greedy colouring;
+        backend="dense_ordered" — ``DenseBody`` on the order-preserving
+                          levels: the dense engine in the reference's exact
+                          constraint order, any number of bodies.
         """
         d = float(self.params.density) if density is None else density
         kw = dict(density=d, jitter=jitter, seed=seed, device=self.device)
@@ -1035,11 +1042,12 @@ class World:
                     "the fused backend implements the neohookean and polar "
                     f"engines, not {engine!r}"
                 )
-        elif backend == "dense":
+        elif backend in ("dense", "dense_ordered"):
             if engine != "neohookean":
                 raise ValueError(
-                    "the dense backend implements the neohookean engine")
-            batch = DenseBody(mesh, num_bodies, **kw)
+                    f"the {backend} backend implements the neohookean engine")
+            coloring = "ordered" if backend == "dense_ordered" else "greedy"
+            batch = DenseBody(mesh, num_bodies, coloring=coloring, **kw)
         elif backend == "flat":
             batch = BatchedBody(mesh, num_bodies, engine=engine, **kw)
         else:
